@@ -1,0 +1,248 @@
+"""HuBERT / wav2vec2 speech encoder, eval semantics (counterpart of
+``aat_tpu/models/hubert.py``).
+
+conv feature extractor (strided 1-D convs, 'layer' or 'group' norm) →
+feature projection → grouped positional conv (SamePad) → transformer
+encoder (post-LN 'base' or pre-LN 'stable layer norm' large). Parameters
+are plain dictionaries of tensors with the JAX package's tree layout,
+except that conv kernels are stored in PyTorch's ``[C_out, C_in/groups,
+K]`` order (see :mod:`aat_tpu_torch.utils.port`).
+
+Left out (train mode or TPU layout devices): dropout, LayerDrop, remat,
+pipeline/sequence/tensor parallelism, the chunked and im2col/space-to-depth
+conv forms, and the pre-pad to the flash block multiple.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from aat_tpu_torch.ops.attention import attention_bthd
+from aat_tpu_torch.utils.port import hubert_from_jax
+
+
+@dataclasses.dataclass(frozen=True)
+class HubertConfig:
+    conv_dim: Tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = True
+    feat_extract_norm: str = "layer"  # 'layer' (large) | 'group' (base)
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    layer_norm_eps: float = 1e-5
+    do_stable_layer_norm: bool = True
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    attention_impl: str = "xla"  # 'xla' (plain) | 'pallas' (flash kernel)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def hubert_large_config() -> HubertConfig:
+    """facebook/hubert-large-ls960-ft, with the flash kernel requested
+    (eval only: the train-mode dropout rates of the JAX config are not
+    ported)."""
+    return HubertConfig(attention_impl="pallas")
+
+
+def tiny_test_config() -> HubertConfig:
+    """Small random config for parity tests."""
+    return HubertConfig(
+        conv_dim=(16, 16, 16), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        intermediate_size=64, num_conv_pos_embeddings=16,
+        num_conv_pos_embedding_groups=4,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_hubert_numpy(seed: int, config: HubertConfig) -> dict:
+    """The JAX package's int-seed draws (normal std 0.02, numpy
+    ``default_rng(seed)``), in its layout: conv kernels ``[K, C_in, C_out]``."""
+    r = np.random.default_rng(int(seed))
+    std = 0.02
+
+    def normal(*shape):
+        return r.normal(0.0, std, shape).astype(np.float32)
+
+    def dense(din, dout):
+        return {"kernel": normal(din, dout), "bias": np.zeros((dout,), np.float32)}
+
+    def layernorm(d):
+        return {"scale": np.ones((d,), np.float32), "bias": np.zeros((d,), np.float32)}
+
+    params: dict = {"feature_extractor": []}
+    in_ch = 1
+    for i, (dim, kernel) in enumerate(zip(config.conv_dim, config.conv_kernel)):
+        layer = {"conv": {"kernel": normal(kernel, in_ch, dim)}}
+        if config.conv_bias:
+            layer["conv"]["bias"] = np.zeros((dim,), np.float32)
+        if config.feat_extract_norm == "layer":
+            layer["layer_norm"] = layernorm(dim)
+        elif i == 0:
+            layer["group_norm"] = layernorm(dim)
+        params["feature_extractor"].append(layer)
+        in_ch = dim
+
+    h = config.hidden_size
+    params["feature_projection"] = {
+        "layer_norm": layernorm(config.conv_dim[-1]),
+        "projection": dense(config.conv_dim[-1], h),
+    }
+    params["pos_conv"] = {
+        "kernel": normal(config.num_conv_pos_embeddings,
+                         h // config.num_conv_pos_embedding_groups, h),
+        "bias": np.zeros((h,), np.float32),
+    }
+    params["layers"] = []
+    for _ in range(config.num_hidden_layers):
+        params["layers"].append({
+            "attention": {"q": dense(h, h), "k": dense(h, h), "v": dense(h, h),
+                          "out": dense(h, h)},
+            "layer_norm": layernorm(h),
+            "feed_forward": {"intermediate": dense(h, config.intermediate_size),
+                             "output": dense(config.intermediate_size, h)},
+            "final_layer_norm": layernorm(h),
+        })
+    params["encoder_layer_norm"] = layernorm(h)
+    return params
+
+
+def init_hubert_params(seed: int, config: HubertConfig, device=None) -> dict:
+    """Random init equal to the JAX package's ``init_hubert_params(seed)``."""
+    return hubert_from_jax(init_hubert_numpy(seed, config), device)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _layer_norm(x, p, eps):
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps) * p["scale"].float()
+    return (out + p["bias"].float()).to(x.dtype)
+
+
+def _dense(x, p):
+    return torch.matmul(x, p["kernel"].to(x.dtype)) + p["bias"]
+
+
+def _conv_stack(params, config: HubertConfig, x: torch.Tensor) -> torch.Tensor:
+    """[B, L] → [B, T, conv_dim[-1]] through plain ``conv1d`` (channels-first
+    inside, the JAX [B, T, C] layout at the boundary)."""
+    h = x[:, None, :]  # [B, 1, L]
+    for i, layer in enumerate(params["feature_extractor"]):
+        h = F.conv1d(h, layer["conv"]["kernel"].to(h.dtype), layer["conv"].get("bias"),
+                     stride=config.conv_stride[i])
+        if "layer_norm" in layer:
+            h = _layer_norm(h.transpose(1, 2), layer["layer_norm"],
+                            config.layer_norm_eps).transpose(1, 2)
+        if "group_norm" in layer:
+            # GroupNorm(num_groups=dim): per-channel over the length axis
+            mean = h.mean(-1, keepdim=True)
+            var = ((h - mean) ** 2).mean(-1, keepdim=True)
+            h = (h - mean) * torch.rsqrt(var + config.layer_norm_eps)
+            h = h * layer["group_norm"]["scale"][:, None] + layer["group_norm"]["bias"][:, None]
+        h = F.gelu(h)
+    return h.transpose(1, 2)
+
+
+def feature_lengths(config: HubertConfig, input_lengths: torch.Tensor) -> torch.Tensor:
+    """Conv output lengths (torch ``_get_feat_extract_output_lengths``)."""
+    lengths = input_lengths
+    for kernel, stride in zip(config.conv_kernel, config.conv_stride):
+        lengths = torch.div(lengths - kernel, stride, rounding_mode="floor") + 1
+    return lengths
+
+
+def feature_vector_attention_mask(config: HubertConfig, feature_seq_len: int,
+                                  attention_mask: torch.Tensor) -> torch.Tensor:
+    """[B, L] sample mask → [B, T] bool frame mask."""
+    out_lens = feature_lengths(config, attention_mask.sum(-1))
+    return torch.arange(feature_seq_len, device=attention_mask.device)[None, :] < out_lens[:, None]
+
+
+def _pos_conv_embedding(params, config: HubertConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """Grouped relative-positional conv + GELU (wav2vec2 SamePad)."""
+    k = config.num_conv_pos_embeddings
+    pad = k // 2
+    x = F.conv1d(hidden.transpose(1, 2), params["pos_conv"]["kernel"].to(hidden.dtype),
+                 params["pos_conv"]["bias"], padding=pad,
+                 groups=config.num_conv_pos_embedding_groups)
+    if k % 2 == 0:  # SamePad: drop the trailing element for even kernels
+        x = x[:, :, :-1]
+    return F.gelu(x).transpose(1, 2)
+
+
+def _attention(params, config: HubertConfig, x, frame_mask):
+    b, t, _ = x.shape
+    hd = config.head_dim
+    nh = params["q"]["kernel"].shape[-1] // hd
+    q = _dense(x, params["q"]).reshape(b, t, nh, hd)
+    k = _dense(x, params["k"]).reshape(b, t, nh, hd)
+    v = _dense(x, params["v"]).reshape(b, t, nh, hd)
+    key_mask = (frame_mask.to(torch.int32) if frame_mask is not None
+                else torch.ones((b, t), dtype=torch.int32, device=x.device))
+    ctx = attention_bthd(q, k, v, key_mask, causal=False, sm_scale=hd ** -0.5,
+                         use_kernel=config.attention_impl == "pallas")
+    return _dense(ctx.reshape(b, t, nh * hd), params["out"])
+
+
+def _feed_forward(params, x):
+    return _dense(F.gelu(_dense(x, params["intermediate"])), params["output"])
+
+
+def encoder(params, config: HubertConfig, hidden: torch.Tensor,
+            frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Transformer encoder, eval mode."""
+    eps = config.layer_norm_eps
+    if frame_mask is not None:
+        hidden = hidden * frame_mask[..., None].to(hidden.dtype)
+    hidden = hidden + _pos_conv_embedding(params, config, hidden)
+    if not config.do_stable_layer_norm:
+        hidden = _layer_norm(hidden, params["encoder_layer_norm"], eps)
+    for layer in params["layers"][: config.num_hidden_layers]:
+        if config.do_stable_layer_norm:  # pre-LN (large)
+            attn_in = _layer_norm(hidden, layer["layer_norm"], eps)
+            hidden = hidden + _attention(layer["attention"], config, attn_in, frame_mask)
+            ff_in = _layer_norm(hidden, layer["final_layer_norm"], eps)
+            hidden = hidden + _feed_forward(layer["feed_forward"], ff_in)
+        else:  # post-LN (base)
+            hidden = hidden + _attention(layer["attention"], config, hidden, frame_mask)
+            hidden = _layer_norm(hidden, layer["layer_norm"], eps)
+            hidden = hidden + _feed_forward(layer["feed_forward"], hidden)
+            hidden = _layer_norm(hidden, layer["final_layer_norm"], eps)
+    if config.do_stable_layer_norm:
+        hidden = _layer_norm(hidden, params["encoder_layer_norm"], eps)
+    return hidden
+
+
+def hubert_encode(params: dict, config: HubertConfig, waveform: torch.Tensor,
+                  attention_mask: Optional[torch.Tensor] = None):
+    """[B, L] waveforms → ([B, T, H] frames, [B, T] bool frame mask or None),
+    eval semantics (``HubertModel.forward`` with mask_time_prob=0)."""
+    features = _conv_stack(params, config, waveform)
+    frame_mask = None
+    if attention_mask is not None:
+        frame_mask = feature_vector_attention_mask(config, features.shape[1], attention_mask)
+    fp = params["feature_projection"]
+    hidden = _layer_norm(features, fp["layer_norm"], config.layer_norm_eps)
+    hidden = _dense(hidden, fp["projection"])
+    return encoder(params, config, hidden, frame_mask), frame_mask
