@@ -1,57 +1,50 @@
-// Dense (non-causal) flash-attention forward with a key-padding mask.
+// Flash-attention forward, dense or causal, with a key-padding mask, an
+// optional row log-sum-exp and optional attention-probability dropout.
 //
-// Replaces the TPU kernel aat_tpu/ops/attention.py:186 `_fwd_kernel`
-// (non-causal, launched by `_flash_forward` :471). q [B,T,H,D], k/v
-// [B,S,KVH,D] read through their strides (no transpose around the call),
-// key mask [B,S] int32 -> out [B,T,H,D] in the input dtype. f32 or bf16
-// inputs, f32 accumulation. (The row log-sum-exp the backward needs is
-// added with the backward kernel.) Semantics kept exactly from the TPU kernel:
+// Replaces the TPU kernels aat_tpu/ops/attention.py:186 `_fwd_kernel`
+// (dense, launched by `_flash_forward` :471) and :245 `_fwd_tri_kernel`
+// (causal over the lower-triangle step tables `_tri_tables` :638, launched
+// :418). q [B,T,H,D], k/v [B,S,KVH,D] read through their strides (no
+// transpose around the call), key mask [B,S] int32 -> out [B,T,H,D] in the
+// input dtype, lse [B,H,T] f32 when asked for (the backward's residual).
+// f32 or bf16 inputs, f32 accumulation. Semantics kept exactly from the TPU
+// kernels:
 //   - sm_scale is folded into q and rounded to the input dtype (:346);
 //   - masked keys score -2e30 and the running max starts at -1e30, so a
-//     fully masked row gives exp() == 0 everywhere and an exact-zero output;
-//   - the normaliser is floored at 1e-30 and applied as a reciprocal;
-//   - probabilities are rounded to v's dtype before P @ V (bf16 path);
-//   - GQA: q-head h reads kv-head h / (H / KVH).
-// Train-mode dropout (the position hash) is not part of this kernel.
+//     fully masked row gives exp() == 0 everywhere, an exact-zero output
+//     and lse == -1e30;
+//   - the normaliser sums the undropped, unrounded probabilities, is
+//     floored at 1e-30 and applied as a reciprocal;
+//   - dropout keeps a probability where the position hash of (q, k) under
+//     seed + (b*H + h)*0x9e3779b9 is >= rate, scaling kept ones by
+//     1/(1-rate) (flash_common.cuh), before the rounding to v's dtype;
+//   - GQA: q-head h reads kv-head h / (H / KVH);
+//   - causal: key k is allowed for query q when k <= q and, with
+//     pack_len > 0, k / pack_len == q / pack_len.
+// The TPU's causal step tables become a loop bound: the key loop of a
+// query block stops at min(S, q0 + 32), and the triangle select runs only
+// on tiles that straddle the diagonal (or on every tile with pack_len).
 //
 // What bounds it on the H100: this first version runs scores and P @ V on
 // the FP32 FFMA pipes out of shared memory, so arithmetic (4*T*S*D flops
-// per head at <= 67 TFLOP/s) and shared-memory bandwidth bound it, far
-// below the tensor-core rate. Its design: a block owns 32 query rows of one
-// (batch, head); a loop over 64-key tiles inside the block replaces the
-// TPU's sequential k grid axis, carrying the online-softmax state (row max,
-// denominator, 64- or 128-wide accumulator) in registers. Four threads
-// share a query row (scores: 16 keys each; output: D/4 columns each) and
-// combine row max and row sum with warp shuffles. Shared-memory rows are
-// padded by one float so the strided reads hit distinct banks.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// per head, half that causal, at <= 67 TFLOP/s) and shared-memory bandwidth
+// bound it, far below the tensor-core rate. Its design: a block owns 32
+// query rows of one (batch, head); a loop over 64-key tiles inside the block
+// replaces the TPU's sequential k grid axis, carrying the online-softmax
+// state (row max, denominator, 64- or 128-wide accumulator) in registers.
+// Four threads share a query row (scores: 16 keys each; output: D/4
+// columns each) and combine row max and row sum with warp shuffles.
+// Shared-memory rows are padded by one float so the strided reads hit
+// distinct banks.
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace aat_flash;
 
 constexpr int kBQ = 32;
 constexpr int kBK = 64;
 constexpr int kThreads = 128;  // 4 threads per query row
-constexpr float kMask = -2e30f;
-constexpr float kNegInf = -1e30f;
-
-template <typename T> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-template <> struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -59,15 +52,21 @@ constexpr size_t smem_bytes() {
                           kBQ * (kBK + 1) + kBK);
 }
 
-template <typename T, int D>
+struct FwdArgs {
+  const int* key_mask;
+  float* lse;  // nullptr: no residual
+  int t_len, s_len, n_heads, n_kv_heads;
+  long long q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float sm_scale;
+  int pack_len;
+  unsigned int seed;
+  float rate, inv_keep;  // rate 0: no dropout
+};
+
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ key_mask,
-                 T* __restrict__ out, int t_len,
-                 int s_len, int n_heads, int n_kv_heads, long long q_sb,
-                 long long q_st, long long q_sh, long long k_sb, long long k_ss,
-                 long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-                 float sm_scale) {
+                 const T* __restrict__ v, T* __restrict__ out, FwdArgs a) {
   extern __shared__ float smem[];
   float* qs = smem;                      // [kBQ][D+1]
   float* ks = qs + kBQ * (D + 1);        // [kBK][D+1]
@@ -79,42 +78,46 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const int hk = h / (n_heads / n_kv_heads);
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + hk * k_sh;
-  const T* vb = v + b * v_sb + hk * v_sh;
-  const int* mb = key_mask + b * s_len;
+  const int hk = h / (a.n_heads / a.n_kv_heads);
+  const T* qb = q + b * a.q_sb + h * a.q_sh;
+  const T* kb = k + b * a.k_sb + hk * a.k_sh;
+  const T* vb = v + b * a.v_sb + hk * a.v_sh;
+  const int* mb = a.key_mask + b * a.s_len;
+  const uint32_t seed_and_head =
+      a.seed + (uint32_t)(b * a.n_heads + h) * kGolden;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     float x = 0.f;
-    if (q0 + r < t_len)
-      x = Cvt<T>::round(Cvt<T>::load(qb[(q0 + r) * q_st + d]) * sm_scale);
+    if (q0 + r < a.t_len)
+      x = Cvt<T>::round(Cvt<T>::load(qb[(q0 + r) * a.q_st + d]) * a.sm_scale);
     qs[r * (D + 1) + d] = x;
   }
 
   const int row = tid / 4;   // query row within the tile
   const int lane = tid % 4;  // which quarter of keys / output columns
+  const int q_pos = q0 + row;
   float m_i = kNegInf, l_i = 0.f;
   float acc[D / 4];
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < s_len; k0 += kBK) {
+  const int k_end = CAUSAL ? min(a.s_len, q0 + kBQ) : a.s_len;
+  for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // q loaded; previous tile's K/V no longer read
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int c = i / D, d = i % D;
       const int s = k0 + c;
       float kx = 0.f, vx = 0.f;
-      if (s < s_len) {
-        kx = Cvt<T>::load(kb[s * k_ss + d]);
-        vx = Cvt<T>::load(vb[s * v_ss + d]);
+      if (s < a.s_len) {
+        kx = Cvt<T>::load(kb[s * a.k_ss + d]);
+        vx = Cvt<T>::load(vb[s * a.v_ss + d]);
       }
       ks[c * (D + 1) + d] = kx;
       vs[c * D + d] = vx;
     }
     for (int i = tid; i < kBK; i += kThreads)
-      bias[i] = (k0 + i < s_len && mb[k0 + i] > 0) ? 0.f : kMask;
+      bias[i] = (k0 + i < a.s_len && mb[k0 + i] > 0) ? 0.f : kMask;
     __syncthreads();
 
     // scores: one q value read from shared memory feeds 16 FMAs
@@ -128,10 +131,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kBK / 4; ++j)
         sc[j] = fmaf(qv, ks[(lane + 4 * j) * (D + 1) + d], sc[j]);
     }
+    const bool edge = CAUSAL && (a.pack_len > 0 || k0 + kBK - 1 > q0);
     float mx = kMask;
 #pragma unroll
     for (int j = 0; j < kBK / 4; ++j) {
       sc[j] += bias[lane + 4 * j];
+      if (edge && !causal_allowed(q_pos, k0 + lane + 4 * j, a.pack_len))
+        sc[j] = kMask;
       mx = fmaxf(mx, sc[j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -141,8 +147,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float rs = 0.f;
 #pragma unroll
     for (int j = 0; j < kBK / 4; ++j) {
-      const float p = expf(sc[j] - m_new);
-      rs += p;  // the denominator sums the unrounded probabilities
+      float p = expf(sc[j] - m_new);
+      rs += p;  // the denominator sums the undropped, unrounded probabilities
+      if (a.rate > 0.f)
+        p = keep(seed_and_head, q_pos, k0 + lane + 4 * j, a.s_len, a.rate)
+                ? p * a.inv_keep : 0.f;
       ps[row * (kBK + 1) + lane + 4 * j] = Cvt<T>::round(p);
     }
     rs += __shfl_xor_sync(0xffffffffu, rs, 1);
@@ -161,55 +170,61 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const int t = q0 + row;
-  if (t < t_len) {
-    const float inv = 1.0f / fmaxf(l_i, 1e-30f);
-    T* ob = out + ((b * t_len + t) * n_heads + h) * D;
+  if (q_pos < a.t_len) {
+    const float l = fmaxf(l_i, 1e-30f);
+    const float inv = 1.0f / l;
+    T* ob = out + ((b * a.t_len + q_pos) * a.n_heads + h) * D;
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) ob[lane + 4 * i] = Cvt<T>::store(acc[i] * inv);
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(b * a.n_heads + h) * a.t_len + q_pos] = m_i + logf(l);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* key_mask,
-           void* out, int B, int T_len, int S, int H, int KVH,
-           long long q_sb, long long q_st, long long q_sh, long long k_sb,
-           long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-           long long v_sh, float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+template <typename T, int D, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           const FwdArgs& a, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, D, CAUSAL>;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
+  dim3 grid((a.t_len + kBQ - 1) / kBQ, a.n_heads, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), key_mask, static_cast<T*>(out), T_len, S,
-      H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sm_scale);
+      static_cast<const T*>(v), static_cast<T*>(out), a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_d(const void* q, const void* k, const void* v, void* out, int B,
+             int causal, const FwdArgs& a, cudaStream_t stream) {
+  return causal ? launch<T, D, true>(q, k, v, out, B, a, stream)
+                : launch<T, D, false>(q, k, v, out, B, a, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a head width the kernel was not built for.
+// for a head width the kernel was not built for. `lse` may be null.
 extern "C" int aat_flash_fwd(const void* q, const void* k, const void* v,
-                             const int* key_mask, void* out, int is_bf16,
-                             int B, int T_len, int S, int H, int KVH, int D, long long q_sb, long long q_st,
+                             const int* key_mask, void* out, float* lse,
+                             int is_bf16, int B, int T_len, int S, int H,
+                             int KVH, int D, long long q_sb, long long q_st,
                              long long q_sh, long long k_sb, long long k_ss,
                              long long k_sh, long long v_sb, long long v_ss,
-                             long long v_sh, float sm_scale,
-                             cudaStream_t stream) {
+                             long long v_sh, float sm_scale, int causal,
+                             int pack_len, int seed, float rate,
+                             float inv_keep, cudaStream_t stream) {
   if (B == 0 || T_len == 0 || H == 0) return 0;
-#define AAT_FLASH_ARGS                                                       \
-  q, k, v, key_mask, out, B, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, \
-      k_ss, k_sh, v_sb, v_ss, v_sh, sm_scale, stream
+  const FwdArgs a{key_mask, lse, T_len, S, H, KVH,
+                  q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                  sm_scale, pack_len, (unsigned int)seed, rate, inv_keep};
   if (D == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(AAT_FLASH_ARGS)
-                   : launch<float, 64>(AAT_FLASH_ARGS);
+    return is_bf16 ? launch_d<__nv_bfloat16, 64>(q, k, v, out, B, causal, a, stream)
+                   : launch_d<float, 64>(q, k, v, out, B, causal, a, stream);
   if (D == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(AAT_FLASH_ARGS)
-                   : launch<float, 128>(AAT_FLASH_ARGS);
-#undef AAT_FLASH_ARGS
+    return is_bf16 ? launch_d<__nv_bfloat16, 128>(q, k, v, out, B, causal, a, stream)
+                   : launch_d<float, 128>(q, k, v, out, B, causal, a, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 """ASLM — audio encoder + segment projection + audio BOS/EOS + Llama
-decoder (counterpart of ``aat_tpu/models/aslm.py``), eval semantics.
+decoder (counterpart of ``aat_tpu/models/aslm.py``). ``dropout_seed``
+(an int32, or None for eval) selects the encoder's train mode.
 
 Projection types ported: ``linear`` (zero masked frames, crop T to a
 multiple of k, ``[N, T/k, k*E]`` → MLP → LM hidden) and ``mean`` (masked
@@ -87,11 +88,13 @@ class AslmModel:
 
     def encode_audio(self, params: dict, waveforms: torch.Tensor,
                      waveforms_mask: Optional[torch.Tensor] = None,
-                     segments_mask: Optional[torch.Tensor] = None):
+                     segments_mask: Optional[torch.Tensor] = None,
+                     dropout_seed: Optional[int] = None):
         """[N, F] segment waveforms → ([N, T, E] frames, [N, T] frame mask);
         frames of padded segments (``segments_mask`` 0) are masked out."""
         frames, frame_mask = hub.hubert_encode(
-            params["audio_encoder"], self.audio_encoder_config, waveforms, waveforms_mask)
+            params["audio_encoder"], self.audio_encoder_config, waveforms, waveforms_mask,
+            dropout_seed=dropout_seed)
         if frame_mask is None:
             frame_mask = torch.ones(frames.shape[:2], dtype=torch.bool, device=frames.device)
         if segments_mask is not None:
@@ -126,10 +129,13 @@ class AslmModel:
                              inputs_embeds: Optional[torch.Tensor] = None,
                              attention_mask: Optional[torch.Tensor] = None,
                              input_ids: Optional[torch.Tensor] = None,
-                             segments_count: Optional[int] = None) -> dict:
+                             segments_count: Optional[int] = None,
+                             dropout_seed: Optional[int] = None) -> dict:
         """Project audio, wrap with audio BOS/EOS embeddings, concat text.
         With ``segments_count``, ``audio_embeds`` is ``[B*S, ...]`` and the
-        projected vectors unflatten to ``[B, S*P, H]``."""
+        projected vectors unflatten to ``[B, S*P, H]``. ``dropout_seed`` is
+        accepted for the JAX signature: the linear and mean projections have
+        no dropout (the transformer_encoder projection, not ported, has)."""
         cfg = self.config
         if input_ids is not None:
             inputs_embeds = self.encode_text(params, input_ids)
@@ -161,3 +167,29 @@ class AslmModel:
 
     def encode_text(self, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
         return llm.embed_tokens(params["lm_decoder"], input_ids)
+
+    def forward(self, params: dict, inputs_embeds: torch.Tensor,
+                attention_mask: torch.Tensor, pack: int = 1,
+                caption_len: Optional[int] = None) -> torch.Tensor:
+        """LM forward over assembled embeds → f32 logits. ``pack`` > 1 folds
+        that many utterance rows into each LM row (block-diagonal attention,
+        rotary positions restarting per utterance: the same logits as
+        unpacked). ``caption_len``: logits only for the shifted-caption
+        window, ``[B, caption_len−1, V]``."""
+        out_t = caption_len - 1 if caption_len is not None else None
+        if pack > 1:
+            b, t, h = inputs_embeds.shape
+            if b % pack:
+                raise ValueError(f"batch {b} is not a multiple of lm_pack {pack}")
+            packed = inputs_embeds.reshape(b // pack, pack * t, h)
+            mask = attention_mask.reshape(b // pack, pack * t)
+            positions = torch.arange(t, device=inputs_embeds.device).repeat(pack)[None, :]
+            logits, _ = llm.llama_forward(
+                params["lm_decoder"], self.lm_config, inputs_embeds=packed,
+                attention_mask=mask, positions=positions.expand(b // pack, pack * t),
+                pack_len=t, logit_caption_len=caption_len)
+            return logits.reshape(b, out_t or t, logits.shape[-1])
+        logits, _ = llm.llama_forward(
+            params["lm_decoder"], self.lm_config, inputs_embeds=inputs_embeds,
+            attention_mask=attention_mask, logit_caption_len=caption_len)
+        return logits

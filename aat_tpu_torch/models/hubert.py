@@ -1,5 +1,5 @@
-"""HuBERT / wav2vec2 speech encoder, eval semantics (counterpart of
-``aat_tpu/models/hubert.py``).
+"""HuBERT / wav2vec2 speech encoder (counterpart of
+``aat_tpu/models/hubert.py``), eval and train mode.
 
 conv feature extractor (strided 1-D convs, 'layer' or 'group' norm) →
 feature projection → grouped positional conv (SamePad) → transformer
@@ -8,9 +8,23 @@ are plain dictionaries of tensors with the JAX package's tree layout,
 except that conv kernels are stored in PyTorch's ``[C_out, C_in/groups,
 K]`` order (see :mod:`aat_tpu_torch.utils.port`).
 
-Left out (train mode or TPU layout devices): dropout, LayerDrop, remat,
+Train mode (a ``dropout_seed``) applies the torch train-mode
+regularization of the JAX package: feature-projection dropout, hidden
+dropout after the positional conv, per-layer attention-probability,
+residual and activation dropout, and LayerDrop. The JAX package derives
+each site's key from one PRNG key with ``split``/``fold_in``; the port
+derives each site's int32 seed from one int32 seed with
+:func:`~aat_tpu_torch.ops.dropout.fold_seed`, on the host. The two cannot
+draw the same bits, so masks agree in distribution, not element for
+element (op-level parity is held with explicit seeds). A dropped layer is
+skipped, where JAX computes it and selects the input: the result is the
+same, and its parameters get no gradient (``None``), which the optimizer
+reads as zero.
+
+Left out (TPU layout devices and multi-device): remat,
 pipeline/sequence/tensor parallelism, the chunked and im2col/space-to-depth
-conv forms, and the pre-pad to the flash block multiple.
+conv forms, and the pre-pad to the flash block multiple (with dropout on,
+the pre-pad changes the flat positions the JAX masks are keyed on).
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from aat_tpu_torch.ops.attention import attention_bthd
+from aat_tpu_torch.ops.dropout import dropout, fold_seed, uniform_from_seed
 from aat_tpu_torch.utils.port import hubert_from_jax
 
 
@@ -41,6 +56,11 @@ class HubertConfig:
     do_stable_layer_norm: bool = True
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
+    feature_projection_dropout: float = 0.0
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
+    activation_dropout: float = 0.0
+    layerdrop: float = 0.0  # torch train-mode LayerDrop (whole-layer skip)
     attention_impl: str = "xla"  # 'xla' (plain) | 'pallas' (flash kernel)
 
     @property
@@ -49,10 +69,11 @@ class HubertConfig:
 
 
 def hubert_large_config() -> HubertConfig:
-    """facebook/hubert-large-ls960-ft, with the flash kernel requested
-    (eval only: the train-mode dropout rates of the JAX config are not
-    ported)."""
-    return HubertConfig(attention_impl="pallas")
+    """facebook/hubert-large-ls960-ft, with the flash kernel requested and
+    the HF train-mode dropout rates of the JAX config (they act only when a
+    ``dropout_seed`` is passed)."""
+    return HubertConfig(attention_impl="pallas", hidden_dropout=0.1,
+                        attention_dropout=0.1, activation_dropout=0.1, layerdrop=0.1)
 
 
 def tiny_test_config() -> HubertConfig:
@@ -191,7 +212,7 @@ def _pos_conv_embedding(params, config: HubertConfig, hidden: torch.Tensor) -> t
     return F.gelu(x).transpose(1, 2)
 
 
-def _attention(params, config: HubertConfig, x, frame_mask):
+def _attention(params, config: HubertConfig, x, frame_mask, dropout_seed=None):
     b, t, _ = x.shape
     hd = config.head_dim
     nh = params["q"]["kernel"].shape[-1] // hd
@@ -201,43 +222,77 @@ def _attention(params, config: HubertConfig, x, frame_mask):
     key_mask = (frame_mask.to(torch.int32) if frame_mask is not None
                 else torch.ones((b, t), dtype=torch.int32, device=x.device))
     ctx = attention_bthd(q, k, v, key_mask, causal=False, sm_scale=hd ** -0.5,
-                         use_kernel=config.attention_impl == "pallas")
+                         use_kernel=config.attention_impl == "pallas",
+                         dropout_rate=config.attention_dropout, dropout_seed=dropout_seed)
     return _dense(ctx.reshape(b, t, nh * hd), params["out"])
 
 
-def _feed_forward(params, x):
-    return _dense(F.gelu(_dense(x, params["intermediate"])), params["output"])
+def _feed_forward(params, x, config: HubertConfig, dropout_seed=None):
+    y = F.gelu(_dense(x, params["intermediate"]))
+    if dropout_seed is None:
+        return _dense(y, params["output"])
+    # HF HubertFeedForward: intermediate_dropout (activation_dropout), then
+    # output_dropout (hidden_dropout)
+    y = dropout(fold_seed(dropout_seed, 0), y, config.activation_dropout)
+    return dropout(fold_seed(dropout_seed, 1), _dense(y, params["output"]),
+                   config.hidden_dropout)
+
+
+_HIDDEN_SITE = 1 << 16  # encoder seed site of the post-positional-conv dropout
+_LAYERDROP_SITE = 1 << 20  # layer seed site of the LayerDrop draw
+
+
+def _layer(layer, config: HubertConfig, hidden, frame_mask, seed):
+    """One encoder layer; ``seed`` (or None) is the layer's dropout seed,
+    split into attention (0), attention-residual (1) and feed-forward (2)."""
+    eps = config.layer_norm_eps
+    s_attn = s_res = s_ff = None
+    if seed is not None:
+        s_attn, s_res, s_ff = (fold_seed(seed, i) for i in range(3))
+    if config.do_stable_layer_norm:  # pre-LN (large)
+        attn_in = _layer_norm(hidden, layer["layer_norm"], eps)
+        attn_out = _attention(layer["attention"], config, attn_in, frame_mask, s_attn)
+        hidden = hidden + dropout(s_res, attn_out, config.hidden_dropout)
+        ff_in = _layer_norm(hidden, layer["final_layer_norm"], eps)
+        return hidden + _feed_forward(layer["feed_forward"], ff_in, config, s_ff)
+    attn_out = _attention(layer["attention"], config, hidden, frame_mask, s_attn)  # post-LN
+    hidden = _layer_norm(hidden + dropout(s_res, attn_out, config.hidden_dropout),
+                         layer["layer_norm"], eps)
+    hidden = hidden + _feed_forward(layer["feed_forward"], hidden, config, s_ff)
+    return _layer_norm(hidden, layer["final_layer_norm"], eps)
 
 
 def encoder(params, config: HubertConfig, hidden: torch.Tensor,
-            frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Transformer encoder, eval mode."""
+            frame_mask: Optional[torch.Tensor],
+            dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Transformer encoder. ``dropout_seed`` selects train mode: hidden
+    dropout after the positional conv, per-layer dropout, and LayerDrop
+    (one draw per layer per call skips the whole layer for the batch)."""
     eps = config.layer_norm_eps
     if frame_mask is not None:
         hidden = hidden * frame_mask[..., None].to(hidden.dtype)
     hidden = hidden + _pos_conv_embedding(params, config, hidden)
     if not config.do_stable_layer_norm:
         hidden = _layer_norm(hidden, params["encoder_layer_norm"], eps)
-    for layer in params["layers"][: config.num_hidden_layers]:
-        if config.do_stable_layer_norm:  # pre-LN (large)
-            attn_in = _layer_norm(hidden, layer["layer_norm"], eps)
-            hidden = hidden + _attention(layer["attention"], config, attn_in, frame_mask)
-            ff_in = _layer_norm(hidden, layer["final_layer_norm"], eps)
-            hidden = hidden + _feed_forward(layer["feed_forward"], ff_in)
-        else:  # post-LN (base)
-            hidden = hidden + _attention(layer["attention"], config, hidden, frame_mask)
-            hidden = _layer_norm(hidden, layer["layer_norm"], eps)
-            hidden = hidden + _feed_forward(layer["feed_forward"], hidden)
-            hidden = _layer_norm(hidden, layer["final_layer_norm"], eps)
+    if dropout_seed is not None:
+        hidden = dropout(fold_seed(dropout_seed, _HIDDEN_SITE), hidden, config.hidden_dropout)
+    for idx, layer in enumerate(params["layers"][: config.num_hidden_layers]):
+        seed = fold_seed(dropout_seed, idx) if dropout_seed is not None else None
+        if (seed is not None and config.layerdrop > 0.0
+                and uniform_from_seed(fold_seed(seed, _LAYERDROP_SITE)) < config.layerdrop):
+            continue
+        hidden = _layer(layer, config, hidden, frame_mask, seed)
     if config.do_stable_layer_norm:
         hidden = _layer_norm(hidden, params["encoder_layer_norm"], eps)
     return hidden
 
 
 def hubert_encode(params: dict, config: HubertConfig, waveform: torch.Tensor,
-                  attention_mask: Optional[torch.Tensor] = None):
-    """[B, L] waveforms → ([B, T, H] frames, [B, T] bool frame mask or None),
-    eval semantics (``HubertModel.forward`` with mask_time_prob=0)."""
+                  attention_mask: Optional[torch.Tensor] = None,
+                  dropout_seed: Optional[int] = None):
+    """[B, L] waveforms → ([B, T, H] frames, [B, T] bool frame mask or None)
+    (``HubertModel.forward`` with mask_time_prob=0). Passing an int32
+    ``dropout_seed`` selects train mode; omitting it gives eval mode."""
     features = _conv_stack(params, config, waveform)
     frame_mask = None
     if attention_mask is not None:
@@ -245,4 +300,8 @@ def hubert_encode(params: dict, config: HubertConfig, waveform: torch.Tensor,
     fp = params["feature_projection"]
     hidden = _layer_norm(features, fp["layer_norm"], config.layer_norm_eps)
     hidden = _dense(hidden, fp["projection"])
-    return encoder(params, config, hidden, frame_mask), frame_mask
+    seed_enc = None
+    if dropout_seed is not None:
+        hidden = dropout(fold_seed(dropout_seed, 0), hidden, config.feature_projection_dropout)
+        seed_enc = fold_seed(dropout_seed, 1)
+    return encoder(params, config, hidden, frame_mask, seed_enc), frame_mask

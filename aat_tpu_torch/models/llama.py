@@ -9,10 +9,12 @@ Where the JAX code mixes dtypes (a bf16 KV cache under f32 activations),
 JAX promotes to f32; ``torch.matmul`` refuses mixed operands, so the port
 casts explicitly to the promoted type at those points.
 
-Ported: the KV-cache route of attention (serving prefill and decode) and
-the plain no-cache route. Not ported yet: the causal flash kernel that a
-no-cache ``attention_impl="pallas"`` call takes at T >= 256 (it raises),
-sequence packing, caption-sliced logits and pipeline/tensor parallelism.
+Routes of attention: the KV cache (serving prefill and decode), the
+plain no-cache route, and the causal flash route that a no-cache
+``attention_impl="pallas"`` call takes at T >= 256 (training and the
+eval-loss forward). Also ported: sequence packing (``pack_len``) and
+caption-sliced logits (``logit_caption_len``). Not ported: remat and
+pipeline/tensor parallelism.
 """
 
 from __future__ import annotations
@@ -146,8 +148,22 @@ def _apply_rope(q, k, cos, sin):
     return q_out.to(q.dtype), k_out.to(k.dtype)
 
 
-def _attention(p, config: LlamaConfig, x, cos, sin, mask_bias, kv_cache, cache_index):
-    b, t, _ = x.shape
+def _attention(p, config: LlamaConfig, x, cos, sin, mask_bias, kv_cache, cache_index,
+               key_padding_mask=None, pack_len=None):
+    b, t, h = x.shape
+    if (pack_len is not None and kv_cache is None
+            and key_padding_mask is not None and t != pack_len):
+        # packing is exactly block-diagonal: unfold the K packed utterances
+        # into the batch and run plain causal attention at T = pack_len (the
+        # JAX package's route; kernel-level pack_len stays for its API)
+        kq = t // pack_len
+        am = key_padding_mask.reshape(b * kq, pack_len)
+        out = _attention(p, config, x.reshape(b * kq, pack_len, h),
+                         cos.reshape(b * kq, pack_len, cos.shape[-1]),
+                         sin.reshape(b * kq, pack_len, sin.shape[-1]),
+                         causal_mask_bias(am, pack_len, pack_len, 0), None, 0,
+                         key_padding_mask=am)
+        return out.reshape(b, t, out.shape[-1])
     hd = config.head_dim
     nh = p["q"]["kernel"].shape[-1] // hd
     nkv = p["k"]["kernel"].shape[-1] // hd
@@ -173,10 +189,13 @@ def _attention(p, config: LlamaConfig, x, cos, sin, mask_bias, kv_cache, cache_i
             ck[:, :, i0 : i0 + t, :] = k.to(ck.dtype)
             cv[:, :, i0 : i0 + t, :] = v.to(cv.dtype)
         k, v = ck, cv
-    elif config.attention_impl == "pallas" and t >= attn_ops.MIN_PALLAS_SEQ_LEN:
-        raise NotImplementedError(
-            "no-cache causal attention at T >= 256 takes the causal flash kernel "
-            "(aat_tpu/ops/attention.py:245 _fwd_tri_kernel), not ported yet")
+    elif (config.attention_impl == "pallas" and key_padding_mask is not None
+          and t >= attn_ops.MIN_PALLAS_SEQ_LEN):
+        # causal flash route for training / eval-loss prefill (q_len ==
+        # kv_len, offset 0); GQA k/v go in unrepeated, the kernels map heads
+        ctx = attn_ops.flash_attention(q, k, v, key_padding_mask, True, hd ** -0.5,
+                                       pack_len=pack_len)
+        return _dense(ctx.transpose(1, 2).reshape(b, t, nh * hd), p["out"])
 
     if nkv != nh:
         rep = nh // nkv
@@ -202,9 +221,10 @@ def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def causal_mask_bias(attention_mask: torch.Tensor, q_len: int, kv_len: int,
-                     q_offset) -> torch.Tensor:
+                     q_offset, pack_len: Optional[int] = None) -> torch.Tensor:
     """Additive [B, 1, Q, K] bias: causality plus key padding. ``q_offset``
-    is a scalar or a per-row [B] vector (continuous batching)."""
+    is a scalar or a per-row [B] vector (continuous batching). ``pack_len``:
+    attention also stays within each packed utterance (offset 0)."""
     dev = attention_mask.device
     neg = torch.finfo(torch.float32).min
     k_pos = torch.arange(kv_len, device=dev)[None, :]
@@ -215,6 +235,8 @@ def causal_mask_bias(attention_mask: torch.Tensor, q_len: int, kv_len: int,
     else:
         q_pos = torch.arange(q_len, device=dev)[:, None] + int(q_offset)
         causal = (k_pos <= q_pos)[None]  # [1, Q, K]
+    if pack_len is not None:
+        causal = causal & (q_pos // pack_len == k_pos // pack_len)
     allowed = causal & (attention_mask[:, None, :] > 0)
     return torch.where(allowed, 0.0, neg).to(torch.float32)[:, None, :, :]
 
@@ -225,13 +247,19 @@ def llama_forward(params: dict, config: LlamaConfig,
                   attention_mask: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None,
                   kv_caches: Optional[list] = None,
-                  cache_index=0):
+                  cache_index=0,
+                  pack_len: Optional[int] = None,
+                  logit_caption_len: Optional[int] = None):
     """Returns (logits [B, T, V] f32, kv_caches).
 
     Prefill: embeds/ids and a [B, T] mask (or a [B, L_cache] mask with
     ``kv_caches``). Decode: next-token embeds, ``kv_caches`` (updated in
     place and returned), ``cache_index`` (scalar or [B]) and a
-    [B, L_cache] mask over the cache axis."""
+    [B, L_cache] mask over the cache axis. ``pack_len``: rows are packed
+    equal-length utterances (block-diagonal attention; pass per-utterance
+    ``positions``). ``logit_caption_len``: logits only for the shifted
+    caption window, ``[B, K·(cl−1), V]`` with K packed utterances per row;
+    the hidden state is sliced before the final norm and the vocab GEMM."""
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids)
     b, t, _ = inputs_embeds.shape
@@ -250,17 +278,24 @@ def llama_forward(params: dict, config: LlamaConfig,
 
     cos, sin = rope_cos_sin(positions, config.head_dim, config.rope_theta)
     mask_bias = causal_mask_bias(attention_mask, t, kv_len,
-                                 0 if kv_caches is None else cache_index)
+                                 0 if kv_caches is None else cache_index, pack_len)
 
     hidden = inputs_embeds
     for i, layer in enumerate(params["layers"][: config.num_hidden_layers]):
         cache = kv_caches[i] if kv_caches is not None else None
         attn_in = _rms_norm(hidden, layer["input_norm"], config.rms_norm_eps)
         hidden = hidden + _attention(layer["attention"], config, attn_in, cos, sin,
-                                     mask_bias, cache, cache_index)
+                                     mask_bias, cache, cache_index,
+                                     key_padding_mask=attention_mask, pack_len=pack_len)
         mlp_in = _rms_norm(hidden, layer["post_attention_norm"], config.rms_norm_eps)
         hidden = hidden + _mlp(layer["mlp"], mlp_in)
 
+    if logit_caption_len is not None:
+        if kv_caches is not None:
+            raise ValueError("caption slicing is a training-path feature (no KV cache)")
+        cl, p = logit_caption_len, pack_len or t
+        hidden = hidden.reshape(b, t // p, p, hidden.shape[-1])[:, :, p - cl : p - 1, :]
+        hidden = hidden.reshape(b, (t // p) * (cl - 1), hidden.shape[-1])
     hidden = _rms_norm(hidden, params["final_norm"], config.rms_norm_eps)
     head = (params["embed_tokens"]["embedding"].t() if config.tie_word_embeddings
             else params["lm_head"]["kernel"])

@@ -1,0 +1,110 @@
+"""Inverted dropout for the training path (counterpart of
+``aat_tpu/ops/dropout.py`` and of the position hash in
+``aat_tpu/ops/attention.py:103-125``).
+
+Both masks come from the murmur3 finalizer on 32-bit integers. The JAX
+package computes it in int32 with two's-complement wraparound and logical
+right shifts; torch's ``>>`` on int32 is arithmetic, so here the same bits
+are computed in int64, masked to the low 32 bits after every step. For the
+same int32 seed the masks equal the JAX package's bit for bit.
+
+The port takes an int32 seed where the JAX package takes a PRNG key (it
+draws the seed from the key). :func:`fold_seed` derives the seeds of the
+separate dropout sites from one seed on the host, so no device value is
+read to pick a seed.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_M32 = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9  # per-head seed decorrelation (-1640531527 as int32)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32), split in 16-bit
+    halves of ``c`` so no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _mix32_int(x: int) -> int:
+    x &= _M32
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
+def to_int32(x: int) -> int:
+    """The int32 whose bits are the low 32 bits of ``x``."""
+    x &= _M32
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """Derive an int32 seed from ``seed`` and integers (the port's
+    counterpart of ``jax.random.fold_in``, on the host)."""
+    for d in data:
+        seed = _mix32_int((seed & _M32) ^ _mix32_int(d * GOLDEN + 0x7F4A7C15))
+    return to_int32(seed)
+
+
+def uniform_from_seed(seed: int) -> float:
+    """One uniform draw in [0, 1) from an int32 seed, by the masks' rule."""
+    return (_mix32_int(seed) >> 8) / float(1 << 24)
+
+
+def _uniform24(h: torch.Tensor) -> torch.Tensor:
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _as(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: the JAX package's
+    weakly typed scalars take the array's dtype first. A Python scalar
+    (rather than a device tensor) costs the host no copy to the device,
+    which would wait for the device's queue to drain."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def keep_from_positions(seed_and_head: torch.Tensor, q_pos: torch.Tensor,
+                        k_pos: torch.Tensor, s_stride: int, rate: float) -> torch.Tensor:
+    """Attention-dropout keep mask keyed on absolute (q, k) positions
+    (``_keep_from_positions``): ``mix32((q·S + k) ^ (seed + bh·GOLDEN))``,
+    keep where its top 24 bits as a uniform are ``>= rate``. Arguments
+    broadcast; ``seed_and_head`` holds the uint32 bits in int64."""
+    x = (q_pos.to(torch.int64) * s_stride + k_pos.to(torch.int64)) & _M32
+    return _uniform24(mix32(x ^ (seed_and_head & _M32))) >= _as(rate, torch.float32)
+
+
+def head_seeds(seed: int, n_heads_flat: int, device=None) -> torch.Tensor:
+    """``seed + bh·GOLDEN`` (mod 2**32) for the flattened batch·head index
+    ``bh`` in ``[0, n_heads_flat)``, as int64."""
+    bh = torch.arange(n_heads_flat, dtype=torch.int64, device=device)
+    return ((seed & _M32) + bh * GOLDEN) & _M32
+
+
+def dropout(seed: Optional[int], x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Train-mode inverted dropout (torch semantics: zero with probability
+    ``rate``, survivors scaled by 1/(1-rate)). Identity when ``seed`` is
+    None or ``rate`` is 0. The keep mask hashes the flat element index:
+    ``mix32(idx ^ seed)``."""
+    if seed is None or rate <= 0.0:
+        return x
+    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device).reshape(x.shape)
+    keep = _uniform24(mix32(idx ^ (seed & _M32))) >= _as(rate, torch.float32)
+    return torch.where(keep, x * _as(1.0 / (1.0 - rate), x.dtype), 0.0)

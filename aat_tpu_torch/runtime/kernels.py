@@ -1,7 +1,8 @@
 """Build and load the port's hand-written Hopper kernels.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The build
+shared library with a plain C interface, loaded with ``ctypes``. The
+sources compile in parallel, one ``nvcc -c`` each, and link once. The build
 happens at first use (never at import: the package imports on machines with
 no CUDA toolkit), from the sources in the checkout only, into
 ``aat_tpu_torch/build/`` (git-ignored). The library's file name carries a
@@ -28,12 +29,19 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # frames, basis, filters, out, n_frames, stream
     "aat_mel_forward": [_P, _P, _P, _P, _I, _P],
-    # q, k, v, key_mask, out, is_bf16, B, T, S, H, KVH, D,
+    # q, k, v, key_mask, out, lse (or null), is_bf16, B, T, S, H, KVH, D,
     # q strides (b, t, h), k strides (b, s, h), v strides (b, s, h),
-    # sm_scale, stream
-    "aat_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # sm_scale, causal, pack_len, seed, rate, inv_keep, stream
+    "aat_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                      _F, _P],
+                      _F, _I, _I, _I, _F, _F, _P],
+    # q, k, v, key_mask, out, dout, lse, dq, dk, dv, delta, is_bf16,
+    # B, T, S, H, KVH, D, q/k/v strides as above,
+    # sm_scale, causal, pack_len, seed, rate, inv_keep, stream
+    "aat_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _I, _I, _I,
+                      _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                      _F, _I, _I, _I, _F, _F, _P],
 }
 
 
@@ -90,19 +98,46 @@ def library() -> KernelLibrary:
     lib_path = os.path.join(BUILD_DIR, f"libaat_kernels_{digest.hexdigest()[:16]}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(lib_path):
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp] + [s for s in srcs if s.endswith(".cu")]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(lib_path, [s for s in srcs if s.endswith(".cu")])
         seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
     _library = KernelLibrary(lib_path, seconds, log)
     return _library
+
+
+def _build(lib_path: str, cu_sources) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link.
+    Returns the compilers' output; raises if any step fails."""
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    tag = f"{os.getpid()}.tmp"
+    objs = [f"{lib_path}.{os.path.basename(s)}.{tag}.o" for s in cu_sources]
+    procs = [subprocess.Popen([nvcc, *flags, "-Xptxas", "-v", "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(cu_sources, objs)]
+    logs, failed = [], []
+    for src, proc in zip(cu_sources, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(os.path.basename(src))
+    log = "".join(logs)
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+        tmp = f"{lib_path}.{tag}"
+        link = subprocess.run([nvcc, *flags, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, lib_path)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return log
 
 
 def stream_handle(device) -> ctypes.c_void_p:

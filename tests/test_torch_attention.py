@@ -65,9 +65,15 @@ def test_bhtd_flash_layout_matches_bthd():
 
 def test_unported_modes_raise():
     q, k, v, mask = map(torch.from_numpy, make_bthd(3))
-    with pytest.raises(NotImplementedError):
-        tatt.flash_attention_bthd(q, k, v, mask, causal=True)
-    with pytest.raises(NotImplementedError):
-        tatt.flash_attention_bthd(q, k, v, mask, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="causal"):
+        tatt.flash_attention_bthd(q, k, v, mask, causal=False, pack_len=4)
+    # the kernel launchers take CUDA tensors only: no CPU fallback inside
     with pytest.raises(ValueError, match="CUDA"):
         tatt.flash_forward_kernel(q, k, v, mask, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt.flash_forward_causal_kernel(q, k, v, mask, 0.125)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt.flash_backward_kernel(q, k, v, mask, q, lse, q, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt.flash_backward_causal_kernel(q, k, v, mask, q, lse, q, 0.125)

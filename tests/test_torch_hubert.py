@@ -70,3 +70,33 @@ def test_feature_lengths_match_jax():
     np.testing.assert_array_equal(
         thub.feature_lengths(tcfg, torch.from_numpy(lengths)).numpy(),
         np.asarray(jhub.feature_lengths(jcfg, jnp.asarray(lengths))))
+
+
+def encode_port(cfg, seed=None, layers=None):
+    tparams = hubert_from_jax(jhub.init_hubert_params(4, configs("large")[0]))
+    wave, mask = inputs(4)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    out, _ = thub.hubert_encode(tparams, cfg, torch.from_numpy(wave), torch.from_numpy(mask),
+                                dropout_seed=seed)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("site", ["feature_projection_dropout", "hidden_dropout",
+                                  "attention_dropout", "activation_dropout"])
+def test_train_mode_dropout_sites(site):
+    """Each dropout site acts only with a seed, deterministically per seed
+    (the masks' bits are tested against JAX in test_torch_dropout.py)."""
+    cfg = dataclasses.replace(configs("large")[1], **{site: 0.5})
+    eval_out = encode_port(cfg)
+    a, b, c = encode_port(cfg, 3), encode_port(cfg, 3), encode_port(cfg, 4)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, eval_out) and not np.array_equal(a, c)
+
+
+def test_train_mode_at_zero_rates_equals_eval_and_layerdrop_skips_layers():
+    cfg = configs("large")[1]
+    np.testing.assert_array_equal(encode_port(cfg, 11), encode_port(cfg))
+    # LayerDrop 1: every layer is skipped, as if the stack had none
+    dropped = encode_port(dataclasses.replace(cfg, layerdrop=1.0), 11)
+    np.testing.assert_array_equal(dropped, encode_port(cfg, layers=0))

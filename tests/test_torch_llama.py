@@ -90,11 +90,63 @@ def test_rope_matches_jax():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6)
 
 
-def test_no_cache_causal_kernel_route_raises():
+def test_no_cache_causal_kernel_route_raises(monkeypatch):
+    """No cache and T >= the gate: both packages take the causal flash
+    route (JAX Pallas in interpret mode, the port's plain version on the
+    CPU) and agree; caption slicing with a KV cache still raises."""
     import dataclasses
 
-    _, tparams = setup()
-    cfg = dataclasses.replace(CFG_T, attention_impl="pallas")
-    ids = torch.zeros((1, 256), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="causal flash"):
-        tllm.llama_forward(tparams, cfg, input_ids=ids)
+    import aat_tpu.ops.attention as jatt
+    import aat_tpu_torch.ops.attention as tatt
+
+    monkeypatch.setattr(jatt, "MIN_PALLAS_SEQ_LEN", 1)
+    monkeypatch.setattr(tatt, "MIN_PALLAS_SEQ_LEN", 1)
+    jparams, tparams = setup(2)
+    jcfg = dataclasses.replace(CFG_J, attention_impl="pallas")
+    tcfg = dataclasses.replace(CFG_T, attention_impl="pallas")
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, CFG_J.vocab_size, (2, 11))
+    mask = np.ones((2, 11), np.int32)
+    mask[1, 7:] = 0
+    want, _ = jllm.llama_forward(jparams, jcfg, input_ids=jnp.asarray(ids),
+                                 attention_mask=jnp.asarray(mask))
+    got, _ = tllm.llama_forward(tparams, tcfg, input_ids=torch.from_numpy(ids),
+                                attention_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=0)
+    caches = tllm.init_kv_caches(CFG_T, 2, 11)
+    with pytest.raises(ValueError, match="caption"):
+        tllm.llama_forward(tparams, CFG_T, input_ids=torch.from_numpy(ids), kv_caches=caches,
+                           logit_caption_len=4)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_packed_caption_logits_match_jax(monkeypatch, impl):
+    """``pack_len`` rows (per-utterance positions, block-diagonal attention)
+    with caption-sliced logits, through ``AslmModel.forward``."""
+    import dataclasses
+
+    import aat_tpu.ops.attention as jatt
+    import aat_tpu_torch.ops.attention as tatt
+    from aat_tpu.models import aslm as jaslm
+    from aat_tpu_torch.models import aslm as taslm
+
+    monkeypatch.setattr(jatt, "MIN_PALLAS_SEQ_LEN", 1)
+    monkeypatch.setattr(tatt, "MIN_PALLAS_SEQ_LEN", 1)
+    jparams, tparams = setup(3)
+    kw = dict(audio_encoder_hidden=16, lm_hidden=CFG_J.hidden_size)
+    jm = jaslm.AslmModel(jaslm.AslmConfig(**kw), None,
+                         dataclasses.replace(CFG_J, attention_impl=impl))
+    tm = taslm.AslmModel(taslm.AslmConfig(**kw), None,
+                         dataclasses.replace(CFG_T, attention_impl=impl))
+    rng = np.random.default_rng(3)
+    b, t, cap = 4, 9, 5
+    embeds = rng.normal(0, 0.5, (b, t, CFG_J.hidden_size)).astype(np.float32)
+    mask = np.ones((b, t), np.int32)
+    mask[2, 6:] = 0
+    for pack in (1, 2):
+        want = jm.forward({"lm_decoder": jparams}, jnp.asarray(embeds), jnp.asarray(mask),
+                          pack=pack, caption_len=cap)
+        got = tm.forward({"lm_decoder": tparams}, torch.from_numpy(embeds),
+                         torch.from_numpy(mask), pack=pack, caption_len=cap)
+        assert got.shape == (b, cap - 1, CFG_J.vocab_size)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=0)

@@ -80,12 +80,17 @@ def test_port_imports_no_jax():
         "aat_tpu_torch.models.llama", "aat_tpu_torch.models.aslm",
         "aat_tpu_torch.serving.engine", "aat_tpu_torch.serving.serve",
         "aat_tpu_torch.utils.port", "aat_tpu_torch.runtime.kernels",
+        "aat_tpu_torch.ops.dropout", "aat_tpu_torch.training.config",
+        "aat_tpu_torch.training.lr_schedule", "aat_tpu_torch.training.optim",
+        "aat_tpu_torch.training.trainer",
     ]
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in modules)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aat_tpu'))\n"
-        + "print(bad)\nsys.exit(1 if bad else 0)\n"
+        + "built = aat_tpu_torch.runtime.kernels._library is not None\n"
+        + "print(bad, 'kernel library built' if built else '')\n"
+        + "sys.exit(1 if bad or built else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
