@@ -1,36 +1,49 @@
 // Flash-attention backward, dense or causal: dq, dk and dv from the saved
 // row log-sum-exp, with the forward's key mask, dropout mask and causal /
-// pack_len mask regenerated.
+// pack_len mask regenerated. Two kernels, each behind its own C entry:
+//   - `aat_flash_bwd_dq`: a block owns 64 query rows of one (b, h) and loops
+//     over key tiles (up to the diagonal when causal);
+//   - `aat_flash_bwd_dkv`: a block owns 64 keys of one (b, h) and loops over
+//     query tiles (from the diagonal when causal).
+// Each computes delta = rowsum(dout · out) of its query rows itself, so the
+// two are independent launches with the same inputs.
 //
-// Replaces the TPU kernels aat_tpu/ops/attention.py:764 `_bwd_fused_kernel`
-// (dense, launched by `_flash_backward` :982) and :709
-// `_bwd_fused_tri_kernel` (causal over the triangle step tables, launched
-// :941). Inputs: q [B,T,H,D], k/v [B,S,KVH,D] through their strides, the
-// forward's out and the incoming dout (contiguous [B,T,H,D]), lse [B,H,T]
-// f32. Outputs: dq [B,T,H,D] in the input dtype, and dk/dv per q-head as
-// f32 [B,S,H,D]; the wrapper sums those over the H/KVH heads that share a
-// kv head (GQA) and casts. Semantics kept from the TPU kernels (`_ds_block`
+// Replaces the TPU kernels of aat_tpu/ops/attention.py:
+//   - key length S <= 8192 (`_FUSED_BWD_MAX_S` :831): :764
+//     `_bwd_fused_kernel` (dense, launched by `_flash_backward` :982) and
+//     :709 `_bwd_fused_tri_kernel` (causal, launched :941), which the
+//     wrappers `flash_backward_kernel` / `flash_backward_causal_kernel`
+//     cover with one launch of each kernel here;
+//   - S > 8192: :562 `_bwd_dq_kernel` (launched :1068) and :595
+//     `_bwd_dkv_kernel` (launched :1110), dense and causal, which the
+//     wrappers `flash_backward_dq_long` / `flash_backward_dkv_long` cover
+//     with one kernel each.
+// The TPU needed the second pair because the fused kernels keep a whole
+// [S, D] f32 dk/dv accumulator per batch·head in VMEM. These kernels keep no
+// S-sized state at all, so one design serves every S.
+//
+// Inputs: q [B,T,H,D], k/v [B,S,KVH,D] through their strides, the forward's
+// out and the incoming dout (contiguous [B,T,H,D]), lse [B,H,T] f32.
+// Outputs: dq [B,T,H,D] in the input dtype, and dk/dv per q-head as f32
+// [B,S,H,D]; the wrapper sums those over the H/KVH heads that share a kv
+// head (GQA) and casts. Semantics kept from the TPU kernels (`_ds_block`
 // :525):
 //   - q is scaled by sm_scale and rounded to the input dtype, s = q_s·k;
 //     dk = ds^T·q_s needs no further factor, dq = (ds·k)·sm_scale;
 //   - p = exp(s - lse) from the undropped scores; masked scores are -2e30,
 //     so masked keys, fully masked rows (lse == -1e30) and padded rows give
 //     p == 0 and exactly zero gradients;
-//   - delta = rowsum(dout · out) (the dq kernel computes it and hands it to
-//     the dk/dv kernel);
+//   - delta = rowsum(dout · out) (`_delta128` :513, in-kernel as there);
 //   - with dropout the position hash regenerates the forward's keep mask:
 //     dv uses p·keep/(1-rate), dp is masked and scaled the same way, ds
 //     uses the undropped p: ds = p·(dp - delta);
 //   - p (for dv) and ds are rounded to the input dtype before each product.
+// Tensor offsets are 64-bit; the hash keeps the TPU's 32-bit q·S + k
+// arithmetic (wraparound, which S <= 46340 never reaches).
 //
-// The TPU kept a whole [S, D] f32 dk/dv accumulator per batch·head in VMEM
-// and visited each score block once. A Hopper block has at most 227 KB of
-// shared memory, so this version re-tiles into two deterministic kernels
-// with no atomics and no cap on S: the dq kernel owns 64 query rows of one
-// (b, h) and loops over key tiles (up to the diagonal when causal); the
-// dk/dv kernel owns 64 keys of one (b, h) and loops over query tiles (from
-// the diagonal when causal). Each recomputes s and dp, so the backward does
-// 14 T·S·D multiply-adds per head where the fused TPU kernel did 10.
+// No atomics: deterministic. s and dp are recomputed in both kernels, so
+// the backward does 14 T·S·D multiply-adds per head where the fused TPU
+// kernel did 10.
 //
 // What bounds it on the H100: like the forward, every product runs on the
 // FP32 FFMA pipes out of shared memory (<= 67 TFLOP/s, far below the
@@ -50,7 +63,6 @@ constexpr int kThreads = 256;   // 16 x 16
 struct BwdArgs {
   const int* key_mask;
   const float* lse;
-  float* delta;
   int t_len, s_len, n_heads, n_kv_heads;
   long long q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float sm_scale;
@@ -84,6 +96,22 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, long long rs
     }
     dst[r * (D + 1) + d] = x;
   }
+}
+
+// delta = rowsum(dout · out) of query rows [q0, q0 + kB) into delta_s, four
+// threads per row, dout from shared memory (dos, loaded and synchronised
+// before) and out from device memory; 0 for rows past t_len.
+template <typename T, int D>
+__device__ __forceinline__ void row_delta(const float* dos, const T* ob, long long o_st,
+                                          int q0, int t_len, float* delta_s) {
+  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+  float sum = 0.f;
+  if (q0 + r < t_len)
+    for (int d = part; d < D; d += 4)
+      sum = fmaf(dos[r * (D + 1) + d], Cvt<T>::load(ob[(q0 + r) * o_st + d]), sum);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  if (part == 0) delta_s[r] = sum;
 }
 
 // s = q_s·k^T and dp = dout·v^T for this thread's 4 x 4 entries
@@ -171,21 +199,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_rows<T, D, true>(qs, q + b * a.q_sb + h * a.q_sh, a.q_st, q0, a.t_len, a.sm_scale);
   load_rows<T, D, false>(dos, dob, o_st, q0, a.t_len, 0.f);
+  for (int i = tid; i < kB; i += kThreads)
+    lse_s[i] = q0 + i < a.t_len ? a.lse[bh * a.t_len + q0 + i] : 0.f;
   __syncthreads();
-  {  // delta = rowsum(dout · out): four threads per row
-    const int r = tid >> 2, part = tid & 3;
-    float sum = 0.f;
-    if (q0 + r < a.t_len)
-      for (int d = part; d < D; d += 4)
-        sum = fmaf(dos[r * (D + 1) + d], Cvt<T>::load(ob[(q0 + r) * o_st + d]), sum);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0) {
-      delta_s[r] = sum;
-      lse_s[r] = q0 + r < a.t_len ? a.lse[bh * a.t_len + q0 + r] : 0.f;
-      if (q0 + r < a.t_len) a.delta[bh * a.t_len + q0 + r] = sum;
-    }
-  }
+  row_delta<T, D>(dos, ob, o_st, q0, a.t_len, delta_s);  // read after the loop's barrier
 
   float acc[4][D / 16];
 #pragma unroll
@@ -230,8 +247,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     float* __restrict__ dk, float* __restrict__ dv, BwdArgs a) {
+                     const T* __restrict__ v, const T* __restrict__ out,
+                     const T* __restrict__ dout, float* __restrict__ dk,
+                     float* __restrict__ dv, BwdArgs a) {
   extern __shared__ float smem[];
   float* ks = smem;                  // [kB][D+1]
   float* vs = ks + kB * (D + 1);     // [kB][D+1]
@@ -252,6 +270,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t seed_and_head = a.seed + (uint32_t)bh * kGolden;
   const long long o_st = (long long)a.n_heads * D;
   const T* qb = q + b * a.q_sb + h * a.q_sh;
+  const T* ob = out + b * a.t_len * o_st + h * D;
   const T* dob = dout + b * a.t_len * o_st + h * D;
   const int* mb = a.key_mask + b * a.s_len;
 
@@ -271,11 +290,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // previous tile's qs/dos/pvs/dss no longer read
     load_rows<T, D, true>(qs, qb, a.q_st, q0, a.t_len, a.sm_scale);
     load_rows<T, D, false>(dos, dob, o_st, q0, a.t_len, 0.f);
-    for (int i = tid; i < kB; i += kThreads) {
-      const bool valid = q0 + i < a.t_len;
-      lse_s[i] = valid ? a.lse[bh * a.t_len + q0 + i] : 0.f;
-      delta_s[i] = valid ? a.delta[bh * a.t_len + q0 + i] : 0.f;
-    }
+    for (int i = tid; i < kB; i += kThreads)
+      lse_s[i] = q0 + i < a.t_len ? a.lse[bh * a.t_len + q0 + i] : 0.f;
+    __syncthreads();
+    row_delta<T, D>(dos, ob, o_st, q0, a.t_len, delta_s);
     __syncthreads();
     score_block<T, D, CAUSAL>(qs, dos, ks, vs, bias, lse_s, delta_s, dss,
                               pvs, q0, k0, seed_and_head, a);
@@ -316,67 +334,96 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, void* dq, float* dk, float* dv, int B,
-           const BwdArgs& a, cudaStream_t stream) {
-  auto dq_kernel = flash_bwd_dq_kernel<T, D, CAUSAL>;
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, D, CAUSAL>;
-  constexpr size_t dq_smem = sizeof(float) * dq_smem_floats<D>();
-  constexpr size_t dkv_smem = sizeof(float) * dkv_smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
-  if (err != cudaSuccess) return (int)err;
-  // the dq kernel writes delta, which the dk/dv kernel reads: same stream
-  dim3 dq_grid((a.t_len + kB - 1) / kB, a.n_heads, B);
-  dq_kernel<<<dq_grid, kThreads, dq_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<T*>(dq), a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 dkv_grid((a.s_len + kB - 1) / kB, a.n_heads, B);
-  dkv_kernel<<<dkv_grid, kThreads, dkv_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), dk, dv, a);
-  return (int)cudaGetLastError();
+struct Variant {
+  using type = T;
+  static constexpr int width = D;
+  static constexpr bool causal = CAUSAL;
+};
+
+// Calls f(Variant<T, D, CAUSAL>{}) for the run's dtype, head width and
+// masking; 1 (cudaErrorInvalidValue) for a head width the kernels were not
+// built for.
+template <typename F>
+int dispatch(int is_bf16, int D, int causal, F&& f) {
+  if (D == 64) {
+    if (is_bf16)
+      return causal ? f(Variant<__nv_bfloat16, 64, true>{}) : f(Variant<__nv_bfloat16, 64, false>{});
+    return causal ? f(Variant<float, 64, true>{}) : f(Variant<float, 64, false>{});
+  }
+  if (D == 128) {
+    if (is_bf16)
+      return causal ? f(Variant<__nv_bfloat16, 128, true>{}) : f(Variant<__nv_bfloat16, 128, false>{});
+    return causal ? f(Variant<float, 128, true>{}) : f(Variant<float, 128, false>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, const void* out,
-             const void* dout, void* dq, float* dk, float* dv, int B,
-             int causal, const BwdArgs& a, cudaStream_t stream) {
-  return causal ? launch<T, D, true>(q, k, v, out, dout, dq, dk, dv, B, a, stream)
-                : launch<T, D, false>(q, k, v, out, dout, dq, dk, dv, B, a, stream);
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launches; 1 (cudaErrorInvalidValue)
-// for a head width the kernels were not built for. `delta` is [B,H,T] f32
-// scratch.
-extern "C" int aat_flash_bwd(const void* q, const void* k, const void* v,
-                             const int* key_mask, const void* out,
-                             const void* dout, const float* lse, void* dq,
-                             float* dk, float* dv, float* delta, int is_bf16,
-                             int B, int T_len, int S, int H, int KVH, int D,
-                             long long q_sb, long long q_st, long long q_sh,
-                             long long k_sb, long long k_ss, long long k_sh,
-                             long long v_sb, long long v_ss, long long v_sh,
-                             float sm_scale, int causal, int pack_len, int seed,
-                             float rate, float inv_keep, cudaStream_t stream) {
+// dq [B,T,H,D] in the input dtype. Returns cudaGetLastError() after the
+// launch.
+extern "C" int aat_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const int* key_mask, const void* out,
+                                const void* dout, const float* lse, void* dq,
+                                int is_bf16, int B, int T_len, int S, int H,
+                                int KVH, int D, long long q_sb, long long q_st,
+                                long long q_sh, long long k_sb, long long k_ss,
+                                long long k_sh, long long v_sb, long long v_ss,
+                                long long v_sh, float sm_scale, int causal,
+                                int pack_len, int seed, float rate,
+                                float inv_keep, cudaStream_t stream) {
   if (B == 0 || T_len == 0 || S == 0 || H == 0) return 0;
-  const BwdArgs a{key_mask, lse, delta, T_len, S, H, KVH,
+  const BwdArgs a{key_mask, lse, T_len, S, H, KVH,
                   q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                   sm_scale, pack_len, (unsigned int)seed, rate, inv_keep};
-  if (D == 64)
-    return is_bf16
-        ? launch_d<__nv_bfloat16, 64>(q, k, v, out, dout, dq, dk, dv, B, causal, a, stream)
-        : launch_d<float, 64>(q, k, v, out, dout, dq, dk, dv, B, causal, a, stream);
-  if (D == 128)
-    return is_bf16
-        ? launch_d<__nv_bfloat16, 128>(q, k, v, out, dout, dq, dk, dv, B, causal, a, stream)
-        : launch_d<float, 128>(q, k, v, out, dout, dq, dk, dv, B, causal, a, stream);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(is_bf16, D, causal, [&](auto variant) {
+    using V = decltype(variant);
+    using T = typename V::type;
+    auto kernel = flash_bwd_dq_kernel<T, V::width, V::causal>;
+    constexpr size_t smem = sizeof(float) * dq_smem_floats<V::width>();
+    const int err = prepare(kernel, smem);
+    if (err != 0) return err;
+    const dim3 grid((T_len + kB - 1) / kB, H, B);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<T*>(dq), a);
+    return (int)cudaGetLastError();
+  });
+}
+
+// dk, dv per q-head, f32 [B,S,H,D]. Returns cudaGetLastError() after the
+// launch.
+extern "C" int aat_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const int* key_mask, const void* out,
+                                 const void* dout, const float* lse, float* dk,
+                                 float* dv, int is_bf16, int B, int T_len, int S, int H,
+                                 int KVH, int D, long long q_sb, long long q_st,
+                                 long long q_sh, long long k_sb, long long k_ss,
+                                 long long k_sh, long long v_sb, long long v_ss,
+                                 long long v_sh, float sm_scale, int causal,
+                                 int pack_len, int seed, float rate,
+                                 float inv_keep, cudaStream_t stream) {
+  if (B == 0 || T_len == 0 || S == 0 || H == 0) return 0;
+  const BwdArgs a{key_mask, lse, T_len, S, H, KVH,
+                  q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                  sm_scale, pack_len, (unsigned int)seed, rate, inv_keep};
+  return dispatch(is_bf16, D, causal, [&](auto variant) {
+    using V = decltype(variant);
+    using T = typename V::type;
+    auto kernel = flash_bwd_dkv_kernel<T, V::width, V::causal>;
+    constexpr size_t smem = sizeof(float) * dkv_smem_floats<V::width>();
+    const int err = prepare(kernel, smem);
+    if (err != 0) return err;
+    const dim3 grid((S + kB - 1) / kB, H, B);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(out), static_cast<const T*>(dout), dk, dv, a);
+    return (int)cudaGetLastError();
+  });
 }

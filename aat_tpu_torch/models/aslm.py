@@ -34,9 +34,11 @@ class AslmConfig:
     audio_eos_token_id: int = 1
 
 
-def init_aslm_numpy(seed: int, config: AslmConfig, std: float = 0.02) -> dict:
-    """The JAX package's int-seed adapter draws (linear and mean), as numpy."""
-    r = np.random.default_rng(int(seed))
+def init_aslm_numpy(seed, config: AslmConfig, std: float = 0.02) -> dict:
+    """The JAX package's adapter draws (linear and mean), as numpy: ``seed``
+    is an int or a JAX PRNG key's data words
+    (:func:`~aat_tpu_torch.models.hubert.np_rng_from`)."""
+    r = hub.np_rng_from(seed)
     e, h_lm = config.audio_encoder_hidden, config.lm_hidden
 
     def normal(*shape):
@@ -57,8 +59,9 @@ def init_aslm_numpy(seed: int, config: AslmConfig, std: float = 0.02) -> dict:
     return params
 
 
-def init_aslm_params(seed: int, config: AslmConfig, device=None) -> dict:
-    """Random init equal to the JAX package's ``init_aslm_params(seed)``."""
+def init_aslm_params(seed, config: AslmConfig, device=None) -> dict:
+    """Random init equal to the JAX package's ``init_aslm_params`` of the
+    same int seed or PRNG key."""
     return to_tensors(init_aslm_numpy(seed, config), device)
 
 

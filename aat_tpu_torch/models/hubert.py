@@ -76,6 +76,11 @@ def hubert_large_config() -> HubertConfig:
                         attention_dropout=0.1, activation_dropout=0.1, layerdrop=0.1)
 
 
+def wav2vec2_large_config() -> HubertConfig:
+    """facebook/wav2vec2-large-lv60: the same inference graph as hubert-large."""
+    return HubertConfig(attention_impl="pallas")
+
+
 def tiny_test_config() -> HubertConfig:
     """Small random config for parity tests."""
     return HubertConfig(
@@ -91,10 +96,20 @@ def tiny_test_config() -> HubertConfig:
 # ---------------------------------------------------------------------------
 
 
-def init_hubert_numpy(seed: int, config: HubertConfig) -> dict:
-    """The JAX package's int-seed draws (normal std 0.02, numpy
-    ``default_rng(seed)``), in its layout: conv kernels ``[K, C_in, C_out]``."""
-    r = np.random.default_rng(int(seed))
+def np_rng_from(seed) -> np.random.Generator:
+    """The host generator the JAX package's ``np_rng_from`` makes: an int
+    seeds ``default_rng`` directly; a JAX PRNG key enters as its data words
+    (``jax.random.key_data``: ``(0, 0)`` for ``PRNGKey(0)``, ``(0, 1)`` for
+    ``PRNGKey(1)``), which seed a ``SeedSequence``."""
+    if isinstance(seed, (int, np.integer)):
+        return np.random.default_rng(int(seed))
+    return np.random.default_rng(np.random.SeedSequence([int(x) for x in seed]))
+
+
+def init_hubert_numpy(seed, config: HubertConfig) -> dict:
+    """The JAX package's draws (normal std 0.02 from :func:`np_rng_from`),
+    in its layout: conv kernels ``[K, C_in, C_out]``."""
+    r = np_rng_from(seed)
     std = 0.02
 
     def normal(*shape):
@@ -143,8 +158,9 @@ def init_hubert_numpy(seed: int, config: HubertConfig) -> dict:
     return params
 
 
-def init_hubert_params(seed: int, config: HubertConfig, device=None) -> dict:
-    """Random init equal to the JAX package's ``init_hubert_params(seed)``."""
+def init_hubert_params(seed, config: HubertConfig, device=None) -> dict:
+    """Random init equal to the JAX package's ``init_hubert_params`` of the
+    same int seed or PRNG key."""
     return hubert_from_jax(init_hubert_numpy(seed, config), device)
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aat_tpu_torch.models.hubert import np_rng_from
 from aat_tpu_torch.ops import attention as attn_ops
 from aat_tpu_torch.utils.port import to_tensors
 
@@ -40,6 +41,7 @@ class LlamaConfig:
     num_key_value_heads: int = 3
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    max_position_embeddings: int = 2048
     tie_word_embeddings: bool = True
     attention_bias: bool = False
     attention_impl: str = "xla"  # 'xla' | 'pallas' (causal flash kernel)
@@ -54,15 +56,28 @@ def smollm_135m_config() -> LlamaConfig:
     return LlamaConfig(attention_impl="pallas")
 
 
+def qwen15_18b_config() -> LlamaConfig:
+    """Qwen/Qwen1.5-1.8B through the Llama architecture: 24 layers, width
+    2048, 16/16 heads (D = 128), attention biases, untied head, θ = 1e6,
+    32768 positions."""
+    return LlamaConfig(vocab_size=151936, hidden_size=2048, intermediate_size=5504,
+                       num_hidden_layers=24, num_attention_heads=16,
+                       num_key_value_heads=16, rope_theta=1000000.0,
+                       max_position_embeddings=32768, tie_word_embeddings=False,
+                       attention_bias=True, attention_impl="pallas")
+
+
 def tiny_test_config() -> LlamaConfig:
     return LlamaConfig(vocab_size=128, hidden_size=32, intermediate_size=64,
                        num_hidden_layers=2, num_attention_heads=4,
-                       num_key_value_heads=2, tie_word_embeddings=False)
+                       num_key_value_heads=2, max_position_embeddings=128,
+                       tie_word_embeddings=False)
 
 
-def init_llama_numpy(seed: int, config: LlamaConfig, std: float = 0.02) -> dict:
-    """The JAX package's int-seed draws, as numpy."""
-    r = np.random.default_rng(int(seed))
+def init_llama_numpy(seed, config: LlamaConfig, std: float = 0.02) -> dict:
+    """The JAX package's draws, as numpy: ``seed`` is an int or a JAX PRNG
+    key's data words (:func:`~aat_tpu_torch.models.hubert.np_rng_from`)."""
+    r = np_rng_from(seed)
     h, kvh = config.hidden_size, config.num_key_value_heads * config.head_dim
 
     def dense(din, dout, bias):
@@ -97,8 +112,9 @@ def init_llama_numpy(seed: int, config: LlamaConfig, std: float = 0.02) -> dict:
     return params
 
 
-def init_llama_params(seed: int, config: LlamaConfig, device=None) -> dict:
-    """Random init equal to the JAX package's ``init_llama_params(seed)``."""
+def init_llama_params(seed, config: LlamaConfig, device=None) -> dict:
+    """Random init equal to the JAX package's ``init_llama_params`` of the
+    same int seed or PRNG key."""
     return to_tensors(init_llama_numpy(seed, config), device)
 
 

@@ -11,12 +11,21 @@ custom VJP):
   causal, ``_fwd_tri_kernel``), writing the row log-sum-exp when a
   gradient will be asked for; without one (serving, ``torch.no_grad``) the
   lse-free forward runs, as JAX's ``need_residuals=False`` does;
-- backward: ``csrc/flash_bwd.cu`` (replaces ``_bwd_fused_kernel`` and
-  ``_bwd_fused_tri_kernel``).
+- backward: ``csrc/flash_bwd.cu``, a dq kernel and a dk/dv kernel. For key
+  lengths up to ``FUSED_BWD_MAX_S`` = 8192 the wrappers
+  :func:`flash_backward_kernel` / :func:`flash_backward_causal_kernel`
+  launch both (replacing ``_bwd_fused_kernel`` and
+  ``_bwd_fused_tri_kernel``); above it the split route's wrappers
+  :func:`flash_backward_dq_long` and :func:`flash_backward_dkv_long` launch
+  one each (replacing ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``). The
+  kernels keep no S-sized state, so the two routes run the same code.
 
-On a CPU tensor each wrapper takes its plain version
+On a CPU tensor the dispatch takes the plain versions
 (:func:`flash_forward_reference`, :func:`flash_backward_reference`); on a
-CUDA tensor it launches the kernel or raises. Train-mode attention dropout
+CUDA tensor it launches the kernels or raises. The split route's kernels
+have plain versions of their own (:func:`flash_backward_dq_reference`,
+:func:`flash_backward_dkv_reference`) for the on-card checks, which hold
+each kernel alone. Train-mode attention dropout
 is the position hash of :mod:`aat_tpu_torch.ops.dropout`, keyed on the
 flattened batch·head index, so kernel and plain routes drop the same
 probabilities for the same int32 seed.
@@ -33,6 +42,9 @@ from aat_tpu_torch.ops.dropout import head_seeds, keep_from_positions, to_int32
 NEG_INF = -1e30  # masked-score value of the plain route, and the lse of a dead row
 MASK = -2e30  # masked-score value of the kernels; exp(MASK - NEG_INF) == 0
 MIN_PALLAS_SEQ_LEN = 256  # the kernel engages at T >= this (JAX gate, same name)
+# above this key length the backward takes the split route (the JAX
+# ``_FUSED_BWD_MAX_S``): its own wrappers and counters, one per TPU kernel
+FUSED_BWD_MAX_S = 8192
 
 
 def _repeat_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, axis: int):
@@ -114,17 +126,15 @@ def flash_forward_reference(q, k, v, key_mask, sm_scale: float, causal: bool = F
                           dropout_seed, pack_len, need_lse=True)
 
 
-def flash_backward_reference(q, k, v, key_mask, out, lse, dout, sm_scale: float,
-                             causal: bool = False, dropout_rate: float = 0.0,
-                             dropout_seed: int = 0, pack_len: Optional[int] = None):
-    """Plain version of the backward kernels (``_ds_block`` semantics):
-    p = exp(q_s·k - lse) with q_s = round(q·sm_scale), delta =
+def _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
+              dropout_seed, pack_len):
+    """The backward's shared core (``_ds_block`` semantics), ``[B, H, T, S]``
+    f32: p = exp(q_s·k - lse) with q_s = round(q·sm_scale), delta =
     rowsum(dout·out), ds = p·(dp - delta) with dp masked and scaled by the
-    dropout keep mask, dv from the dropped p. Returns ``(dq, dk, dv)`` in
-    the layouts and dtypes of q, k, v; dk/dv summed over the q-heads that
-    share a kv head."""
-    b, t, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
+    dropout keep mask, and p_v, the dropped p that dv needs. Returns
+    ``(ds, p_v, q_s, k_rep)``."""
+    b, t, h, _ = q.shape
+    s = k.shape[1]
     qs = (q.float() * sm_scale).to(q.dtype).float()
     kr, vr = _repeat_kv(k, v, h, axis=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", qs, kr.float())
@@ -139,16 +149,53 @@ def flash_backward_reference(q, k, v, key_mask, out, lse, dout, sm_scale: float,
         p_v = torch.where(keep, p * inv, torch.zeros_like(p))
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)  # [B, H, T]
-    ds = p * (dp - delta[..., None])
-    ds_q = ds.to(q.dtype).float()
-    dq = (torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kr.float())
-          * sm_scale).to(q.dtype)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds_q, qs)
+    return p * (dp - delta[..., None]), p_v, qs, kr
+
+
+def _plain_dq(q, k, ds, kr, sm_scale):
+    return (torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kr.float())
+            * sm_scale).to(q.dtype)
+
+
+def _plain_dkv(q, k, v, dout, ds, p_v, qs):
+    b, _, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qs)
     dv = torch.einsum("bhqk,bqhd->bkhd", p_v.to(dout.dtype).float(), dout.float())
     rep = h // kvh
     dk = dk.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype)
     dv = dv.reshape(b, s, kvh, rep, d).sum(3).to(v.dtype)
-    return dq, dk, dv
+    return dk, dv
+
+
+def flash_backward_reference(q, k, v, key_mask, out, lse, dout, sm_scale: float,
+                             causal: bool = False, dropout_rate: float = 0.0,
+                             dropout_seed: int = 0, pack_len: Optional[int] = None):
+    """Plain version of the backward kernels: ``(dq, dk, dv)`` in the
+    layouts and dtypes of q, k, v; dk/dv summed over the q-heads that share
+    a kv head; ds rounded to the input dtype before each product, p_v to
+    dout's."""
+    ds, p_v, qs, kr = _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
+                                dropout_rate, dropout_seed, pack_len)
+    return (_plain_dq(q, k, ds, kr, sm_scale), *_plain_dkv(q, k, v, dout, ds, p_v, qs))
+
+
+def flash_backward_dq_reference(q, k, v, key_mask, out, lse, dout, sm_scale: float,
+                                causal: bool = False, dropout_rate: float = 0.0,
+                                dropout_seed: int = 0, pack_len: Optional[int] = None):
+    """Plain version of the split route's dq kernel: dq alone."""
+    ds, _, _, kr = _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
+                             dropout_rate, dropout_seed, pack_len)
+    return _plain_dq(q, k, ds, kr, sm_scale)
+
+
+def flash_backward_dkv_reference(q, k, v, key_mask, out, lse, dout, sm_scale: float,
+                                 causal: bool = False, dropout_rate: float = 0.0,
+                                 dropout_seed: int = 0, pack_len: Optional[int] = None):
+    """Plain version of the split route's dk/dv kernel: ``(dk, dv)``."""
+    ds, p_v, qs, _ = _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
+                               dropout_rate, dropout_seed, pack_len)
+    return _plain_dkv(q, k, v, dout, ds, p_v, qs)
 
 
 # ---------------------------------------------------------------------------
@@ -229,34 +276,71 @@ def flash_forward_causal_kernel(q, k, v, key_mask, sm_scale: float,
     return result
 
 
-def _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
-                     dropout_seed, pack_len):
-    from aat_tpu_torch.runtime.kernels import library, stream_handle
-
+def _backward_operands(q, k, v, key_mask, out, lse, dout):
     mask = _check_operands(q, k, v, key_mask)
-    b, t, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
+    b, t, h, _ = q.shape
     out = out.contiguous()
     dout = dout.to(q.dtype).contiguous()
     lse = lse.contiguous()
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, t):
         raise ValueError(f"out {tuple(out.shape)} dout {tuple(dout.shape)} "
                          f"lse {tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    return mask, out, lse, dout
+
+
+def _backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len):
+    """The C entries' arguments after the output pointers."""
+    from aat_tpu_torch.runtime.kernels import stream_handle
+
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    return (int(q.dtype == torch.bfloat16), b, t, s, h, kvh, d, *_strides(q, k, v),
+            float(sm_scale), int(causal), int(pack_len or 0),
+            *_dropout_args(dropout_rate, dropout_seed), stream_handle(q.device))
+
+
+def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
+                        dropout_seed, pack_len):
+    """``aat_flash_bwd_dq`` → dq ``[B, T, H, D]`` in q's dtype."""
+    from aat_tpu_torch.runtime.kernels import library
+
+    mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
     dq = torch.empty_like(out)
+    library().call(
+        "aat_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
+    return dq
+
+
+def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
+                         dropout_rate, dropout_seed, pack_len):
+    """``aat_flash_bwd_dkv`` → ``(dk, dv)`` in k's layout and dtype: the
+    kernel writes them per q-head in f32, and the q-heads that share a kv
+    head (GQA) are summed here in f32."""
+    from aat_tpu_torch.runtime.kernels import library
+
+    mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
+    b, _, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
     dk_rep = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     dv_rep = torch.empty_like(dk_rep)
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     library().call(
-        "aat_flash_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-        dk_rep.data_ptr(), dv_rep.data_ptr(), delta.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, t, s, h, kvh, d, *_strides(q, k, v),
-        float(sm_scale), int(causal), int(pack_len or 0),
-        *_dropout_args(dropout_rate, dropout_seed), stream_handle(q.device))
-    rep = h // kvh  # GQA: sum the per-q-head grads of each kv head, in f32
+        "aat_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dk_rep.data_ptr(),
+        dv_rep.data_ptr(),
+        *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
+    rep = h // kvh
     dk = dk_rep.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype)
     dv = dv_rep.reshape(b, s, kvh, rep, d).sum(3).to(v.dtype)
-    return dq, dk, dv
+    return dk, dv
+
+
+def _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
+                     dropout_seed, pack_len):
+    args = (q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
+            dropout_seed, pack_len)
+    return (_launch_backward_dq(*args), *_launch_backward_dkv(*args))
 
 
 def flash_backward_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: float,
@@ -280,8 +364,33 @@ def flash_backward_causal_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: fl
     return grads
 
 
+def flash_backward_dq_long(q, k, v, key_mask, out, lse, dout, sm_scale: float,
+                           causal: bool = False, dropout_rate: float = 0.0,
+                           dropout_seed: int = 0, pack_len: Optional[int] = None):
+    """Launch ``aat_flash_bwd_dq``, the dq half of the split route for key
+    lengths above ``FUSED_BWD_MAX_S``, dense or causal (replaces the TPU
+    kernel aat_tpu/ops/attention.py:562 ``_bwd_dq_kernel``) → dq."""
+    dq = _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
+                             dropout_rate, dropout_seed, pack_len)
+    flash_backward_dq_long.launches += 1
+    return dq
+
+
+def flash_backward_dkv_long(q, k, v, key_mask, out, lse, dout, sm_scale: float,
+                            causal: bool = False, dropout_rate: float = 0.0,
+                            dropout_seed: int = 0, pack_len: Optional[int] = None):
+    """Launch ``aat_flash_bwd_dkv``, the dk/dv half of the split route,
+    dense or causal (replaces the TPU kernel aat_tpu/ops/attention.py:595
+    ``_bwd_dkv_kernel``) → ``(dk, dv)``."""
+    grads = _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
+                                 dropout_rate, dropout_seed, pack_len)
+    flash_backward_dkv_long.launches += 1
+    return grads
+
+
 for _wrapper in (flash_forward_kernel, flash_forward_causal_kernel,
-                 flash_backward_kernel, flash_backward_causal_kernel):
+                 flash_backward_kernel, flash_backward_causal_kernel,
+                 flash_backward_dq_long, flash_backward_dkv_long):
     _wrapper.launches = 0
 
 
@@ -307,10 +416,15 @@ def flash_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_see
 
 def flash_backward(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
                    dropout_seed, pack_len):
-    """The backward: plain version on a CPU tensor, kernels on a CUDA one."""
+    """The backward: the plain version on a CPU tensor, kernels on a CUDA
+    one. There, key lengths above ``FUSED_BWD_MAX_S`` take the split route,
+    a dq pass and a dk/dv pass (the JAX ``_flash_backward`` dispatch)."""
+    args = (q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
+            dropout_seed, pack_len)
     if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, key_mask, out, lse, dout, sm_scale,
-                                        causal, dropout_rate, dropout_seed, pack_len)
+        return flash_backward_reference(*args)
+    if k.shape[1] > FUSED_BWD_MAX_S:
+        return (flash_backward_dq_long(*args), *flash_backward_dkv_long(*args))
     if causal:
         return flash_backward_causal_kernel(q, k, v, key_mask, out, lse, dout, sm_scale,
                                             dropout_rate, dropout_seed, pack_len)

@@ -10,6 +10,9 @@ then runs the post-framing pipeline (DFT GEMM -> power -> mel GEMM ->
 log10) through :func:`melspec_frames`: the hand-written CUDA kernel
 ``csrc/mel.cu`` for a CUDA tensor, its plain PyTorch version
 (:func:`melspec_frames_reference`) for a CPU tensor.
+
+The per-utterance host tokenizer uses :func:`log_mel_spectrogram_exact`,
+numpy in float64, bit-identical to the JAX package's host path.
 """
 
 from __future__ import annotations
@@ -92,20 +95,55 @@ def num_mel_frames(waveform_length: int, hop_length: int = HOP_LENGTH) -> int:
 
 
 @functools.lru_cache(maxsize=4)
+def _window_and_filters(n_fft: int, n_mels: int, sampling_rate: int, fmax: float):
+    """Hann window ``[n_fft]`` and Slaney filters ``[bins, n_mels]``, float64."""
+    window = hann_window(n_fft)
+    filters = slaney_mel_filter_bank(
+        num_frequency_bins=n_fft // 2 + 1, num_mel_filters=n_mels,
+        max_frequency=fmax, sampling_rate=sampling_rate,
+    )
+    return window, filters
+
+
+def log_mel_spectrogram_exact(
+    waveform: np.ndarray,
+    n_fft: int = N_FFT,
+    hop_length: int = HOP_LENGTH,
+    n_mels: int = N_MELS,
+    sampling_rate: int = SAMPLING_RATE,
+    fmax: float = FMAX,
+) -> np.ndarray:
+    """Host melspec of the per-utterance tokenizer, float32 ``[n_mels, T]``:
+    float64 rFFT of hann-windowed reflect-centered frames, each frame's
+    spectrum rounded through complex64 (the reference stores frames in a
+    complex64 buffer; that rounding is part of the spec), float64 power and
+    mel projection with a 1e-10 floor, log10, cast to float32."""
+    window, mel_filters = _window_and_filters(n_fft, n_mels, sampling_rate, fmax)
+    half = n_fft // 2
+    padded = np.pad(np.asarray(waveform), (half, half), mode="reflect").astype(np.float64)
+    num_frames = 1 + (padded.size - n_fft) // hop_length
+    frames = np.lib.stride_tricks.sliding_window_view(padded, n_fft)[::hop_length][:num_frames]
+    spec_c64 = np.fft.rfft(frames * window[np.newaxis, :], n=n_fft, axis=-1).astype(np.complex64)
+    power = np.abs(spec_c64.astype(np.complex128)) ** 2.0  # [T, bins] float64
+    mel = np.maximum(MEL_FLOOR, np.dot(mel_filters.T, power.T))  # [n_mels, T]
+    return np.log10(mel).astype(np.float32)
+
+
+def normalize_waveform(waveform: np.ndarray, eps: float = 1e-6) -> np.ndarray:
+    """Mean/std normalization of one host waveform before the melspec."""
+    return (waveform - waveform.mean()) / (waveform.std() + eps)
+
+
+@functools.lru_cache(maxsize=4)
 def _dft_mel_constants(n_fft: int, n_mels: int, sampling_rate: int, fmax: float):
     """Windowed DFT basis ``[n_fft, 2*bins]`` (cos | -sin) and mel filters
     ``[bins, n_mels]``, numpy float32."""
-    bins = n_fft // 2 + 1
+    window, mel_filters = _window_and_filters(n_fft, n_mels, sampling_rate, fmax)
     n = np.arange(n_fft, dtype=np.float64)
-    k = np.arange(bins, dtype=np.float64)
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)
     angle = 2.0 * np.pi * np.outer(n, k) / n_fft
-    window = hann_window(n_fft)
     basis = np.concatenate(
         [np.cos(angle) * window[:, None], -np.sin(angle) * window[:, None]], axis=1
-    )
-    mel_filters = slaney_mel_filter_bank(
-        num_frequency_bins=bins, num_mel_filters=n_mels,
-        max_frequency=fmax, sampling_rate=sampling_rate,
     )
     return basis.astype(np.float32), mel_filters.astype(np.float32)
 

@@ -1,23 +1,28 @@
-"""Adaptive amplitude segmentation, device path (counterpart of
-``aat_tpu/ops/segmentation.py``).
+"""Adaptive amplitude segmentation (counterpart of
+``aat_tpu/ops/segmentation.py``), two implementations of one semantics.
 
-melspec → smoothed amplitude → epsilon-strict minima → boundary compaction
-→ merge-forward (pointer doubling) / split of over-long spans → a dense
-``[B, S_max]`` (start, end, out_len, valid) table. Same semantics and the
-same integer results as the JAX ``segment_waveforms``; the table is split
-from the melspec (:func:`segment_table_from_melspec`) so a caller can
-build it from any melspec of the same batch.
+- Host path (``*_exact``): one utterance in numpy, the reference's float32
+  boundary numerics bit for bit (float64 melspec, sequential f32 cumsum,
+  the 1e-5 comparator), then the sequential merge/split/pad pass.
+- Device path: melspec → smoothed amplitude → epsilon-strict minima →
+  boundary compaction → merge-forward (pointer doubling) / split of
+  over-long spans → a dense ``[B, S_max]`` (start, end, out_len, valid)
+  table. Same integer results as the JAX ``segment_waveforms``; the table
+  is split from the melspec (:func:`segment_table_from_melspec`) so a
+  caller can build it from any melspec of the same batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from aat_tpu_torch.ops import mel as mel_ops
+from aat_tpu_torch.runtime import host_ops
 
 EPS = 1e-5  # fp32 comparator epsilon of the reference
 
@@ -51,6 +56,89 @@ class TokenizerConfig:
         """gcd of hop and the min/max segment frames (40 at defaults)."""
         return math.gcd(math.gcd(self.hop_length, self.min_segment_frames),
                         self.max_segment_frames)
+
+
+# ---------------------------------------------------------------------------
+# Host path: one utterance, numpy, bit-identical float32 boundary numerics
+# ---------------------------------------------------------------------------
+
+
+def smoothed_amplitude_exact(melspec: np.ndarray, running_mean_points: int = 12) -> np.ndarray:
+    """float32 smoothed negative amplitude curve of a ``[n_mels, T]``
+    melspec (sequential f32 cumsum differences, as the reference)."""
+    amplitude = np.float32(-10) * melspec.mean(axis=0)  # float32 [T]
+    return host_ops.smoothed_amplitude(amplitude, running_mean_points)
+
+
+def find_amplitude_minima_exact(melspec: np.ndarray,
+                                config: TokenizerConfig = TokenizerConfig()) -> np.ndarray:
+    """Indices of epsilon-strict local maxima of the smoothed curve with
+    value > ``max_amplitude_for_minima``."""
+    x = smoothed_amplitude_exact(melspec, config.running_mean_points)
+    return host_ops.find_minima(x, EPS, config.max_amplitude_for_minima)
+
+
+def pretokenize_exact(waveform: np.ndarray, melspec: Optional[np.ndarray] = None,
+                      config: TokenizerConfig = TokenizerConfig()
+                      ) -> Tuple[List[int], np.ndarray]:
+    """Waveform-space segment boundaries (minima · hop, then the waveform
+    end) and the melspec."""
+    if melspec is None:
+        melspec = mel_ops.log_mel_spectrogram_exact(
+            waveform, n_fft=config.n_fft, hop_length=config.hop_length,
+            n_mels=config.num_mel_filters, sampling_rate=config.sampling_rate,
+        )
+    minima = find_amplitude_minima_exact(melspec, config)
+    boundaries = (minima * config.hop_length).tolist() + [int(waveform.shape[-1])]
+    return boundaries, melspec
+
+
+def split_sizes_for_span(length: int, min_frames: int, max_frames: int) -> List[int]:
+    """Chunk lengths for one over-long span: max-sized chunks; a remainder
+    of 0 drops the empty tail; a remainder < min shifts the last split so
+    the final chunk is exactly min."""
+    k = length // max_frames
+    gap = length - k * max_frames
+    if gap == 0:
+        return [max_frames] * k
+    if gap < min_frames:
+        sizes = [max_frames] * (k - 1)
+        sizes.append(length - min_frames - (k - 1) * max_frames)
+        sizes.append(min_frames)
+        return sizes
+    return [max_frames] * k + [gap]
+
+
+def process_boundaries_exact(waveform_length: int, boundaries: List[int],
+                             config: TokenizerConfig = TokenizerConfig()
+                             ) -> List[Tuple[int, int, int]]:
+    """Merge/split/pad pass → ``(start, end, out_len)`` spans. Too-short
+    spans merge forward into the next; ``out_len > end - start`` only for
+    a final tail right-padded with zeros to the minimum length."""
+    min_frames, max_frames = config.min_segment_frames, config.max_segment_frames
+    spans: List[Tuple[int, int, int]] = []
+    prev = 0
+    for boundary in boundaries:
+        length = boundary - prev
+        if length < min_frames:
+            continue  # merge forward: prev stays, the span joins the next
+        if length > max_frames:
+            offset = prev
+            for size in split_sizes_for_span(length, min_frames, max_frames):
+                spans.append((offset, offset + size, size))
+                offset += size
+        else:
+            spans.append((prev, boundary, length))
+        prev = boundary
+    if prev != waveform_length:
+        tail = waveform_length - prev
+        spans.append((prev, waveform_length, max(tail, min_frames)))
+    return spans
+
+
+# ---------------------------------------------------------------------------
+# Device path: a padded batch, fixed-shape tables
+# ---------------------------------------------------------------------------
 
 
 def smoothed_amplitude(melspec: torch.Tensor, running_mean_points: int = 12) -> torch.Tensor:

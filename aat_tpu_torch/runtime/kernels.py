@@ -35,13 +35,20 @@ _SIGNATURES = {
     "aat_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                       _F, _I, _I, _I, _F, _F, _P],
-    # q, k, v, key_mask, out, dout, lse, dq, dk, dv, delta, is_bf16,
-    # B, T, S, H, KVH, D, q/k/v strides as above,
-    # sm_scale, causal, pack_len, seed, rate, inv_keep, stream
-    "aat_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _I, _I, _I, _I, _I, _I,
-                      _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                      _F, _I, _I, _I, _F, _F, _P],
+    # q, k, v, key_mask, out, dout, lse, dq, is_bf16, B, T, S, H, KVH, D,
+    # q/k/v strides as above, sm_scale, causal, pack_len, seed, rate,
+    # inv_keep, stream
+    "aat_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _I, _I,
+                         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                         _F, _I, _I, _I, _F, _F, _P],
+    # as aat_flash_bwd_dq with dk, dv (f32 per q-head) in place of dq
+    "aat_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _I,
+                          _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                          _F, _I, _I, _I, _F, _F, _P],
+    # x, codebook, cbn, idx, N, K, D, stream
+    "aat_vq_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -60,3 +60,16 @@ def to_jax_params(params: dict) -> dict:
     for holder in _conv_kernels(out["audio_encoder"]):
         holder["kernel"] = np.ascontiguousarray(holder["kernel"].transpose(2, 1, 0))
     return out
+
+
+def vq_state_from_jax(state, device=None):
+    """A JAX ``VQState`` (numpy or JAX leaves) → the port's ``VQState``."""
+    from aat_tpu_torch.ops.vq import VQState
+
+    return VQState(*(torch.as_tensor(np.array(x), device=device) for x in state))
+
+
+def vq_state_to_jax(state) -> tuple:
+    """The port's ``VQState`` → ``(codebook, ema_counts, ema_sums)`` as
+    numpy, the JAX ``VQState`` field order."""
+    return tuple(x.detach().cpu().numpy() for x in state)

@@ -37,16 +37,50 @@ Phases, one line each:
      more step under ``torch.profiler`` gives the device's busy time and
      idle share, with device time by kernel written beside the build log
      (``aat_tpu_torch/build/train_profile.txt``).
+  9. the offline discrete-token pipeline at full width: 8 speech-like
+     utterances of 4-20 s through ``scripts.segment_embeddings`` (host
+     tokenizer, hubert-large eval with seeded random weights) →
+     ``scripts.mean_segment_embeddings`` → ``scripts.quantize_embeddings``
+     in a temporary directory, twice: 1024 codes (N < 1024, so the
+     codebook carries padded duplicate codes and k-means has nothing to
+     move) and 64 codes (N > 64: the codes move), 10 EMA iterations each;
+     ids below K, and the written ids equal to a plain-route rerun of the
+     assignment where
+     the best-to-second gap exceeds 1e-4 * max(1, |best|) (near-ties may
+     resolve either way: the kernel and cuBLAS sum x.c in other orders),
+     with the chosen distance within that margin on every row;
+ 10. the vq kernel vs its plain version at corpus scale, N = 262,144
+     seeded Gaussian-mixture rows of D = 1024 against K = 1024 and the
+     overhanging K = 1000, with exact duplicate codes (which must go to the
+     lowest id) and the same near-tie rule; then 10 iterations of the
+     quantize loop at that size, after one that warms it up;
+ 11. the long-form path's kernels vs their plain versions at its shapes
+     (key length > 8192): HuBERT's dense [1,8499,16,64] with dropout 0.1
+     and Qwen's causal [1,8540,16,128], padded key tails, f32 and bf16 at
+     phase 7's tolerances; the forward (out, lse) and the split backward's
+     dq and dk/dv kernels. The plain versions run 4 heads at a time, so
+     their [B, H, T, S] f32 tensors stay near 1.2 GB (a batch of one, so a
+     head's dropout mask is keyed on seed + head·GOLDEN, and a chunk
+     starting at head h0 takes the seed shifted by h0·GOLDEN); then 2
+     optimizer steps of ``projection_training_config()``
+     with the Qwen-1.5-1.8B LM at full width (random weights through
+     ``models.build.build_model``), one utterance of 170 s and one of
+     180 s (HuBERT T = 8499 and 8999): finite losses, the frozen Qwen
+     bitwise unchanged, the encoder moved, the split kernels launched and
+     the S <= 8192 backward kernels not; then one more step under
+     ``torch.profiler`` (``aat_tpu_torch/build/longform_profile.txt``).
 Launch counters are reset just before each main path (the two serving
-runs, the 3 training steps) and read just after; each kernel of the path
-must have launched there. Then a JSON line of kernel results, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+runs, the 3 training steps, the pipeline, the 2 long-form steps) and read
+just after; each kernel of the path must have launched there. Then a JSON
+line of kernel results, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 
 There is no CPU route: without a CUDA device, or outside the repository,
 the script exits non-zero and prints no result.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -56,6 +90,15 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# shapes of phases 9-11
+PIPELINE_SECONDS = (4.0, 6.5, 9.0, 11.5, 14.0, 16.5, 18.0, 20.0)
+VQ_CORPUS = (262144, 1024, (1024, 1000))  # N, D, codebook sizes
+# (B, T, H, D), causal, dropout: HuBERT's and Qwen's attention in phase 11
+SPLIT_CASES = (((1, 8499, 16, 64), False, (0.1, 24680)),
+               ((1, 8540, 16, 128), True, (0.0, 0)))
+PLAIN_HEADS = 4  # heads per call of a plain version in phase 11
+LONGFORM_SECONDS = (170.0, 180.0)
 
 MEL_TOL = 1e-4
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -341,12 +384,15 @@ TRAIN_KERNELS = ("flash_fwd", "flash_fwd_causal", "flash_bwd", "flash_bwd_causal
 
 def kernel_wrappers():
     from aat_tpu_torch.ops import attention as att
-    from aat_tpu_torch.ops import mel
+    from aat_tpu_torch.ops import mel, vq
 
     return {"mel": mel.melspec_kernel, "flash_fwd": att.flash_forward_kernel,
             "flash_fwd_causal": att.flash_forward_causal_kernel,
             "flash_bwd": att.flash_backward_kernel,
-            "flash_bwd_causal": att.flash_backward_causal_kernel}
+            "flash_bwd_causal": att.flash_backward_causal_kernel,
+            "flash_bwd_dq_long": att.flash_backward_dq_long,
+            "flash_bwd_dkv_long": att.flash_backward_dkv_long,
+            "vq": vq.nearest_codebook_kernel}
 
 
 def training_batches(torch, device, rng, n_steps, accum, per_batch=2):
@@ -453,17 +499,17 @@ def phase_training(torch, model, params, rng):
     return launches
 
 
-def profile_training_step(torch, trainer, micro):
+def profile_training_step(torch, trainer, micro, name="train"):
     """One torch.profiler pass over a warm training step: device busy time
     (the union of kernel intervals), the idle share of the step's wall, and
-    device time by kernel, to train_profile.txt in the kernels' build
+    device time by kernel, to ``<name>_profile.txt`` in the kernels' build
     directory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from aat_tpu_torch.runtime.kernels import BUILD_DIR
 
-    path = os.path.join(BUILD_DIR, "train_profile.txt")
+    path = os.path.join(BUILD_DIR, f"{name}_profile.txt")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
@@ -485,13 +531,364 @@ def profile_training_step(torch, trainer, micro):
     with open(path, "w") as f:
         f.write(f"wall {wall:.4f} s, device busy {busy_us / 1e6:.4f} s, "
                 f"{len(kernels)} kernels\n\ndevice ms, launches, kernel\n")
-        for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:60]:
-            f.write(f"{total / 1e3:10.3f} {count:6d}  {name[:160]}\n")
+        for kernel, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:60]:
+            f.write(f"{total / 1e3:10.3f} {count:6d}  {kernel[:160]}\n")
         f.write("\n")
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=30))
-    print(f"profile: warm training step wall {wall:.3f} s (profiled), device busy "
+    print(f"profile: warm {name} step wall {wall:.3f} s (profiled), device busy "
           f"{busy_us / 1e6:.3f} s, idle share {1 - busy_us / 1e6 / wall:.3f}, "
           f"{len(kernels)} kernels ({os.path.relpath(path, REPO)})", flush=True)
+
+
+def assert_ids_near(torch, label, got, x, codebook):
+    """Ids ``got`` against the plain route's assignment of x to the
+    codebook: equal where the plain best-to-second distance gap exceeds
+    1e-4 * max(1, |best|), and on every row the chosen code's distance
+    within that margin of the plain minimum (the kernel and cuBLAS sum x.c
+    in other orders, so a near-tie may resolve either way). Returns (plain
+    ids, rows with a clear gap, rows that differ, worst excess)."""
+    from aat_tpu_torch.ops import vq
+
+    cbn = vq.codebook_norms(codebook)
+    ref = vq.nearest_codebook_reference(x, codebook, cbn).long()
+    dist = cbn[None, :] - 2.0 * (x @ codebook.t())
+    two = torch.topk(dist, 2, dim=1, largest=False).values
+    best, second = two[:, 0], two[:, 1]
+    margin = 1e-4 * torch.clamp_min(best.abs(), 1.0)
+    clear = (second - best) > margin
+    chosen = dist.gather(1, got.long()[:, None])[:, 0]
+    excess = float((chosen - best - margin).max())
+    same = got.long() == ref
+    check(bool(same[clear].all()), f"{label}: ids differ from the plain route where the gap "
+                                   "is clear")
+    check(excess <= 0.0, f"{label}: a chosen code is {excess} past the margin")
+    return ref, int(clear.sum()), int((~same).sum()), excess
+
+
+def pipeline_items(rng):
+    """Speech-like utterances of ``PIPELINE_SECONDS``, as dataset items."""
+    return [{"id": f"utt{i}", "audio": {"array": speechlike_waveform(rng, d)}}
+            for i, d in enumerate(PIPELINE_SECONDS)]
+
+
+def phase_pipeline(torch, device, rng):
+    """The offline discrete-token pipeline at full width (hubert-large with
+    seeded random weights, 1024 codes): the three command lines in a
+    temporary directory. Returns the launch counts of the run."""
+    import tempfile
+
+    from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.ops import vq
+    from aat_tpu_torch.runtime.kernels import BUILD_DIR
+    from aat_tpu_torch.scripts import mean_segment_embeddings, quantize_embeddings
+    from aat_tpu_torch.scripts import segment_embeddings
+
+    items = pipeline_items(rng)
+    all_codes = (1024, 64)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # the dataset is the synthetic items, read where --dataset would load one
+    load_hf_dataset = segment_embeddings.load_hf_dataset
+    segment_embeddings.load_hf_dataset = lambda name, split=None: items
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        seg_dir, mean_dir = (os.path.join(tmp, d) for d in ("seg", "mean"))
+        tok_dirs = [os.path.join(tmp, f"tok{codes}") for codes in all_codes]
+        # HuBERT sees 74 frames per 1.5 s segment, under the flash gate
+        # (MIN_PALLAS_SEQ_LEN, as in JAX): the flash count stays 0
+        for w in (vq.nearest_codebook_kernel, att.flash_forward_kernel):
+            w.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            segment_embeddings.main(["--dataset", "synthetic", "--out", seg_dir,
+                                     "--random-init"], device=device)
+        finally:
+            segment_embeddings.load_hf_dataset = load_hf_dataset
+        torch.cuda.synchronize()
+        seg_s = time.perf_counter() - start
+        start = time.perf_counter()
+        mean_segment_embeddings.main(["--embeddings", seg_dir, "--out", mean_dir])
+        for codes, tok_dir in zip(all_codes, tok_dirs):
+            quantize_embeddings.main(["--embeddings", mean_dir, "--out", tok_dir,
+                                      "--codes", str(codes), "--iters", "10"], device=device)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - start
+        launches = {"vq": vq.nearest_codebook_kernel.launches,
+                    "flash_fwd": att.flash_forward_kernel.launches}
+
+        names = [it["id"] for it in items]
+        means = [np.load(os.path.join(mean_dir, f"{n}.npy"))[0] for n in names]
+        runs = [([np.load(os.path.join(d, f"{n}.tokens.npy")) for n in names],
+                 np.load(os.path.join(d, "codebook.npy"))) for d in tok_dirs]
+    per_utt = [m.shape[0] for m in means]
+    n = sum(per_utt)
+    x = torch.from_numpy(np.concatenate(means)).to(device)
+    print(f"pipeline: {len(items)} utterances, segments per utterance {per_utt}, N {n} "
+          f"embeddings of dim {x.shape[1]}, segment_embeddings {seg_s:.2f} s, mean + "
+          f"quantize ({' and '.join(map(str, all_codes))} codes) {quant_s:.2f} s; "
+          f"launches {launches}", flush=True)
+    check(n < all_codes[0] and n > all_codes[1], "N does not fall between the code counts")
+    check(bool(torch.isfinite(x).all()), "pipeline embeddings not finite")
+    for codes, (tokens, codebook) in zip(all_codes, runs):
+        codebook = torch.from_numpy(codebook).to(device)
+        ids = torch.from_numpy(np.concatenate(tokens)).to(device)
+        _, clear, differ, excess = assert_ids_near(torch, f"pipeline ids ({codes} codes)", ids,
+                                                   x, codebook)
+        print(f"pipeline {codes} codes ({'padded: N < K' if n < codes else 'N > K'}): "
+              f"{len(torch.unique(ids))} codes used; written ids vs plain rerun: {clear} "
+              f"rows with a clear gap equal, {differ} differ on near-ties, worst excess "
+              f"{excess:.3e}", flush=True)
+        check(all(t.shape == (m.shape[0],) for t, m in zip(tokens, means)),
+              "token files do not match the embeddings")
+        check(bool(((ids >= 0) & (ids < codes)).all()), "a token id is out of range")
+    check(launches["vq"] > 0, "the pipeline never launched the vq kernel")
+    return launches
+
+
+def corpus_embeddings(torch, device, n, d, seed):
+    """A seeded Gaussian mixture ``[n, d]`` made on the device: 256 centres,
+    unit noise around them at 0.5."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    centres = torch.randn((256, d), generator=g, device=device)
+    which = torch.randint(0, 256, (n,), generator=g, device=device)
+    return centres[which] + 0.5 * torch.randn((n, d), generator=g, device=device)
+
+
+def phase_vq_corpus(torch, device):
+    """Kernel 8 against its plain version at corpus scale (N = 262,144,
+    D = 1024), K = 1024 and the overhanging K = 1000, with exact duplicate
+    codes; then 10 EMA iterations of the quantize command line's loop.
+    Returns the K = 1024 result for the kernels line."""
+    from aat_tpu_torch.ops import vq
+    from aat_tpu_torch.scripts.quantize_embeddings import train_codebook
+
+    n, d, sizes = VQ_CORPUS
+    x = corpus_embeddings(torch, device, n, d, seed=10)
+    result = None
+    for k in sizes:
+        g = torch.Generator(device=device)
+        g.manual_seed(k)
+        cb = x[torch.randperm(n, generator=g, device=device)[:k]] + 0.1 * torch.randn(
+            (k, d), generator=g, device=device)
+        cb[k - 24:] = cb[5]  # exact duplicates of code 5
+        cb[k // 2] = cb[7]  # and of code 7, between the two
+        x[:64] = cb[5]  # rows sitting exactly on a duplicated code
+        x[64:128] = cb[7]
+        cbn = vq.codebook_norms(cb)
+        got = vq.nearest_codebook_kernel(x, cb, cbn)
+        ref, clear, differ, excess = assert_ids_near(torch, f"vq K={k}", got, x, cb)
+        ms = cuda_ms(torch, lambda: vq.nearest_codebook_kernel(x, cb, cbn), iters=5, warmup=1)
+        plain_ms = cuda_ms(torch, lambda: vq.nearest_codebook_reference(x, cb, cbn), iters=5,
+                           warmup=1)
+        gflop = 2.0 * n * k * d / 1e9
+        print(f"vq: N {n} D {d} K {k}: {clear} rows with a clear gap equal, {differ} ids "
+              f"differ from the plain route (near-ties), worst excess {excess:.3e}; exact "
+              f"duplicates -> {sorted(set(got[:128].tolist()))}; kernel {ms:.4f} ms "
+              f"({gflop / ms:.1f} TFLOP/s) plain {plain_ms:.4f} ms", flush=True)
+        check(bool((got[:64] == 5).all() and (got[64:128] == 7).all()),
+              f"vq K={k}: an exact tie did not go to the lowest id")
+        check(bool((ref[:64] == 5).all() and (ref[64:128] == 7).all()),
+              f"vq K={k}: the plain route broke an exact tie")
+        if result is None:
+            # ids that differ count as the error: an id is right or wrong
+            result = {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms}
+        del ref
+    train_codebook(x, sizes[0], 1, 0.8, log=lambda line: None)  # warm-up: first-call costs
+    torch.cuda.synchronize()
+    mse = []
+    start = time.perf_counter()
+    state = train_codebook(x, sizes[0], 10, 0.8, log=mse.append)
+    torch.cuda.synchronize()
+    ema_ms = (time.perf_counter() - start) * 1e3 / 10
+    print(f"vq EMA: 10 iterations of the quantize loop at N {n} K {sizes[0]} (after one "
+          f"warm-up iteration): {ema_ms:.2f} ms per iteration; {' | '.join(mse)}", flush=True)
+    check(bool(torch.isfinite(state.codebook).all()), "EMA codebook not finite")
+    return result
+
+
+def plain_by_heads(torch, fn, q, k, v, mask, residuals, scale, kw):
+    """A plain version over ``PLAIN_HEADS`` heads at a time of a batch of
+    one with KVH = H, its results joined on their head axes. ``residuals``
+    is ``(out, lse, dout)`` for the backward's plain versions, else None.
+    Head h's dropout mask is keyed on seed + h·GOLDEN, so a chunk starting
+    at head h0 takes the seed shifted by h0·GOLDEN."""
+    from aat_tpu_torch.ops.dropout import GOLDEN, to_int32
+
+    b, _, h, _ = q.shape
+    check(b == 1 and k.shape[2] == h, "plain_by_heads takes B = 1 and KVH = H")
+    parts = []
+    for h0 in range(0, h, PLAIN_HEADS):
+        heads = slice(h0, h0 + PLAIN_HEADS)
+        args = [x[:, :, heads] for x in (q, k, v)] + [mask]
+        if residuals is not None:
+            out, lse, dout = residuals
+            args += [out[:, :, heads], lse[:, heads], dout[:, :, heads]]
+        seed = to_int32(kw["dropout_seed"] + h0 * GOLDEN)
+        result = fn(*args, scale, **dict(kw, dropout_seed=seed))
+        parts.append(result if isinstance(result, tuple) else (result,))
+    # [B, T, H, D] outputs join on axis 2, the lse [B, H, T] on axis 1
+    joined = tuple(torch.cat(xs, dim=1 if xs[0].dim() == 3 else 2) for xs in zip(*parts))
+    return joined if len(joined) > 1 else joined[0]
+
+
+def phase_split_backward(torch, device, rng):
+    """The long-form path's kernels at its shapes (``SPLIT_CASES``, key
+    lengths above 8192) against their plain versions, f32 and bf16, at
+    phase 7's tolerances: the forward kernel (out, lse), then the split
+    route's dq and dk/dv kernels fed the plain forward's out and lse. The
+    plain versions run through :func:`plain_by_heads`. Returns the f32
+    results for the kernels line."""
+    from aat_tpu_torch.ops import attention as att
+
+    results = {}
+    for (b, t, h, d), causal, (rate, seed) in SPLIT_CASES:
+        check(t > att.FUSED_BWD_MAX_S, "the split case does not exceed the fused cap")
+        fwd = att.flash_forward_causal_kernel if causal else att.flash_forward_kernel
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            q, k, v, g = (torch.from_numpy(rng.normal(0, 1, (b, t, h, d)).astype(np.float32))
+                          .to(device=device, dtype=dtype) for _ in range(4))
+            mask = torch.ones((b, t), dtype=torch.int32, device=device)
+            mask[:, t - t // 10:] = 0
+            scale = d ** -0.5
+            kw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
+            fkw = dict(dropout_rate=rate, dropout_seed=seed, need_lse=True)
+
+            def plain(fn, residuals=None):
+                return plain_by_heads(torch, fn, q, k, v, mask, residuals, scale, kw)
+
+            out, lse = fwd(q, k, v, mask, scale, **fkw)
+            ref_out, ref_lse = plain(att.flash_forward_reference)
+            args = (q, k, v, mask, ref_out, ref_lse, g, scale)
+            dq = att.flash_backward_dq_long(*args, **kw)
+            dk, dv = att.flash_backward_dkv_long(*args, **kw)
+            ref_dq = plain(att.flash_backward_dq_reference, (ref_out, ref_lse, g))
+            ref_dk, ref_dv = plain(att.flash_backward_dkv_reference, (ref_out, ref_lse, g))
+            torch.cuda.synchronize()
+            out_err = float((out.float() - ref_out.float()).abs().max())
+            live = ref_lse > -1e29
+            lse_err = float((lse - ref_lse)[live].abs().max())
+            out_bound = FLASH_TOL[dtype_name] * (
+                max(1.0, float(ref_out.float().abs().max())) if dtype_name == "bfloat16" else 1.0)
+            errs = [float((a.float() - r.float()).abs().max()) for a, r in
+                    ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv))]
+            rel = [e / float(r.float().abs().max()) for e, r in zip(errs, (ref_dq, ref_dk, ref_dv))]
+            del ref_dq, ref_dk, ref_dv
+            torch.cuda.empty_cache()
+            fwd_ms = cuda_ms(torch, lambda: fwd(q, k, v, mask, scale, **fkw), iters=3, warmup=1)
+            dq_ms = cuda_ms(torch, lambda: att.flash_backward_dq_long(*args, **kw), iters=3,
+                            warmup=1)
+            dkv_ms = cuda_ms(torch, lambda: att.flash_backward_dkv_long(*args, **kw), iters=3,
+                             warmup=1)
+            fwd_plain_ms = cuda_ms(torch, lambda: plain(att.flash_forward_reference), iters=2,
+                                   warmup=1)
+            dq_plain_ms = cuda_ms(torch, lambda: plain(att.flash_backward_dq_reference,
+                                                       (ref_out, ref_lse, g)), iters=2, warmup=1)
+            dkv_plain_ms = cuda_ms(torch, lambda: plain(att.flash_backward_dkv_reference,
+                                                        (ref_out, ref_lse, g)), iters=2, warmup=1)
+            torch.cuda.empty_cache()
+            label = (f"{'causal' if causal else 'dense'} [{b},{t},{h},{d}] {dtype_name}"
+                     f"{f' dropout {rate}' if rate else ''}")
+            print(f"long-form kernels: {label} fwd out err {out_err:.3e} (bound {out_bound:.2e}) "
+                  f"lse err {lse_err:.3e} (bound {FLASH_TOL[dtype_name]}); split bwd dq/dk/dv "
+                  f"err/max|ref| {'/'.join(f'{e:.2e}' for e in rel)} (bound "
+                  f"{GRAD_REL_TOL[dtype_name]}); fwd {fwd_ms:.4f} ms plain {fwd_plain_ms:.4f} ms, "
+                  f"dq {dq_ms:.4f} ms plain {dq_plain_ms:.4f} ms, dkv {dkv_ms:.4f} ms plain "
+                  f"{dkv_plain_ms:.4f} ms", flush=True)
+            check(all(bool(torch.isfinite(x.float()).all()) for x in (out, dq, dk, dv)),
+                  f"long-form kernels {label}: non-finite output or gradient")
+            check(out_err <= out_bound and lse_err <= FLASH_TOL[dtype_name],
+                  f"long-form kernels {label}: forward differs by {out_err} (lse {lse_err})")
+            check(max(rel) <= GRAD_REL_TOL[dtype_name],
+                  f"long-form kernels {label}: gradients differ by {rel} of max|ref|")
+            if dtype_name == "float32":
+                name = "causal" if causal else "dense"
+                results[f"fwd_{name}"] = {"max_abs_err": out_err, "ms": fwd_ms,
+                                          "plain_ms": fwd_plain_ms}
+                results[f"dq_{name}"] = {"max_abs_err": errs[0], "ms": dq_ms,
+                                         "plain_ms": dq_plain_ms}
+                results[f"dkv_{name}"] = {"max_abs_err": max(errs[1:]), "ms": dkv_ms,
+                                          "plain_ms": dkv_plain_ms}
+            del q, k, v, g, out, lse, ref_out, ref_lse, args, dq, dk, dv
+            torch.cuda.empty_cache()
+    return results
+
+
+def longform_batch(torch, device, rng, seconds, vocab):
+    """One whole utterance of ``seconds`` of speech-like audio, normalized,
+    and a random caption of 32-48 tokens."""
+    w = speechlike_waveform(rng, seconds)
+    w = (w - w.mean()) / (w.std() + 1e-7)
+    c = int(rng.integers(32, 49))
+    ids = rng.integers(3, vocab, (1, c))
+    ones = np.ones((1, c), np.int32)
+    return {k: torch.from_numpy(v).to(device) for k, v in (
+        ("waveforms", w[None].astype(np.float32)),
+        ("waveforms_attention_mask", np.ones((1, w.size), np.int32)), ("input_ids", ids),
+        ("attention_mask", ones), ("input_ids_attention_mask", ones))}
+
+
+def phase_longform(torch, device, rng):
+    """2 optimizer steps of ``projection_training_config()`` with the
+    Qwen-1.5-1.8B LM at full width (random weights through ``build_model``),
+    one utterance of 170 s and one of 180 s: every attention's key length
+    exceeds 8192, so the backward takes the split route. Returns the launch
+    counts of the 2 steps."""
+    from aat_tpu_torch.models.build import build_model
+    from aat_tpu_torch.models.hubert import feature_lengths
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.config import projection_training_config
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    cfg = dataclasses.replace(projection_training_config(), lm_pretrained_model="Qwen/Qwen1.5-1.8B",
+                              per_device_train_batch_size=1, gradient_accumulation_steps=1)
+    start = time.perf_counter()
+    model, params = build_model(cfg, pretrained=False, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - start
+    lm = model.lm_config
+    n_lm = sum(x.numel() for x in optim.tree_leaves(params["lm_decoder"]))
+    trainer = AATTrainer(model, params, cfg)
+    lm_before = [x.detach().cpu() for x in optim.tree_leaves(params["lm_decoder"])]
+    fp = params["audio_encoder"]["feature_projection"]["projection"]["kernel"]
+    fp_before = fp.detach().clone()
+    batches = [longform_batch(torch, device, rng, s, lm.vocab_size) for s in LONGFORM_SECONDS]
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for batch in batches:
+        start = time.perf_counter()
+        metrics = trainer.training_step([batch])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        losses.append(metrics["train/loss"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: w.launches for name, w in wrappers.items()}
+    frames = [int(feature_lengths(model.audio_encoder_config,
+                                  b["waveforms_attention_mask"].sum(-1))[0]) for b in batches]
+    print(f"longform: Qwen-1.5-1.8B ({n_lm / 1e9:.3f} B LM params, {lm.num_hidden_layers} "
+          f"layers, width {lm.hidden_size}, D {lm.head_dim}) + hubert-large, init "
+          f"{init_s:.1f} s; 2 steps of one utterance ({LONGFORM_SECONDS} s: {frames} frames, "
+          f"captions {[int(b['input_ids'].shape[1]) for b in batches]}), losses "
+          f"{[round(x, 5) for x in losses]}, step walls {[round(x, 3) for x in walls]} s, "
+          f"peak memory {peak:.1f} GiB, launches {launches}", flush=True)
+    check(all(np.isfinite(losses)), f"non-finite long-form loss {losses}")
+    check(metrics["train/skipped_nonfinite_total"] == 0.0, "an update was dropped as non-finite")
+    check(all(torch.equal(a, b.detach().cpu())
+              for a, b in zip(lm_before, optim.tree_leaves(params["lm_decoder"]))),
+          "a frozen Qwen weight changed")
+    check(not torch.equal(fp_before, fp), "the encoder's weights did not move")
+    for name in ("flash_fwd", "flash_fwd_causal", "flash_bwd_dq_long", "flash_bwd_dkv_long"):
+        check(launches[name] > 0, f"long-form training never launched {name}")
+    for name in ("flash_bwd", "flash_bwd_causal"):
+        check(launches[name] == 0, f"long-form training launched {name} (S <= 8192 route)")
+    del lm_before
+    profile_training_step(torch, trainer, [batches[-1]], name="longform")
+    return launches
 
 
 def main():
@@ -584,6 +981,19 @@ def main():
 
     # 8. training at full width (the serving weights, trained in place)
     train_launches = phase_training(torch, model, params, rng)
+    del model, params  # SmolLM and its encoder leave the card before Qwen comes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the offline discrete-token pipeline at full width
+    pipeline_launches = phase_pipeline(torch, device, rng)
+    # 10. kernel 8 at corpus scale
+    vq_result = phase_vq_corpus(torch, device)
+    # 11. the long-form path's kernels at its shapes, then training with Qwen
+    split_results = phase_split_backward(torch, device, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    longform_launches = phase_longform(torch, device, rng)
 
     def entry(name, source, replaces, count, result):
         return {"name": name, "route": "cuda", "source": f"aat_tpu_torch/csrc/{source}",
@@ -599,6 +1009,11 @@ def main():
               train_launches["flash_bwd"], train_results["bwd_dense"]),
         entry("flash_bwd_causal", "flash_bwd.cu", "aat_tpu/ops/attention.py:709",
               train_launches["flash_bwd_causal"], train_results["bwd_causal"]),
+        entry("flash_bwd_dq_long", "flash_bwd.cu", "aat_tpu/ops/attention.py:562",
+              longform_launches["flash_bwd_dq_long"], split_results["dq_dense"]),
+        entry("flash_bwd_dkv_long", "flash_bwd.cu", "aat_tpu/ops/attention.py:595",
+              longform_launches["flash_bwd_dkv_long"], split_results["dkv_dense"]),
+        entry("vq", "vq.cu", "aat_tpu/ops/vq.py:50", pipeline_launches["vq"], vq_result),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(smi_line, flush=True)

@@ -1,6 +1,10 @@
-"""Parameter bridge and package hygiene: ``from_jax_params`` round-trips,
-the port's int-seed init equals the bridged JAX int-seed init, and
-importing the port loads no JAX."""
+"""Parameter bridge and package hygiene: ``from_jax_params`` round-trips
+(also a Qwen-shaped tree with attention biases and an untied head), the
+port's int-seed and PRNG-key inits equal the bridged JAX inits, the
+``build_*`` functions equal JAX's with ``pretrained=False``, and importing
+the port loads no JAX."""
+
+import dataclasses
 
 import subprocess
 import sys
@@ -9,12 +13,18 @@ import os
 import numpy as np
 import jax
 
+import pytest
+
 from aat_tpu.models import aslm as jaslm
+from aat_tpu.models import build as jbuild
 from aat_tpu.models import hubert as jhub
 from aat_tpu.models import llama as jllm
+from aat_tpu.training.config import TrainingConfig as JConfig
 from aat_tpu_torch.models import aslm as taslm
+from aat_tpu_torch.models import build as tbuild
 from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.models import llama as tllm
+from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.utils.port import from_jax_params, to_jax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -72,6 +82,80 @@ def test_mean_projection_init_equals_jax():
     assert_trees_equal(taslm.init_aslm_params(5, tcfg), jaslm.init_aslm_params(5, jcfg))
 
 
+def tiny_qwen(llama_module):
+    """A Qwen-1.5-shaped LM at tiny width: attention biases, KVH = H,
+    θ = 1e6, untied head."""
+    return dataclasses.replace(llama_module.tiny_test_config(), num_key_value_heads=4,
+                               rope_theta=1000000.0, attention_bias=True,
+                               tie_word_embeddings=False)
+
+
+def test_qwen_shaped_tree_round_trips():
+    jmodel, _ = tiny_configs()
+    tree = jax_int_seed_params(jmodel)
+    tree["lm_decoder"] = jllm.init_llama_params(jax.random.PRNGKey(1), tiny_qwen(jllm))
+    attn = tree["lm_decoder"]["layers"][0]["attention"]
+    assert {"q", "k", "v"} <= {n for n, p in attn.items() if "bias" in p}
+    assert "lm_head" in tree["lm_decoder"]
+    ported = from_jax_params(tree)
+    assert_trees_equal(to_jax_params(ported), tree)
+
+
+@pytest.mark.parametrize("key", [0, 1, 7])
+def test_prng_key_inits_equal_jax(key):
+    """A JAX key enters the host draws as its data words (0, key)."""
+    jkey = jax.random.PRNGKey(key)
+    words = tuple(int(x) for x in np.asarray(jax.random.key_data(jkey)))
+    assert words == (0, key)
+    jcfg = jaslm.AslmConfig(projection_type="linear", audio_encoder_hidden=16, lm_hidden=8,
+                            projection_hidden=12)
+    tcfg = taslm.AslmConfig(projection_type="linear", audio_encoder_hidden=16, lm_hidden=8,
+                            projection_hidden=12)
+    assert_trees_equal(taslm.init_aslm_params(words, tcfg), jaslm.init_aslm_params(jkey, jcfg))
+    assert_trees_equal(tllm.init_llama_params(words, tiny_qwen(tllm)),
+                       jllm.init_llama_params(jkey, tiny_qwen(jllm)))
+    assert_trees_equal(thub.init_hubert_params(words, thub.tiny_test_config()),
+                       from_jax_params({"audio_encoder": jhub.init_hubert_params(
+                           jkey, jhub.tiny_test_config()), "adapter": {}, "lm_decoder": {}}
+                       )["audio_encoder"])
+
+
+def assert_same_fields(port_cfg, jax_cfg):
+    """Every field of the port's config equals JAX's (JAX has more: remat,
+    pipeline and pooling fields the port does not carry)."""
+    for field in dataclasses.fields(port_cfg):
+        assert getattr(port_cfg, field.name) == getattr(jax_cfg, field.name), field.name
+
+
+@pytest.mark.parametrize("lm", ["HuggingFaceTB/SmolLM-135M-Instruct", "Qwen/Qwen1.5-1.8B"])
+def test_build_model_equals_jax(monkeypatch, lm):
+    """``build_model(pretrained=False)`` in both packages, with the full-size
+    configs swapped for tiny ones: the same configs and the same draws."""
+    monkeypatch.setattr(jhub, "hubert_large_config", jhub.tiny_test_config)
+    monkeypatch.setattr(thub, "hubert_large_config", thub.tiny_test_config)
+    monkeypatch.setattr(jllm, "smollm_135m_config", jllm.tiny_test_config)
+    monkeypatch.setattr(tllm, "smollm_135m_config", tllm.tiny_test_config)
+    monkeypatch.setattr(jllm, "qwen15_18b_config", lambda: tiny_qwen(jllm))
+    monkeypatch.setattr(tllm, "qwen15_18b_config", lambda: tiny_qwen(tllm))
+    jmodel, jparams = jbuild.build_model(JConfig(lm_pretrained_model=lm), pretrained=False,
+                                         seed=3)
+    tmodel, tparams = tbuild.build_model(TConfig(lm_pretrained_model=lm), pretrained=False,
+                                         seed=3)
+    assert_same_fields(tmodel.lm_config, jmodel.lm_config)
+    assert_same_fields(tmodel.audio_encoder_config, jmodel.audio_encoder_config)
+    assert_same_fields(tmodel.config, jmodel.config)
+    assert_trees_equal(to_jax_params(tparams), jax.device_get(jparams))
+
+
+def test_build_refuses_pretrained_and_full_configs_match_jax():
+    for build in (tbuild.build_audio_encoder, tbuild.build_lm_decoder):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            build(TConfig(), pretrained=True)
+    assert_same_fields(tllm.qwen15_18b_config(), jllm.qwen15_18b_config())
+    q = tllm.qwen15_18b_config()
+    assert (q.hidden_size // q.num_attention_heads, q.num_key_value_heads) == (128, 16)
+
+
 def test_port_imports_no_jax():
     modules = [
         "aat_tpu_torch", "aat_tpu_torch.ops.mel", "aat_tpu_torch.ops.segmentation",
@@ -82,7 +166,11 @@ def test_port_imports_no_jax():
         "aat_tpu_torch.utils.port", "aat_tpu_torch.runtime.kernels",
         "aat_tpu_torch.ops.dropout", "aat_tpu_torch.training.config",
         "aat_tpu_torch.training.lr_schedule", "aat_tpu_torch.training.optim",
-        "aat_tpu_torch.training.trainer",
+        "aat_tpu_torch.training.trainer", "aat_tpu_torch.audio", "aat_tpu_torch.tokenizer",
+        "aat_tpu_torch.runtime.host_ops", "aat_tpu_torch.ops.vq", "aat_tpu_torch.models.build",
+        "aat_tpu_torch.scripts", "aat_tpu_torch.scripts.segment_embeddings",
+        "aat_tpu_torch.scripts.mean_segment_embeddings",
+        "aat_tpu_torch.scripts.quantize_embeddings",
     ]
     code = (
         "import sys\n"
