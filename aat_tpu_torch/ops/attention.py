@@ -7,10 +7,13 @@ MIN_PALLAS_SEQ_LEN`` with the kernel requested it runs
 The flash route is a ``torch.autograd.Function`` (the JAX ``_flash_core``
 custom VJP):
 
-- forward: ``csrc/flash_fwd.cu`` (replaces the TPU's ``_fwd_kernel`` and,
-  causal, ``_fwd_tri_kernel``), writing the row log-sum-exp when a
-  gradient will be asked for; without one (serving, ``torch.no_grad``) the
-  lse-free forward runs, as JAX's ``need_residuals=False`` does;
+- forward (replaces the TPU's ``_fwd_kernel`` and, causal,
+  ``_fwd_tri_kernel``): bf16 operands launch the tensor-core kernel of
+  ``csrc/flash_fwd_mma.cu``, f32 operands the FFMA kernel of
+  ``csrc/flash_fwd.cu``; one wrapper and counter per TPU kernel covers
+  both. It writes the row log-sum-exp when a gradient will be asked for;
+  without one (serving, ``torch.no_grad``) the lse-free forward runs, as
+  JAX's ``need_residuals=False`` does;
 - backward: ``csrc/flash_bwd.cu``, a dq kernel and a dk/dv kernel. For key
   lengths up to ``FUSED_BWD_MAX_S`` = 8192 the wrappers
   :func:`flash_backward_kernel` / :func:`flash_backward_causal_kernel`
@@ -203,9 +206,13 @@ def flash_backward_dkv_reference(q, k, v, key_mask, out, lse, dout, sm_scale: fl
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(q, k, v, key_mask):
+def _check_device(q):
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
+
+
+def _check_operands(q, k, v, key_mask):
+    _check_device(q)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash kernel takes f32 or bf16, got {q.dtype}")
     b, t, h, d = q.shape
@@ -222,6 +229,15 @@ def _check_operands(q, k, v, key_mask):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or x.stride(-1) != 1:
             raise ValueError(f"{name} must lie on {q.device} with a unit last stride")
+        if q.dtype != torch.bfloat16:
+            continue
+        # the tensor-core forward copies rows in 16-byte chunks (a stride of
+        # a size-1 axis is never used)
+        if any(x.stride(i) % 8 for i in range(3) if x.shape[i] > 1):
+            raise ValueError(f"bf16 {name} needs strides in multiples of 8 elements, "
+                             f"got {x.stride()}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"bf16 {name} must start on a 16-byte boundary")
     return key_mask.to(device=q.device, dtype=torch.int32).contiguous()
 
 
@@ -232,6 +248,8 @@ def _strides(q, k, v):
 
 def _dropout_args(dropout_rate: float, dropout_seed: int):
     rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"flash kernel dropout rate must lie in [0, 1), got {rate}")
     return (to_int32(int(dropout_seed)), rate, 1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
 
 
@@ -246,9 +264,10 @@ def _launch_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_s
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if need_lse else None)
     library().call(
-        "aat_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), lse.data_ptr() if need_lse else None,
-        int(q.dtype == torch.bfloat16), b, t, s, h, kvh, d, *_strides(q, k, v),
+        "aat_flash_fwd_mma" if q.dtype == torch.bfloat16 else "aat_flash_fwd",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr() if need_lse else None, b, t, s, h, kvh, d,
+        *_strides(q, k, v),
         float(sm_scale), int(causal), int(pack_len or 0),
         *_dropout_args(dropout_rate, dropout_seed), stream_handle(q.device))
     return (out, lse) if need_lse else out
@@ -256,7 +275,8 @@ def _launch_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_s
 
 def flash_forward_kernel(q, k, v, key_mask, sm_scale: float, dropout_rate: float = 0.0,
                          dropout_seed: int = 0, need_lse: bool = False):
-    """Launch ``aat_flash_fwd``, dense (replaces the TPU kernel
+    """Launch the dense forward, ``aat_flash_fwd_mma`` in bf16 and
+    ``aat_flash_fwd`` in f32 (replaces the TPU kernel
     aat_tpu/ops/attention.py:186 ``_fwd_kernel``) → out ``[B, T, H, D]`` in
     q's dtype, or ``(out, lse [B, H, T] f32)`` with ``need_lse``."""
     result = _launch_forward(q, k, v, key_mask, sm_scale, False, dropout_rate,
@@ -268,7 +288,8 @@ def flash_forward_kernel(q, k, v, key_mask, sm_scale: float, dropout_rate: float
 def flash_forward_causal_kernel(q, k, v, key_mask, sm_scale: float,
                                 dropout_rate: float = 0.0, dropout_seed: int = 0,
                                 pack_len: Optional[int] = None, need_lse: bool = False):
-    """Launch ``aat_flash_fwd``, causal (replaces the TPU kernel
+    """Launch the causal forward, ``aat_flash_fwd_mma`` in bf16 and
+    ``aat_flash_fwd`` in f32 (replaces the TPU kernel
     aat_tpu/ops/attention.py:245 ``_fwd_tri_kernel``)."""
     result = _launch_forward(q, k, v, key_mask, sm_scale, True, dropout_rate,
                              dropout_seed, pack_len, need_lse)

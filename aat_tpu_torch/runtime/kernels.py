@@ -25,16 +25,20 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
+_FLASH_FWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+              _F, _I, _I, _I, _F, _F, _P]
+
 # C entry points: name -> argtypes (every one returns cudaGetLastError()).
 _SIGNATURES = {
     # frames, basis, filters, out, n_frames, stream
     "aat_mel_forward": [_P, _P, _P, _P, _I, _P],
-    # q, k, v, key_mask, out, lse (or null), is_bf16, B, T, S, H, KVH, D,
-    # q strides (b, t, h), k strides (b, s, h), v strides (b, s, h),
-    # sm_scale, causal, pack_len, seed, rate, inv_keep, stream
-    "aat_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                      _F, _I, _I, _I, _F, _F, _P],
+    # q, k, v, key_mask, out, lse (or null), B, T, S, H, KVH, D, q strides
+    # (b, t, h), k strides (b, s, h), v strides (b, s, h), sm_scale, causal,
+    # pack_len, seed, rate, inv_keep, stream: f32 (flash_fwd.cu) and bf16 on
+    # the tensor cores (flash_fwd_mma.cu)
+    "aat_flash_fwd": _FLASH_FWD,
+    "aat_flash_fwd_mma": _FLASH_FWD,
     # q, k, v, key_mask, out, dout, lse, dq, is_bf16, B, T, S, H, KVH, D,
     # q/k/v strides as above, sm_scale, causal, pack_len, seed, rate,
     # inv_keep, stream
@@ -53,12 +57,15 @@ _SIGNATURES = {
 
 
 class KernelLibrary:
-    """The loaded library plus what its build reported."""
+    """The loaded library plus what its build reported. ``calls`` counts the
+    launches through each C entry, so a run can tell which of two kernels
+    behind one wrapper (the f32 and bf16 flash forwards) it went through."""
 
     def __init__(self, path: str, build_seconds: float, build_log: str):
         self.path = path
         self.build_seconds = build_seconds
         self.build_log = build_log
+        self.calls = dict.fromkeys(_SIGNATURES, 0)
         self._lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self._lib, name)
@@ -70,6 +77,7 @@ class KernelLibrary:
         err = getattr(self._lib, name)(*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err}")
+        self.calls[name] += 1
 
 
 _library = None

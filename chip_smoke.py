@@ -8,9 +8,12 @@ Phases, one line each:
   2. build: compile ``aat_tpu_torch/csrc/*.cu`` for sm_90a (nvcc, ctypes);
   3. mel kernel vs its plain PyTorch version at the serving path's shape
      (frames of 8 x 12 s of speech-like audio): max abs error <= 1e-4;
-  4. flash forward kernel vs its plain version at [1,999,16,64] and
+  4. flash forward kernels vs their plain version at [1,999,16,64] and
      [2,1499,16,64] with a padded key tail and a fully masked row, f32
-     (<= 1e-4) and bf16 (<= 2e-2); the masked row must be exactly 0;
+     (<= 1e-4, the FFMA kernel of csrc/flash_fwd.cu) and bf16 (<= 2e-2,
+     the tensor-core kernel of csrc/flash_fwd_mma.cu), and every flash
+     forward's ||out - ref||_F / ||ref||_F within 1e-4 (f32) / 1e-2 (bf16);
+     the masked row must be exactly 0; SDPA timed at serving's f32 shape;
   5. adaptive serving at full width (hubert-large + linear projection +
      SmolLM-135M, random weights from a seed): 6 utterances of 2-12 s,
      4 slots, 32 new tokens, chunks of 8; segment tables of the kernel and
@@ -24,19 +27,29 @@ Phases, one line each:
      case with a fully masked batch row (exact zeros forward, zero
      gradients backward), causal D=128 GQA with pack_len; forward (out,
      lse) within 1e-4 (f32) / 2e-2 (bf16; out: of max(1, max|ref|)),
+     and phase 4's norm ratio,
      gradients within 1e-3 (f32) / 3e-2 (bf16) of max|ref| (sums in
-     another order; bf16 rounds p and ds);
+     another order; bf16 rounds p and ds); in bf16 the yardstick
+     ``scaled_dot_product_attention`` (SDPA) is timed on the same operands
+     (forward; backward as forward plus backward minus forward). Then the
+     keep-mask identity check: bf16 [2,300,4,128] against S = D = 128 keys
+     with v the identity and dropout 0.5, dense and causal, so out == 0
+     reads the tensor-core kernel's keep mask, which must equal the plain
+     version's ``_keep_mask`` on every allowed position;
   8. training at full width: ``projection_training_config()`` (bf16
      compute over f32 masters, hubert-large train-mode dropout and
      LayerDrop, frozen LM, fused guarded AdamW), 3 optimizer steps of 2
      microbatches of 2 utterances (8-20 s, captions of 32-48 tokens):
      finite losses, the frozen LM bitwise unchanged, trained weights
-     moved; then one f32 gradient step through the kernel route and the
+     moved, every bf16 forward launch through the C entry
+     ``aat_flash_fwd_mma`` and none through ``aat_flash_fwd``; then one f32
+     gradient step (through ``aat_flash_fwd``) through the kernel route and the
      plain route with the same seeds: loss and global grad norm within
      1e-3 relative, feature_projection grads within 1e-3 * max|ref|; one
      more step under ``torch.profiler`` gives the device's busy time and
      idle share, with device time by kernel written beside the build log
-     (``aat_tpu_torch/build/train_profile.txt``).
+     (``aat_tpu_torch/build/train_profile.txt``) and the forward kernels'
+     device time printed by name.
   9. the offline discrete-token pipeline at full width: 8 speech-like
      utterances of 4-20 s through ``scripts.segment_embeddings`` (host
      tokenizer, hubert-large eval with seeded random weights) →
@@ -58,7 +71,12 @@ Phases, one line each:
      (key length > 8192): HuBERT's dense [1,8499,16,64] with dropout 0.1
      and Qwen's causal [1,8540,16,128], padded key tails, f32 and bf16 at
      phase 7's tolerances; the forward (out, lse) and the split backward's
-     dq and dk/dv kernels. The plain versions run 4 heads at a time, so
+     dq and dk/dv kernels, with SDPA timed in bf16 as in phase 7, and the
+     dense bf16 forward timed again at rate 0. In bf16 two faults are
+     planted through the tensor-core kernel's arguments (the 1/(1 - rate)
+     rescale left out; keys 1024-1087, one 64-key tile, left out): the out
+     checks must reject both. The plain
+     versions run 4 heads at a time, so
      their [B, H, T, S] f32 tensors stay near 1.2 GB (a batch of one, so a
      head's dropout mask is keyed on seed + head·GOLDEN, and a chunk
      starting at head h0 takes the seed shifted by h0·GOLDEN); then 2
@@ -67,13 +85,25 @@ Phases, one line each:
      ``models.build.build_model``), one utterance of 170 s and one of
      180 s (HuBERT T = 8499 and 8999): finite losses, the frozen Qwen
      bitwise unchanged, the encoder moved, the split kernels launched and
-     the S <= 8192 backward kernels not; then one more step under
-     ``torch.profiler`` (``aat_tpu_torch/build/longform_profile.txt``).
+     the S <= 8192 backward kernels not, the forward only through
+     ``aat_flash_fwd_mma``; then one more step under ``torch.profiler``
+     (``aat_tpu_torch/build/longform_profile.txt``).
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, the pipeline, the 2 long-form steps) and read
-just after; each kernel of the path must have launched there. Then a JSON
-line of kernel results, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+just after; each kernel of the path must have launched there, and each
+path's forward launches must all go through one C entry (serving's f32
+through ``aat_flash_fwd``, training's and long-form training's bf16 through
+``aat_flash_fwd_mma``). Then a JSON line of kernel results, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. In the kernel
+line the flash entries report bf16 (the forward: the tensor-core kernel at
+the long-form shapes, counting only launches through its C entry), with the
+f32 results under ``f32_`` keys; the entry ``flash_fwd_f32`` is the FFMA
+forward with serving's launches at serving's shape; ``library_ms`` is SDPA's time
+(null for mel and vq, which no single PyTorch call computes), and
+``bound_ms`` the larger of the bytes over 3.35 TB/s and the operations
+over their peak rates (989 TFLOP/s bf16, 67 TFLOP/s f32, the exponentials
+and the dropout hash at the SM's MUFU and INT32 issue rates), counted
+from this run's inputs.
 
 There is no CPU route: without a CUDA device, or outside the repository,
 the script exits non-zero and prints no result.
@@ -102,14 +132,124 @@ LONGFORM_SECONDS = (170.0, 180.0)
 
 MEL_TOL = 1e-4
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# ||out - ref||_F / ||ref||_F of a flash forward: bf16 rounding of q, p and
+# out gives about 3e-3; leaving the 1/(1 - rate) rescale out at rate 0.1
+# gives 0.1, and leaving one 64-key tile out of ~7650 keys about 0.09
+FLASH_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+FAULT_TILE = (1024, 1088)  # the key tile whose keys a planted fault masks
 GRAD_REL_TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # of max|ref|
 ENCODER_REL_TOL = 1e-3
 TRAIN_REL_TOL = 1e-3
+
+# the bounds of the kernels line: NVIDIA H100 SXM peaks (data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Hopper SM issue rates (16 MUFU and 64 INT32 operations a clock) x 132 SMs
+# at the 1.98 GHz boost clock behind the data sheet's f32 rate
+MUFU_PER_S = 132 * 16 * 1.98e9
+INT32_PER_S = 132 * 64 * 1.98e9
+HASH_OPS = 10  # integer operations of the dropout position hash per score
+# products of D-long rows per allowed (q, k) pair: the forward's q.k and p.v;
+# the backward's q.k, dout.v, then dq (ds.k), dk (ds.q) and dv (p.dout)
+PRODUCTS = {"fwd": 2, "bwd": 5, "dq": 3, "dkv": 4}
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def out_errors(out, ref):
+    """``(max|out - ref|, ||out - ref||_F / ||ref||_F)`` in f32. The ratio
+    scales with the values: a bound on the largest error alone is as large
+    as a typical |out| where a few rows dominate max|ref|."""
+    diff = out.float() - ref.float()
+    return float(diff.abs().max()), float(diff.norm() / ref.float().norm())
+
+
+def bound_ms(tensors, op_seconds):
+    """``(bound_ms, bound_by)``: the larger of the bytes of ``tensors`` (each
+    input read once, each output written once) over HBM's rate and the
+    slowest kind of operation, ``op_seconds`` being each kind's count over
+    its peak rate."""
+    mem_s = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
+    ops_s = max(op_seconds)
+    return max(mem_s, ops_s) * 1e3, "bytes" if mem_s >= ops_s else "operations"
+
+
+def attention_bound(torch, kind, tensors, q, mask, causal, pack_len, rate):
+    """The bound of a flash kernel (``PRODUCTS`` kind) from this run's
+    inputs: the allowed (q, k) pairs of ``mask`` and the causal rule, each
+    pair costing 2·D flops per product on the tensor cores at q's dtype,
+    one exponential, and with dropout one hash."""
+    from aat_tpu_torch.ops import attention as att
+
+    b, t, h, d = q.shape
+    s = mask.shape[1]
+    scores = h * float(att._allowed(mask, t, s, causal, pack_len).expand(b, 1, t, s).sum())
+    seconds = [2.0 * d * PRODUCTS[kind] * scores / PEAK_FLOPS[str(q.dtype)[6:]],
+               scores / MUFU_PER_S]
+    if rate > 0.0:
+        seconds.append(HASH_OPS * scores / INT32_PER_S)
+    return bound_ms(tensors, seconds)
+
+
+def sdpa_ms(torch, q, k, v, causal, rate):
+    """The yardstick of the flash kernels: one PyTorch call,
+    ``scaled_dot_product_attention``, on the same operands (copied to its
+    [B, H, T, D] layout, GQA k/v repeated to H heads, no key mask; dropout
+    at ``rate``), on its FlashAttention backend in bf16 and its
+    memory-efficient one in f32, which the former does not take. Returns its
+    forward ms and its backward ms (forward plus backward minus forward).
+    The port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    backend = (SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16
+               else SDPBackend.EFFICIENT_ATTENTION)
+    h = q.shape[2]
+    qh, kh, vh = (x.transpose(1, 2).repeat_interleave(h // x.shape[2], dim=1).contiguous()
+                  .requires_grad_(True) for x in (q, k, v))
+    g = torch.randn_like(qh)
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, dropout_p=rate, is_causal=causal)
+
+    with sdpa_kernel([backend]):
+        fwd_ms = cuda_ms(torch, fwd, iters=10)
+        both_ms = cuda_ms(torch, lambda: torch.autograd.grad(fwd(), (qh, kh, vh), g), iters=10)
+    return {"fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms}
+
+
+def ptxas_usage(log):
+    """``kernel: N registers, S/L bytes spilled`` for each entry function in
+    the ptxas -v output of ``log``, demangled where c++filt exists."""
+    import re
+    import shutil
+
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if found:
+            name = found.group(1)
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found:
+            spill = f"{found.group(1)}/{found.group(2)} bytes spilled"
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            rows.append((name, f"{found.group(1)} registers, {spill}"))
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(short_name(n), u) for n, (_, u) in zip(names, rows)]
+    return [f"{n}: {u}" for n, u in rows]
+
+
+def short_name(kernel):
+    """A demangled kernel name without namespace, return type and arguments."""
+    name = kernel.replace("(anonymous namespace)::", "").split("(")[0]
+    return name[5:] if name.startswith("void ") else name
 
 
 def speechlike_waveform(rng, duration_s, sampling_rate=16000):
@@ -184,15 +324,25 @@ def phase_mel(torch, device, rng):
     check(err64 <= MEL_TOL, f"mel kernel differs from the f64 computation by {err64}")
     check(bool(torch.isfinite(got).all()), "mel kernel output not finite")
     check(err <= MEL_TOL, f"mel kernel differs from its plain version by {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # f32 FFMA: the DFT product (400 x 402), the power, the mel product
+    # (201 x 64), per frame; no single PyTorch call computes a log-mel
+    n = frames.numel() // frames.shape[-1]
+    flops = n * (2 * 400 * 402 + 3 * 201 + 2 * 201 * 64)
+    bound = bound_ms((frames, basis.float(), filters.float(), got),
+                     [flops / PEAK_FLOPS["float32"]])
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
 
 
 def phase_flash(torch, device, rng):
+    """The dense forward at serving's shapes, f32 and bf16. Returns the f32
+    result at [1,999,16,64], the shape serving's HuBERT runs through the
+    FFMA kernel, for the kernels line."""
     from aat_tpu_torch.ops import attention as att
 
-    main = None
     cases = [((1, 999, 16, 16, 64), "tail"), ((2, 1499, 16, 16, 64), "tail+dead"),
              ((1, 300, 8, 2, 128), "tail")]  # the last: GQA and D=128
+    result = None
     for (b, t, h, kvh, d), masking in cases:
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
@@ -208,27 +358,38 @@ def phase_flash(torch, device, rng):
             got = att.flash_forward_kernel(q, k, v, mask, scale)
             ref = att.reference_attention_bthd(q, k, v, mask, scale)
             torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
+            err, rel = out_errors(got, ref)
             ms = cuda_ms(torch, lambda: att.flash_forward_kernel(q, k, v, mask, scale))
             plain_ms = cuda_ms(torch, lambda: att.reference_attention_bthd(q, k, v, mask, scale))
             dead_ok = True
             if "dead" in masking:
                 dead_ok = bool((got[b - 1] == 0).all())
             print(f"flash: [{b},{t},{h}/{kvh},{d}] {dtype_name} max_abs_err {err:.3e} "
-                  f"(bound {FLASH_TOL[dtype_name]}) masked_row_zero {dead_ok} "
+                  f"(bound {FLASH_TOL[dtype_name]}) norm ratio {rel:.3e} (bound "
+                  f"{FLASH_REL_TOL[dtype_name]}) masked_row_zero {dead_ok} "
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
             check(bool(torch.isfinite(got.float()).all()), "flash output not finite")
-            check(err <= FLASH_TOL[dtype_name], f"flash kernel differs by {err}")
+            check(err <= FLASH_TOL[dtype_name] and rel <= FLASH_REL_TOL[dtype_name],
+                  f"flash kernel differs by {err} (norm ratio {rel})")
             check(dead_ok, "fully masked row is not exactly zero")
-            if (b, t, h, d, dtype_name) == (1, 999, 16, 64, "float32"):
-                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return main
+            if result is None:
+                lib = sdpa_ms(torch, q, k, v, False, 0.0)
+                bound = attention_bound(torch, "fwd", (q, k, v, mask, got), q, mask, False,
+                                        None, 0.0)
+                result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib["fwd_ms"], "bound_ms": bound[0],
+                          "bound_by": bound[1]}
+                print(f"flash: [{b},{t},{h}/{kvh},{d}] {dtype_name}: SDPA (memory-efficient "
+                      f"backend, no key mask) {lib['fwd_ms']:.4f} ms; bound {bound[0]:.4f} ms "
+                      f"({bound[1]})", flush=True)
+    return result
 
 
 def phase_flash_train(torch, device, rng):
     """Forward (out, lse) and backward kernels vs their plain versions at
-    the training path's shapes. Returns the f32 results of the main cases
-    for the kernels line."""
+    the training path's shapes. Returns the results of the main cases for
+    the kernels line: bf16, with SDPA's times and the bound, and the f32
+    results under ``f32_`` keys."""
     from aat_tpu_torch.ops import attention as att
 
     # (B, T, H, KVH, D), causal, masking, dropout (rate, seed), pack_len
@@ -264,7 +425,7 @@ def phase_flash_train(torch, device, rng):
             ref_grads = att.flash_backward_reference(q, k, v, mask, ref_out, ref_lse, g,
                                                      scale, **pkw)
             torch.cuda.synchronize()
-            out_err = float((out.float() - ref_out.float()).abs().max())
+            out_err, out_rel = out_errors(out, ref_out)
             live = ref_lse > -1e29
             lse_err = float((lse - ref_lse)[live].abs().max())
             grad_errs = [float((a.float() - r.float()).abs().max()) / float(r.float().abs().max())
@@ -287,7 +448,8 @@ def phase_flash_train(torch, device, rng):
             # average few keys, so |out| reaches 4
             out_bound = FLASH_TOL[dtype_name] * (
                 max(1.0, float(ref_out.float().abs().max())) if dtype_name == "bfloat16" else 1.0)
-            print(f"flash train: {label} out err {out_err:.3e} (bound {out_bound:.2e}) lse err "
+            print(f"flash train: {label} out err {out_err:.3e} (bound {out_bound:.2e}) norm "
+                  f"ratio {out_rel:.3e} (bound {FLASH_REL_TOL[dtype_name]}) lse err "
                   f"{lse_err:.3e} (bound {FLASH_TOL[dtype_name]}); dq/dk/dv err/max|ref| "
                   f"{'/'.join(f'{e:.2e}' for e in grad_errs)} (bound {GRAD_REL_TOL[dtype_name]})"
                   f"{' masked_row_zero ' + str(dead_ok) if masking == 'dead' else ''}; "
@@ -295,20 +457,76 @@ def phase_flash_train(torch, device, rng):
                   f"bwd {bwd_ms:.4f} ms plain {bwd_plain_ms:.4f} ms", flush=True)
             check(all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads)),
                   f"flash train {label}: non-finite output or gradient")
-            check(out_err <= out_bound and lse_err <= FLASH_TOL[dtype_name],
-                  f"flash train {label}: forward differs by {out_err} (lse {lse_err})")
+            check(out_err <= out_bound and out_rel <= FLASH_REL_TOL[dtype_name]
+                  and lse_err <= FLASH_TOL[dtype_name],
+                  f"flash train {label}: forward differs by {out_err} (norm ratio {out_rel}, "
+                  f"lse {lse_err})")
             check(max(grad_errs) <= GRAD_REL_TOL[dtype_name],
                   f"flash train {label}: gradients differ by {grad_errs} of max|ref|")
             check(dead_ok, f"flash train {label}: fully masked row not exactly zero")
-            if dtype_name == "float32" and masking == "tail" and d == 64:
+            if masking == "tail" and d == 64:
                 name = "causal" if causal else "dense"
-                results[f"fwd_{name}"] = {"max_abs_err": out_err, "ms": fwd_ms,
-                                          "plain_ms": fwd_plain_ms}
-                results[f"bwd_{name}"] = {
-                    "max_abs_err": max(float((a.float() - r.float()).abs().max())
-                                       for a, r in zip(grads, ref_grads)),
-                    "ms": bwd_ms, "plain_ms": bwd_plain_ms}
+                bwd_err = max(float((a.float() - r.float()).abs().max())
+                              for a, r in zip(grads, ref_grads))
+                fwd_r = results.setdefault(f"fwd_{name}", {})
+                bwd_r = results.setdefault(f"bwd_{name}", {})
+                if dtype_name == "float32":
+                    fwd_r.update(f32_max_abs_err=out_err, f32_ms=fwd_ms, f32_plain_ms=fwd_plain_ms)
+                    bwd_r.update(f32_max_abs_err=bwd_err, f32_ms=bwd_ms, f32_plain_ms=bwd_plain_ms)
+                    continue
+                lib = sdpa_ms(torch, q, k, v, causal, rate)
+                fwd_bound = attention_bound(torch, "fwd", (q, k, v, mask, out, lse), q, mask,
+                                            causal, pack_len, rate)
+                bwd_bound = attention_bound(torch, "bwd", (q, k, v, mask, ref_out, ref_lse, g,
+                                                           *grads), q, mask, causal, pack_len, rate)
+                fwd_r.update(max_abs_err=out_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+                             library_ms=lib["fwd_ms"], bound_ms=fwd_bound[0],
+                             bound_by=fwd_bound[1])
+                bwd_r.update(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                             library_ms=lib["bwd_ms"], bound_ms=bwd_bound[0],
+                             bound_by=bwd_bound[1])
+                print(f"flash train: {label}: SDPA (FlashAttention backend, no key mask) fwd "
+                      f"{lib['fwd_ms']:.4f} ms bwd {lib['bwd_ms']:.4f} ms; bound fwd "
+                      f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}) bwd {bwd_bound[0]:.4f} ms "
+                      f"({bwd_bound[1]})", flush=True)
     return results
+
+
+def phase_keep_mask(torch, device, rng):
+    """The tensor-core forward's dropout keep mask, read directly. With v
+    the identity (v[k] = e_k, S = D = 128), out[q, k] is p[q, k] dropped and
+    scaled, so out == 0 exactly where key k was dropped for query q. bf16,
+    B = 2, T = 300, H = 4, rate 0.5, dense and causal: the zeros must equal
+    the plain version's ``_keep_mask`` on every allowed position, and every
+    other position must be zero. (A transposed or shifted mask has the same
+    distribution, which the tolerances of the other checks cannot see.)"""
+    from aat_tpu_torch.ops import attention as att
+
+    b, t, h, s, rate, seed = 2, 300, 4, 128, 0.5, 97531
+    q = torch.from_numpy(rng.normal(0, 1, (b, t, h, s)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(0, 1, (b, s, h, s)).astype(np.float32))
+    q, k = (x.to(device=device, dtype=torch.bfloat16) for x in (q, k))
+    v = torch.eye(s, device=device, dtype=torch.bfloat16)[None, :, None, :].expand(
+        b, s, h, s).contiguous()
+    mask = torch.ones((b, s), dtype=torch.int32, device=device)
+    keep = att._keep_mask(seed, b, h, t, s, rate, device)  # [B, H, T, S]
+    for causal in (False, True):
+        fwd = att.flash_forward_causal_kernel if causal else att.flash_forward_kernel
+        out = fwd(q, k, v, mask, s ** -0.5, dropout_rate=rate, dropout_seed=seed)
+        ref = att.reference_attention_bthd(q, k, v, mask, s ** -0.5, causal, rate, seed)
+        torch.cuda.synchronize()
+        allowed = att._allowed(mask, t, s, causal, None).expand(b, h, t, s)
+        kept, ref_kept = ((x != 0).permute(0, 2, 1, 3) for x in (out, ref))
+        differ = int((kept != keep)[allowed].sum())
+        plain_differ = int((ref_kept != keep)[allowed].sum())
+        stray = int(kept[~allowed].sum())
+        print(f"keep mask: {'causal' if causal else 'dense'} [{b},{t},{h},{s}] bf16 dropout "
+              f"{rate}, identity v: {int(allowed.sum())} allowed positions, "
+              f"{int(keep[allowed].sum())} kept; kernel zeros differ from _keep_mask at "
+              f"{differ} (plain version {plain_differ}), nonzero outside the allowed "
+              f"positions {stray}", flush=True)
+        check(differ == 0 and plain_differ == 0 and stray == 0,
+              "the keep mask read through an identity v differs from _keep_mask")
 
 
 def flagship_model(torch, device, seed=0):
@@ -395,6 +613,30 @@ def kernel_wrappers():
             "vq": vq.nearest_codebook_kernel}
 
 
+def reset_entry_calls():
+    """Zero the kernel library's launch counts by C entry; returns them."""
+    from aat_tpu_torch.runtime.kernels import library
+
+    calls = library().calls
+    for name in calls:
+        calls[name] = 0
+    return calls
+
+
+FORWARD_ENTRIES = ("aat_flash_fwd_mma", "aat_flash_fwd")  # bf16, f32
+
+
+def forward_entry_calls(calls, path, entry):
+    """A path's forward launches all went through the C entry ``entry``:
+    ``aat_flash_fwd_mma`` on a bf16 path, ``aat_flash_fwd`` on an f32 one.
+    Returns a copy of the path's launches by C entry."""
+    print(f"{path}: forward launches by C entry: "
+          + ", ".join(f"{e} {calls[e]}" for e in FORWARD_ENTRIES), flush=True)
+    check(all((calls[e] > 0) == (e == entry) for e in FORWARD_ENTRIES),
+          f"{path}: the forward launches did not all go through {entry}")
+    return dict(calls)
+
+
 def training_batches(torch, device, rng, n_steps, accum, per_batch=2):
     """Speech-like utterances of 8, 12, 16 and 20 s (normalized over their
     valid samples, padded to the longer of each pair) and random caption
@@ -427,7 +669,7 @@ def training_batches(torch, device, rng, n_steps, accum, per_batch=2):
 def phase_training(torch, model, params, rng):
     """3 optimizer steps at full width through the kernels, then one f32
     gradient step through the kernel and plain routes. Returns the launch
-    counts of the 3 steps."""
+    counts of the 3 steps by wrapper and by C entry."""
     from aat_tpu_torch.models.aslm import AslmModel
     from aat_tpu_torch.training import optim
     from aat_tpu_torch.training.config import projection_training_config
@@ -447,6 +689,7 @@ def phase_training(torch, model, params, rng):
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    calls = reset_entry_calls()
     torch.cuda.synchronize()
     losses, walls = [], []
     for micro in batches:
@@ -470,6 +713,7 @@ def phase_training(torch, model, params, rng):
         check(not torch.equal(old, watched[name]), f"trained weight {name} did not move")
     for name in TRAIN_KERNELS:
         check(launches[name] > 0, f"training never launched the {name} kernel")
+    entry_calls = forward_entry_calls(calls, "training", "aat_flash_fwd_mma")
     del lm_before, before
 
     profile_training_step(torch, trainer, batches[-1])
@@ -487,6 +731,7 @@ def phase_training(torch, model, params, rng):
                          grads["audio_encoder"]["feature_projection"]["projection"]["kernel"])
         del t, grads
         torch.cuda.empty_cache()
+    check(calls["aat_flash_fwd"] > 0, "the f32 step did not launch the f32 forward kernel")
     (loss_k, norm_k, fp_k), (loss_p, norm_p, fp_p) = routes["kernel"], routes["plain"]
     fp_err = float((fp_k - fp_p).abs().max())
     fp_scale = float(fp_p.abs().max())
@@ -496,7 +741,7 @@ def phase_training(torch, model, params, rng):
     check(abs(loss_k - loss_p) <= TRAIN_REL_TOL * abs(loss_p), "f32 loss differs between routes")
     check(abs(norm_k - norm_p) <= TRAIN_REL_TOL * norm_p, "f32 grad norm differs between routes")
     check(fp_err <= TRAIN_REL_TOL * fp_scale, "f32 feature_projection grads differ between routes")
-    return launches
+    return launches, entry_calls
 
 
 def profile_training_step(torch, trainer, micro, name="train"):
@@ -538,6 +783,10 @@ def profile_training_step(torch, trainer, micro, name="train"):
     print(f"profile: warm {name} step wall {wall:.3f} s (profiled), device busy "
           f"{busy_us / 1e6:.3f} s, idle share {1 - busy_us / 1e6 / wall:.3f}, "
           f"{len(kernels)} kernels ({os.path.relpath(path, REPO)})", flush=True)
+    forward = {short_name(kernel): v for kernel, v in by_name.items() if "flash_fwd" in kernel}
+    print(f"profile: {name} forward kernels {sum(t for t, _ in forward.values()) / 1e6:.4f} s "
+          f"device time: " + "; ".join(f"{kernel} {t / 1e3:.3f} ms, {c} launches"
+                                       for kernel, (t, c) in sorted(forward.items())), flush=True)
 
 
 def assert_ids_near(torch, label, got, x, codebook):
@@ -690,8 +939,12 @@ def phase_vq_corpus(torch, device):
         check(bool((ref[:64] == 5).all() and (ref[64:128] == 7).all()),
               f"vq K={k}: the plain route broke an exact tie")
         if result is None:
-            # ids that differ count as the error: an id is right or wrong
-            result = {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms}
+            # ids that differ count as the error: an id is right or wrong. The
+            # bound: the f32 FFMA product x.c; no single PyTorch call
+            # computes an argmin of distances
+            bound = bound_ms((x, cb, cbn, got), [2.0 * n * k * d / PEAK_FLOPS["float32"]])
+            result = {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
         del ref
     train_codebook(x, sizes[0], 1, 0.8, log=lambda line: None)  # warm-up: first-call costs
     torch.cuda.synchronize()
@@ -731,13 +984,48 @@ def plain_by_heads(torch, fn, q, k, v, mask, residuals, scale, kw):
     return joined if len(joined) > 1 else joined[0]
 
 
+def planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out, ref_out):
+    """The bf16 forward's out checks, held against faults planted through
+    the tensor-core kernel's own arguments: the kept probabilities left
+    unscaled (``inv_keep`` 1 in place of 1/(1 - rate), with dropout), and
+    the key tile ``FAULT_TILE`` left out of the key loop (its keys masked in
+    the kernel's mask, not the reference's). A control launch with the
+    wrapper's own arguments must reproduce ``out`` bit for bit. Returns
+    ``{fault: (max abs err, norm ratio)}`` against ``ref_out``."""
+    from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.runtime.kernels import library, stream_handle
+
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    seed32, rate32, inv_keep = att._dropout_args(rate, seed)
+
+    def launch(key_mask, inv):
+        result = torch.empty_like(q)
+        library().call("aat_flash_fwd_mma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       key_mask.data_ptr(), result.data_ptr(), None, b, t, s, h, kvh, d,
+                       *att._strides(q, k, v), float(scale), int(causal), 0, seed32, rate32,
+                       inv, stream_handle(q.device))
+        return result
+
+    check(torch.equal(launch(mask, inv_keep), out),
+          "a launch with the wrapper's arguments does not reproduce its output")
+    tile_out = mask.clone()
+    tile_out[:, FAULT_TILE[0]:FAULT_TILE[1]] = 0
+    faults = {f"keys {FAULT_TILE[0]}-{FAULT_TILE[1] - 1} left out": launch(tile_out, inv_keep)}
+    if rate > 0.0:
+        faults["no 1/(1-rate) rescale"] = launch(mask, 1.0)
+    torch.cuda.synchronize()
+    return {name: out_errors(x, ref_out) for name, x in faults.items()}
+
+
 def phase_split_backward(torch, device, rng):
     """The long-form path's kernels at its shapes (``SPLIT_CASES``, key
     lengths above 8192) against their plain versions, f32 and bf16, at
     phase 7's tolerances: the forward kernel (out, lse), then the split
     route's dq and dk/dv kernels fed the plain forward's out and lse. The
-    plain versions run through :func:`plain_by_heads`. Returns the f32
-    results for the kernels line."""
+    plain versions run through :func:`plain_by_heads`. Returns the results
+    for the kernels line: bf16 with SDPA's times and the bounds, the f32
+    results under ``f32_`` keys."""
     from aat_tpu_torch.ops import attention as att
 
     results = {}
@@ -765,17 +1053,26 @@ def phase_split_backward(torch, device, rng):
             ref_dq = plain(att.flash_backward_dq_reference, (ref_out, ref_lse, g))
             ref_dk, ref_dv = plain(att.flash_backward_dkv_reference, (ref_out, ref_lse, g))
             torch.cuda.synchronize()
-            out_err = float((out.float() - ref_out.float()).abs().max())
+            out_err, out_rel = out_errors(out, ref_out)
             live = ref_lse > -1e29
             lse_err = float((lse - ref_lse)[live].abs().max())
             out_bound = FLASH_TOL[dtype_name] * (
                 max(1.0, float(ref_out.float().abs().max())) if dtype_name == "bfloat16" else 1.0)
+            faults = {}
+            if dtype == torch.bfloat16:
+                faults = planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out,
+                                        ref_out)
             errs = [float((a.float() - r.float()).abs().max()) for a, r in
                     ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv))]
             rel = [e / float(r.float().abs().max()) for e, r in zip(errs, (ref_dq, ref_dk, ref_dv))]
             del ref_dq, ref_dk, ref_dv
             torch.cuda.empty_cache()
-            fwd_ms = cuda_ms(torch, lambda: fwd(q, k, v, mask, scale, **fkw), iters=3, warmup=1)
+            fwd_ms = cuda_ms(torch, lambda: fwd(q, k, v, mask, scale, **fkw),
+                             iters=20 if dtype == torch.bfloat16 else 3, warmup=1)
+            # what the dropout hash costs: the same launch at rate 0
+            nodrop_ms = (cuda_ms(torch, lambda: fwd(q, k, v, mask, scale, need_lse=True),
+                                 iters=20, warmup=1)
+                         if rate > 0.0 and dtype == torch.bfloat16 else None)
             dq_ms = cuda_ms(torch, lambda: att.flash_backward_dq_long(*args, **kw), iters=3,
                             warmup=1)
             dkv_ms = cuda_ms(torch, lambda: att.flash_backward_dkv_long(*args, **kw), iters=3,
@@ -789,26 +1086,59 @@ def phase_split_backward(torch, device, rng):
             torch.cuda.empty_cache()
             label = (f"{'causal' if causal else 'dense'} [{b},{t},{h},{d}] {dtype_name}"
                      f"{f' dropout {rate}' if rate else ''}")
-            print(f"long-form kernels: {label} fwd out err {out_err:.3e} (bound {out_bound:.2e}) "
+            print(f"long-form kernels: {label} fwd out err {out_err:.3e} (bound {out_bound:.2e}, "
+                  f"max|ref| {float(ref_out.float().abs().max()):.3e}) norm ratio {out_rel:.3e} "
+                  f"(bound {FLASH_REL_TOL[dtype_name]}) "
                   f"lse err {lse_err:.3e} (bound {FLASH_TOL[dtype_name]}); split bwd dq/dk/dv "
                   f"err/max|ref| {'/'.join(f'{e:.2e}' for e in rel)} (bound "
-                  f"{GRAD_REL_TOL[dtype_name]}); fwd {fwd_ms:.4f} ms plain {fwd_plain_ms:.4f} ms, "
+                  f"{GRAD_REL_TOL[dtype_name]}); fwd {fwd_ms:.4f} ms plain {fwd_plain_ms:.4f} ms"
+                  f"{f' (at rate 0 {nodrop_ms:.4f} ms)' if nodrop_ms else ''}, "
                   f"dq {dq_ms:.4f} ms plain {dq_plain_ms:.4f} ms, dkv {dkv_ms:.4f} ms plain "
                   f"{dkv_plain_ms:.4f} ms", flush=True)
+            for fault, (f_err, f_rel) in faults.items():
+                print(f"long-form kernels: {label} planted fault '{fault}': out err {f_err:.3e} "
+                      f"({'inside' if f_err <= out_bound else 'outside'} the max bound "
+                      f"{out_bound:.2e}) norm ratio {f_rel:.3e} (bound "
+                      f"{FLASH_REL_TOL[dtype_name]})", flush=True)
+                check(f_rel > FLASH_REL_TOL[dtype_name],
+                      f"long-form kernels {label}: the out checks pass the planted fault '{fault}'")
             check(all(bool(torch.isfinite(x.float()).all()) for x in (out, dq, dk, dv)),
                   f"long-form kernels {label}: non-finite output or gradient")
-            check(out_err <= out_bound and lse_err <= FLASH_TOL[dtype_name],
-                  f"long-form kernels {label}: forward differs by {out_err} (lse {lse_err})")
+            check(out_err <= out_bound and out_rel <= FLASH_REL_TOL[dtype_name]
+                  and lse_err <= FLASH_TOL[dtype_name],
+                  f"long-form kernels {label}: forward differs by {out_err} (norm ratio "
+                  f"{out_rel}, lse {lse_err})")
             check(max(rel) <= GRAD_REL_TOL[dtype_name],
                   f"long-form kernels {label}: gradients differ by {rel} of max|ref|")
+            name = "causal" if causal else "dense"
+            measured = {"fwd": (out_err, fwd_ms, fwd_plain_ms),
+                        "dq": (errs[0], dq_ms, dq_plain_ms),
+                        "dkv": (max(errs[1:]), dkv_ms, dkv_plain_ms)}
             if dtype_name == "float32":
-                name = "causal" if causal else "dense"
-                results[f"fwd_{name}"] = {"max_abs_err": out_err, "ms": fwd_ms,
-                                          "plain_ms": fwd_plain_ms}
-                results[f"dq_{name}"] = {"max_abs_err": errs[0], "ms": dq_ms,
-                                         "plain_ms": dq_plain_ms}
-                results[f"dkv_{name}"] = {"max_abs_err": max(errs[1:]), "ms": dkv_ms,
-                                          "plain_ms": dkv_plain_ms}
+                for kind, (err, ms, plain_ms) in measured.items():
+                    results[f"{kind}_{name}"] = {"f32_max_abs_err": err, "f32_ms": ms,
+                                                 "f32_plain_ms": plain_ms}
+            else:
+                lib = sdpa_ms(torch, q, k, v, causal, rate)
+                inputs = (q, k, v, mask, ref_out, ref_lse, g)
+                bounds = {"fwd": attention_bound(torch, "fwd", (q, k, v, mask, out, lse), q,
+                                                 mask, causal, None, rate),
+                          "dq": attention_bound(torch, "dq", inputs + (dq,), q, mask, causal,
+                                                None, rate),
+                          "dkv": attention_bound(torch, "dkv", inputs + (dk, dv), q, mask,
+                                                 causal, None, rate)}
+                for kind, (err, ms, plain_ms) in measured.items():
+                    # SDPA's backward computes dq, dk and dv in one call: the
+                    # yardstick of each half of the split backward
+                    results[f"{kind}_{name}"].update(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib["fwd_ms" if kind == "fwd" else "bwd_ms"],
+                        bound_ms=bounds[kind][0], bound_by=bounds[kind][1])
+                results[f"fwd_{name}"]["norm_ratio"] = out_rel
+                print(f"long-form kernels: {label}: SDPA (FlashAttention backend, no key mask) fwd "
+                      f"{lib['fwd_ms']:.4f} ms bwd {lib['bwd_ms']:.4f} ms; bounds fwd "
+                      f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), dq "
+                      f"{bounds['dq'][0]:.4f} ms, dkv {bounds['dkv'][0]:.4f} ms", flush=True)
             del q, k, v, g, out, lse, ref_out, ref_lse, args, dq, dk, dv
             torch.cuda.empty_cache()
     return results
@@ -833,7 +1163,7 @@ def phase_longform(torch, device, rng):
     Qwen-1.5-1.8B LM at full width (random weights through ``build_model``),
     one utterance of 170 s and one of 180 s: every attention's key length
     exceeds 8192, so the backward takes the split route. Returns the launch
-    counts of the 2 steps."""
+    counts of the 2 steps by wrapper and by C entry."""
     from aat_tpu_torch.models.build import build_model
     from aat_tpu_torch.models.hubert import feature_lengths
     from aat_tpu_torch.training import optim
@@ -857,6 +1187,7 @@ def phase_longform(torch, device, rng):
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    calls = reset_entry_calls()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, walls = [], []
@@ -886,9 +1217,10 @@ def phase_longform(torch, device, rng):
         check(launches[name] > 0, f"long-form training never launched {name}")
     for name in ("flash_bwd", "flash_bwd_causal"):
         check(launches[name] == 0, f"long-form training launched {name} (S <= 8192 route)")
+    entry_calls = forward_entry_calls(calls, "long-form training", "aat_flash_fwd_mma")
     del lm_before
     profile_training_step(torch, trainer, [batches[-1]], name="longform")
-    return launches
+    return launches, entry_calls
 
 
 def main():
@@ -899,7 +1231,6 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     try:
-        from aat_tpu_torch.ops import attention as att
         from aat_tpu_torch.ops import mel
         from aat_tpu_torch.runtime import kernels
         from aat_tpu_torch.serving import serve
@@ -923,16 +1254,18 @@ def main():
     lib = kernels.library()
     with open(os.path.join(os.path.dirname(lib.path), "nvcc.log"), "w") as f:
         f.write(lib.build_log)  # nvcc and ptxas -v output, beside the library
-    usage = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln]
     print(f"build: {time.perf_counter() - start:.1f} s (nvcc {lib.build_seconds:.1f} s) "
-          f"{os.path.relpath(lib.path, REPO)}; ptxas: {' | '.join(usage)}", flush=True)
+          f"{os.path.relpath(lib.path, REPO)}; ptxas: {' | '.join(ptxas_usage(lib.build_log))}",
+          flush=True)
 
     rng = np.random.default_rng(0)
     # 3-4. kernels vs their plain versions
     mel_result = phase_mel(torch, device, rng)
-    flash_result = phase_flash(torch, device, rng)
-    # 7. training kernels vs their plain versions
+    serve_fwd_result = phase_flash(torch, device, rng)
+    # 7. training kernels vs their plain versions, and the bf16 forward's
+    # keep mask read through an identity v
     train_results = phase_flash_train(torch, device, rng)
+    phase_keep_mask(torch, device, rng)
 
     # 5-6. serving at full width
     start = time.perf_counter()
@@ -949,6 +1282,7 @@ def main():
 
     for w in kernel_wrappers().values():
         w.launches = 0
+    calls = reset_entry_calls()
     torch.cuda.synchronize()
     start = time.perf_counter()
     adaptive_ids = serve.serve(model, params, adaptive_waves, adaptive_cfg)
@@ -959,8 +1293,8 @@ def main():
     whole_ids = serve.serve(model, params, whole_waves, whole_cfg)
     torch.cuda.synchronize()
     whole_s = time.perf_counter() - start
-    launches = {"mel": mel.melspec_kernel.launches,
-                "flash_fwd": att.flash_forward_kernel.launches}
+    launches = {name: w.launches for name, w in kernel_wrappers().items()}
+    serve_calls = forward_entry_calls(calls, "serving (f32)", "aat_flash_fwd")
 
     vocab = model.lm_config.vocab_size
     print(f"serve adaptive: {len(adaptive_ids)} requests, segments {n_segments} "
@@ -980,7 +1314,7 @@ def main():
                          serve.padded_length(whole_waves))
 
     # 8. training at full width (the serving weights, trained in place)
-    train_launches = phase_training(torch, model, params, rng)
+    train_launches, train_calls = phase_training(torch, model, params, rng)
     del model, params  # SmolLM and its encoder leave the card before Qwen comes
     gc.collect()
     torch.cuda.empty_cache()
@@ -993,28 +1327,55 @@ def main():
     split_results = phase_split_backward(torch, device, rng)
     gc.collect()
     torch.cuda.empty_cache()
-    longform_launches = phase_longform(torch, device, rng)
+    longform_launches, longform_calls = phase_longform(torch, device, rng)
 
-    def entry(name, source, replaces, count, result):
+    paths = {"serve": launches, "train": train_launches, "pipeline": pipeline_launches,
+             "longform": longform_launches}
+    # the forward's launches by C entry (the pipeline launches no forward)
+    path_calls = {"serve": serve_calls, "train": train_calls, "pipeline": {},
+                  "longform": longform_calls}
+
+    def entry(name, source, replaces, path, result, counter=None, c_entry=None):
+        """``launches`` counts the run of ``path``, the path whose shapes the
+        times are taken at; ``launches_by_path`` every main path's run. A
+        forward entry reads the counter of its TPU kernel (``counter``) on
+        the paths whose forward went through its C entry ``c_entry`` (each
+        path goes through one only, as checked)."""
+        counter = counter or name
+        by_path = {p: counts.get(counter, 0)
+                   if c_entry is None or path_calls[p].get(c_entry, 0) else 0
+                   for p, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": f"aat_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": count, **result}
+                "replaces": replaces, "launches": by_path[path], "launches_by_path": by_path,
+                **({"c_entry": c_entry} if c_entry else {}), **result}
 
+    # the forward: bf16 on the tensor cores at the long-form shapes, with the
+    # FFMA kernel's f32 results there under f32_ keys; the FFMA kernel's own
+    # entry carries serving's f32 launches at serving's shape
+    f32_fwd = {"f32_source": "aat_tpu_torch/csrc/flash_fwd.cu"}
     kernels_line = {"kernels": [
-        entry("mel", "mel.cu", "aat_tpu/ops/mel_pallas.py:36", launches["mel"], mel_result),
-        entry("flash_fwd", "flash_fwd.cu", "aat_tpu/ops/attention.py:186",
-              launches["flash_fwd"], flash_result),
-        entry("flash_fwd_causal", "flash_fwd.cu", "aat_tpu/ops/attention.py:245",
-              train_launches["flash_fwd_causal"], train_results["fwd_causal"]),
-        entry("flash_bwd", "flash_bwd.cu", "aat_tpu/ops/attention.py:764",
-              train_launches["flash_bwd"], train_results["bwd_dense"]),
-        entry("flash_bwd_causal", "flash_bwd.cu", "aat_tpu/ops/attention.py:709",
-              train_launches["flash_bwd_causal"], train_results["bwd_causal"]),
-        entry("flash_bwd_dq_long", "flash_bwd.cu", "aat_tpu/ops/attention.py:562",
-              longform_launches["flash_bwd_dq_long"], split_results["dq_dense"]),
+        entry("mel", "mel.cu", "aat_tpu/ops/mel_pallas.py:36", "serve", mel_result),
+        entry("flash_fwd", "flash_fwd_mma.cu", "aat_tpu/ops/attention.py:186", "longform",
+              {**split_results["fwd_dense"], **f32_fwd}, c_entry="aat_flash_fwd_mma"),
+        entry("flash_fwd_causal", "flash_fwd_mma.cu", "aat_tpu/ops/attention.py:245",
+              "longform", {**split_results["fwd_causal"], **f32_fwd},
+              c_entry="aat_flash_fwd_mma"),
+        entry("flash_fwd_f32", "flash_fwd.cu", "aat_tpu/ops/attention.py:186", "serve",
+              serve_fwd_result, counter="flash_fwd", c_entry="aat_flash_fwd"),
+        entry("flash_bwd", "flash_bwd.cu", "aat_tpu/ops/attention.py:764", "train",
+              train_results["bwd_dense"]),
+        entry("flash_bwd_causal", "flash_bwd.cu", "aat_tpu/ops/attention.py:709", "train",
+              train_results["bwd_causal"]),
+        entry("flash_bwd_dq_long", "flash_bwd.cu", "aat_tpu/ops/attention.py:562", "longform",
+              split_results["dq_dense"]),
         entry("flash_bwd_dkv_long", "flash_bwd.cu", "aat_tpu/ops/attention.py:595",
-              longform_launches["flash_bwd_dkv_long"], split_results["dkv_dense"]),
-        entry("vq", "vq.cu", "aat_tpu/ops/vq.py:50", pipeline_launches["vq"], vq_result),
+              "longform", split_results["dkv_dense"]),
+        entry("vq", "vq.cu", "aat_tpu/ops/vq.py:50", "pipeline", vq_result),
     ]}
+    for k in kernels_line["kernels"]:
+        check(all(key in k for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "max_abs_err")), f"kernel entry {k['name']} incomplete")
+        check(k["launches"] > 0, f"kernel entry {k['name']}: no launch on its path")
     print(json.dumps(kernels_line), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
