@@ -8,6 +8,10 @@ composed ASLM, with random weights drawn as the JAX package draws them
 Reading pretrained checkpoints (``pretrained=True``) needs the HF
 ``transformers`` readers and the checkpoint files, which the port does not
 have: it raises, naming ROADMAP Queue 1 item 3.
+
+The weights go to ``device``: ``cuda:0`` when it is None, and without a GPU
+the builders raise (after their refusals of what is not ported, before any
+weight is drawn); ``device="cpu"`` builds for the plain versions.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 from aat_tpu_torch.models import hubert as hub
 from aat_tpu_torch.models import llama as llm
 from aat_tpu_torch.models.aslm import AslmConfig, AslmModel, init_aslm_params
+from aat_tpu_torch.runtime.device import resolve_device
 from aat_tpu_torch.training.config import TrainingConfig
 
 ENCODER_KEY = (0, 0)  # jax.random.key_data(PRNGKey(0))
@@ -43,7 +48,7 @@ def build_audio_encoder(config: TrainingConfig, pretrained: bool = True, device=
         raise NotImplementedError("EfficientNet is not ported yet (ROADMAP Queue 1, EfficientNet)")
     else:
         raise ValueError(f"unknown audio_encoder_type: {config.audio_encoder_type}")
-    return hub.init_hubert_params(ENCODER_KEY, cfg, device), cfg
+    return hub.init_hubert_params(ENCODER_KEY, cfg, resolve_device(device)), cfg
 
 
 def build_lm_decoder(config: TrainingConfig, pretrained: bool = True, device=None):
@@ -53,7 +58,7 @@ def build_lm_decoder(config: TrainingConfig, pretrained: bool = True, device=Non
         _no_pretrained(config.lm_pretrained_model)
     name = config.lm_pretrained_model.lower()
     cfg = llm.qwen15_18b_config() if "qwen" in name else llm.smollm_135m_config()
-    return llm.init_llama_params(DECODER_KEY, cfg, device), cfg
+    return llm.init_llama_params(DECODER_KEY, cfg, resolve_device(device)), cfg
 
 
 def build_model(config: TrainingConfig, pretrained: bool = True,
@@ -71,6 +76,6 @@ def build_model(config: TrainingConfig, pretrained: bool = True,
         projection_type=config.projection_type,
         audio_encoder_embeddings_seq_len=config.audio_encoder_embeddings_seq_len,
         audio_encoder_hidden=enc_cfg.hidden_size, lm_hidden=lm_cfg.hidden_size)
-    adapter = init_aslm_params((0, int(seed)), aslm_cfg, device)
+    adapter = init_aslm_params((0, int(seed)), aslm_cfg, resolve_device(device))
     return (AslmModel(aslm_cfg, enc_cfg, lm_cfg),
             {"audio_encoder": enc_params, "adapter": adapter, "lm_decoder": lm_params})

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from aat_tpu_torch.ops import vq
-from aat_tpu_torch.scripts import resolve_device
+from aat_tpu_torch.runtime.device import resolve_device
 
 
 def seed_codebook(embeddings: torch.Tensor, codes: int) -> vq.VQState:

@@ -28,7 +28,7 @@ import torch
 from aat_tpu_torch.audio import AudioWaveform
 from aat_tpu_torch.models import hubert as hub
 from aat_tpu_torch.ops.mel import normalize_waveform
-from aat_tpu_torch.scripts import resolve_device
+from aat_tpu_torch.runtime.device import resolve_device
 from aat_tpu_torch.tokenizer import AdaptiveAudioTokenizer
 
 

@@ -140,7 +140,7 @@ def test_build_model_equals_jax(monkeypatch, lm):
     jmodel, jparams = jbuild.build_model(JConfig(lm_pretrained_model=lm), pretrained=False,
                                          seed=3)
     tmodel, tparams = tbuild.build_model(TConfig(lm_pretrained_model=lm), pretrained=False,
-                                         seed=3)
+                                         seed=3, device="cpu")
     assert_same_fields(tmodel.lm_config, jmodel.lm_config)
     assert_same_fields(tmodel.audio_encoder_config, jmodel.audio_encoder_config)
     assert_same_fields(tmodel.config, jmodel.config)
@@ -168,6 +168,7 @@ def test_port_imports_no_jax():
         "aat_tpu_torch.training.lr_schedule", "aat_tpu_torch.training.optim",
         "aat_tpu_torch.training.trainer", "aat_tpu_torch.audio", "aat_tpu_torch.tokenizer",
         "aat_tpu_torch.runtime.host_ops", "aat_tpu_torch.ops.vq", "aat_tpu_torch.models.build",
+        "aat_tpu_torch.runtime.device",
         "aat_tpu_torch.scripts", "aat_tpu_torch.scripts.segment_embeddings",
         "aat_tpu_torch.scripts.mean_segment_embeddings",
         "aat_tpu_torch.scripts.quantize_embeddings",
