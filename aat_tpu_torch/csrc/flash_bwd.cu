@@ -1,6 +1,8 @@
-// Flash-attention backward, dense or causal: dq, dk and dv from the saved
-// row log-sum-exp, with the forward's key mask, dropout mask and causal /
-// pack_len mask regenerated. Two kernels, each behind its own C entry:
+// Flash-attention backward in f32, dense or causal: dq, dk and dv from the
+// saved row log-sum-exp, with the forward's key mask, dropout mask and
+// causal / pack_len mask regenerated. This is the f32 route: bf16 operands
+// take the tensor-core kernels of flash_bwd_mma.cu. Two kernels, each behind
+// its own C entry:
 //   - `aat_flash_bwd_dq`: a block owns 64 query rows of one (b, h) and loops
 //     over key tiles (up to the diagonal when causal);
 //   - `aat_flash_bwd_dkv`: a block owns 64 keys of one (b, h) and loops over
@@ -8,7 +10,7 @@
 // Each computes delta = rowsum(dout · out) of its query rows itself, so the
 // two are independent launches with the same inputs.
 //
-// Replaces the TPU kernels of aat_tpu/ops/attention.py:
+// Replaces, for f32, the TPU kernels of aat_tpu/ops/attention.py:
 //   - key length S <= 8192 (`_FUSED_BWD_MAX_S` :831): :764
 //     `_bwd_fused_kernel` (dense, launched by `_flash_backward` :982) and
 //     :709 `_bwd_fused_tri_kernel` (causal, launched :941), which the
@@ -24,11 +26,10 @@
 //
 // Inputs: q [B,T,H,D], k/v [B,S,KVH,D] through their strides, the forward's
 // out and the incoming dout (contiguous [B,T,H,D]), lse [B,H,T] f32.
-// Outputs: dq [B,T,H,D] in the input dtype, and dk/dv per q-head as f32
-// [B,S,H,D]; the wrapper sums those over the H/KVH heads that share a kv
-// head (GQA) and casts. Semantics kept from the TPU kernels (`_ds_block`
-// :525):
-//   - q is scaled by sm_scale and rounded to the input dtype, s = q_s·k;
+// Outputs: dq [B,T,H,D], and dk/dv per q-head [B,S,H,D]; the wrapper sums
+// those over the H/KVH heads that share a kv head (GQA). Semantics kept
+// from the TPU kernels (`_ds_block` :525):
+//   - q is scaled by sm_scale, s = q_s·k;
 //     dk = ds^T·q_s needs no further factor, dq = (ds·k)·sm_scale;
 //   - p = exp(s - lse) from the undropped scores; masked scores are -2e30,
 //     so masked keys, fully masked rows (lse == -1e30) and padded rows give
@@ -37,7 +38,6 @@
 //   - with dropout the position hash regenerates the forward's keep mask:
 //     dv uses p·keep/(1-rate), dp is masked and scaled the same way, ds
 //     uses the undropped p: ds = p·(dp - delta);
-//   - p (for dv) and ds are rounded to the input dtype before each product.
 // Tensor offsets are 64-bit; the hash keeps the TPU's 32-bit q·S + k
 // arithmetic (wraparound, which S <= 46340 never reaches).
 //
@@ -82,17 +82,17 @@ constexpr size_t dkv_smem_floats() {
 }
 
 // Rows [r0, r0+kB) of a [*, T, *, D] tensor (strides rs per row) into
-// shared [kB][D+1] as f32; rows >= n are zero. SCALE folds sm_scale in and
-// rounds to T (the forward's q_s).
-template <typename T, int D, bool SCALE>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, long long rs,
+// shared [kB][D+1]; rows >= n are zero. SCALE folds sm_scale in (the
+// forward's q_s).
+template <int D, bool SCALE>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long rs,
                                           int r0, int n, float scale) {
   for (int i = threadIdx.x; i < kB * D; i += kThreads) {
     const int r = i / D, d = i % D;
     float x = 0.f;
     if (r0 + r < n) {
-      x = Cvt<T>::load(src[(r0 + r) * rs + d]);
-      if (SCALE) x = Cvt<T>::round(x * scale);
+      x = src[(r0 + r) * rs + d];
+      if (SCALE) x *= scale;
     }
     dst[r * (D + 1) + d] = x;
   }
@@ -101,23 +101,23 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, long long rs
 // delta = rowsum(dout · out) of query rows [q0, q0 + kB) into delta_s, four
 // threads per row, dout from shared memory (dos, loaded and synchronised
 // before) and out from device memory; 0 for rows past t_len.
-template <typename T, int D>
-__device__ __forceinline__ void row_delta(const float* dos, const T* ob, long long o_st,
+template <int D>
+__device__ __forceinline__ void row_delta(const float* dos, const float* ob, long long o_st,
                                           int q0, int t_len, float* delta_s) {
   const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
   float sum = 0.f;
   if (q0 + r < t_len)
     for (int d = part; d < D; d += 4)
-      sum = fmaf(dos[r * (D + 1) + d], Cvt<T>::load(ob[(q0 + r) * o_st + d]), sum);
+      sum = fmaf(dos[r * (D + 1) + d], ob[(q0 + r) * o_st + d], sum);
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   sum += __shfl_xor_sync(0xffffffffu, sum, 2);
   if (part == 0) delta_s[r] = sum;
 }
 
 // s = q_s·k^T and dp = dout·v^T for this thread's 4 x 4 entries
-// (rows ty + 16i, keys tx + 16j), then p and ds. Writes round(ds) to dss
-// and, when pvs is given, round(p·keep/(1-rate)) to pvs.
-template <typename T, int D, bool CAUSAL>
+// (rows ty + 16i, keys tx + 16j), then p and ds. Writes ds to dss and,
+// when pvs is given, p·keep/(1-rate) to pvs.
+template <int D, bool CAUSAL>
 __device__ __forceinline__ void score_block(
     const float* qs, const float* dos, const float* ks, const float* vs,
     const float* bias, const float* lse_s, const float* delta_s, float* dss,
@@ -162,17 +162,17 @@ __device__ __forceinline__ void score_block(
         pv = kept ? p * a.inv_keep : 0.f;
         dpv = kept ? dpv * a.inv_keep : 0.f;
       }
-      dss[r * (kB + 1) + c] = Cvt<T>::round(p * (dpv - delta_s[r]));
-      if (pvs != nullptr) pvs[r * (kB + 1) + c] = Cvt<T>::round(pv);
+      dss[r * (kB + 1) + c] = p * (dpv - delta_s[r]);
+      if (pvs != nullptr) pvs[r * (kB + 1) + c] = pv;
     }
   }
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ out,
-                    const T* __restrict__ dout, T* __restrict__ dq, BwdArgs a) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ out,
+                    const float* __restrict__ dout, float* __restrict__ dq, BwdArgs a) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [kB][D+1]
   float* dos = qs + kB * (D + 1);    // [kB][D+1]
@@ -191,18 +191,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long bh = b * a.n_heads + h;
   const uint32_t seed_and_head = a.seed + (uint32_t)bh * kGolden;
   const long long o_st = (long long)a.n_heads * D;  // out/dout/dq row stride
-  const T* ob = out + b * a.t_len * o_st + h * D;
-  const T* dob = dout + b * a.t_len * o_st + h * D;
-  const T* kb = k + b * a.k_sb + hk * a.k_sh;
-  const T* vb = v + b * a.v_sb + hk * a.v_sh;
+  const float* ob = out + b * a.t_len * o_st + h * D;
+  const float* dob = dout + b * a.t_len * o_st + h * D;
+  const float* kb = k + b * a.k_sb + hk * a.k_sh;
+  const float* vb = v + b * a.v_sb + hk * a.v_sh;
   const int* mb = a.key_mask + b * a.s_len;
 
-  load_rows<T, D, true>(qs, q + b * a.q_sb + h * a.q_sh, a.q_st, q0, a.t_len, a.sm_scale);
-  load_rows<T, D, false>(dos, dob, o_st, q0, a.t_len, 0.f);
+  load_rows<D, true>(qs, q + b * a.q_sb + h * a.q_sh, a.q_st, q0, a.t_len, a.sm_scale);
+  load_rows<D, false>(dos, dob, o_st, q0, a.t_len, 0.f);
   for (int i = tid; i < kB; i += kThreads)
     lse_s[i] = q0 + i < a.t_len ? a.lse[bh * a.t_len + q0 + i] : 0.f;
   __syncthreads();
-  row_delta<T, D>(dos, ob, o_st, q0, a.t_len, delta_s);  // read after the loop's barrier
+  row_delta<D>(dos, ob, o_st, q0, a.t_len, delta_s);  // read after the loop's barrier
 
   float acc[4][D / 16];
 #pragma unroll
@@ -213,13 +213,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = CAUSAL ? min(a.s_len, q0 + kB) : a.s_len;
   for (int k0 = 0; k0 < k_end; k0 += kB) {
     __syncthreads();  // previous tile's ks/dss no longer read
-    load_rows<T, D, false>(ks, kb, a.k_ss, k0, a.s_len, 0.f);
-    load_rows<T, D, false>(vs, vb, a.v_ss, k0, a.s_len, 0.f);
+    load_rows<D, false>(ks, kb, a.k_ss, k0, a.s_len, 0.f);
+    load_rows<D, false>(vs, vb, a.v_ss, k0, a.s_len, 0.f);
     for (int i = tid; i < kB; i += kThreads)
       bias[i] = (k0 + i < a.s_len && mb[k0 + i] > 0) ? 0.f : kMask;
     __syncthreads();
-    score_block<T, D, CAUSAL>(qs, dos, ks, vs, bias, lse_s, delta_s, dss,
-                              nullptr, q0, k0, seed_and_head, a);
+    score_block<D, CAUSAL>(qs, dos, ks, vs, bias, lse_s, delta_s, dss,
+                           nullptr, q0, k0, seed_and_head, a);
     __syncthreads();
     for (int c = 0; c < kB; ++c) {  // dq += ds · k
       float dsv[4], kv[D / 16];
@@ -238,17 +238,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= a.t_len) continue;
-    T* row = dq + (b * a.t_len + t) * o_st + h * D;
+    float* row = dq + (b * a.t_len + t) * o_st + h * D;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) row[tx + 16 * j] = Cvt<T>::store(acc[i][j] * a.sm_scale);
+    for (int j = 0; j < D / 16; ++j) row[tx + 16 * j] = acc[i][j] * a.sm_scale;
   }
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ out,
-                     const T* __restrict__ dout, float* __restrict__ dk,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ out,
+                     const float* __restrict__ dout, float* __restrict__ dk,
                      float* __restrict__ dv, BwdArgs a) {
   extern __shared__ float smem[];
   float* ks = smem;                  // [kB][D+1]
@@ -269,13 +269,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long bh = b * a.n_heads + h;
   const uint32_t seed_and_head = a.seed + (uint32_t)bh * kGolden;
   const long long o_st = (long long)a.n_heads * D;
-  const T* qb = q + b * a.q_sb + h * a.q_sh;
-  const T* ob = out + b * a.t_len * o_st + h * D;
-  const T* dob = dout + b * a.t_len * o_st + h * D;
+  const float* qb = q + b * a.q_sb + h * a.q_sh;
+  const float* ob = out + b * a.t_len * o_st + h * D;
+  const float* dob = dout + b * a.t_len * o_st + h * D;
   const int* mb = a.key_mask + b * a.s_len;
 
-  load_rows<T, D, false>(ks, k + b * a.k_sb + hk * a.k_sh, a.k_ss, k0, a.s_len, 0.f);
-  load_rows<T, D, false>(vs, v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a.s_len, 0.f);
+  load_rows<D, false>(ks, k + b * a.k_sb + hk * a.k_sh, a.k_ss, k0, a.s_len, 0.f);
+  load_rows<D, false>(vs, v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a.s_len, 0.f);
   for (int i = tid; i < kB; i += kThreads)
     bias[i] = (k0 + i < a.s_len && mb[k0 + i] > 0) ? 0.f : kMask;
 
@@ -288,15 +288,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_begin = CAUSAL ? k0 : 0;  // query tiles above the diagonal see none of these keys
   for (int q0 = q_begin; q0 < a.t_len; q0 += kB) {
     __syncthreads();  // previous tile's qs/dos/pvs/dss no longer read
-    load_rows<T, D, true>(qs, qb, a.q_st, q0, a.t_len, a.sm_scale);
-    load_rows<T, D, false>(dos, dob, o_st, q0, a.t_len, 0.f);
+    load_rows<D, true>(qs, qb, a.q_st, q0, a.t_len, a.sm_scale);
+    load_rows<D, false>(dos, dob, o_st, q0, a.t_len, 0.f);
     for (int i = tid; i < kB; i += kThreads)
       lse_s[i] = q0 + i < a.t_len ? a.lse[bh * a.t_len + q0 + i] : 0.f;
     __syncthreads();
-    row_delta<T, D>(dos, ob, o_st, q0, a.t_len, delta_s);
+    row_delta<D>(dos, ob, o_st, q0, a.t_len, delta_s);
     __syncthreads();
-    score_block<T, D, CAUSAL>(qs, dos, ks, vs, bias, lse_s, delta_s, dss,
-                              pvs, q0, k0, seed_and_head, a);
+    score_block<D, CAUSAL>(qs, dos, ks, vs, bias, lse_s, delta_s, dss,
+                           pvs, q0, k0, seed_and_head, a);
     __syncthreads();
     for (int r = 0; r < kB; ++r) {  // dv += p_v^T · dout, dk += ds^T · q_s
       float pv[4], dsv[4], dov[D / 16], qv[D / 16];
@@ -333,28 +333,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 struct Variant {
-  using type = T;
   static constexpr int width = D;
   static constexpr bool causal = CAUSAL;
 };
 
-// Calls f(Variant<T, D, CAUSAL>{}) for the run's dtype, head width and
-// masking; 1 (cudaErrorInvalidValue) for a head width the kernels were not
-// built for.
+// Calls f(Variant<D, CAUSAL>{}) for the run's head width and masking; 1
+// (cudaErrorInvalidValue) for a head width the kernels were not built for.
 template <typename F>
-int dispatch(int is_bf16, int D, int causal, F&& f) {
-  if (D == 64) {
-    if (is_bf16)
-      return causal ? f(Variant<__nv_bfloat16, 64, true>{}) : f(Variant<__nv_bfloat16, 64, false>{});
-    return causal ? f(Variant<float, 64, true>{}) : f(Variant<float, 64, false>{});
-  }
-  if (D == 128) {
-    if (is_bf16)
-      return causal ? f(Variant<__nv_bfloat16, 128, true>{}) : f(Variant<__nv_bfloat16, 128, false>{});
-    return causal ? f(Variant<float, 128, true>{}) : f(Variant<float, 128, false>{});
-  }
+int dispatch(int D, int causal, F&& f) {
+  if (D == 64) return causal ? f(Variant<64, true>{}) : f(Variant<64, false>{});
+  if (D == 128) return causal ? f(Variant<128, true>{}) : f(Variant<128, false>{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -366,12 +356,11 @@ int prepare(Kernel kernel, size_t smem) {
 
 }  // namespace
 
-// dq [B,T,H,D] in the input dtype. Returns cudaGetLastError() after the
-// launch.
+// dq [B,T,H,D] f32. Returns cudaGetLastError() after the launch.
 extern "C" int aat_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const int* key_mask, const void* out,
                                 const void* dout, const float* lse, void* dq,
-                                int is_bf16, int B, int T_len, int S, int H,
+                                int B, int T_len, int S, int H,
                                 int KVH, int D, long long q_sb, long long q_st,
                                 long long q_sh, long long k_sb, long long k_ss,
                                 long long k_sh, long long v_sb, long long v_ss,
@@ -382,17 +371,17 @@ extern "C" int aat_flash_bwd_dq(const void* q, const void* k, const void* v,
   const BwdArgs a{key_mask, lse, T_len, S, H, KVH,
                   q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                   sm_scale, pack_len, (unsigned int)seed, rate, inv_keep};
-  return dispatch(is_bf16, D, causal, [&](auto variant) {
+  return dispatch(D, causal, [&](auto variant) {
     using V = decltype(variant);
-    using T = typename V::type;
-    auto kernel = flash_bwd_dq_kernel<T, V::width, V::causal>;
+    auto kernel = flash_bwd_dq_kernel<V::width, V::causal>;
     constexpr size_t smem = sizeof(float) * dq_smem_floats<V::width>();
     const int err = prepare(kernel, smem);
     if (err != 0) return err;
     const dim3 grid((T_len + kB - 1) / kB, H, B);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<T*>(dq), a);
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(out),
+        static_cast<const float*>(dout), static_cast<float*>(dq), a);
     return (int)cudaGetLastError();
   });
 }
@@ -402,7 +391,7 @@ extern "C" int aat_flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int aat_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const int* key_mask, const void* out,
                                  const void* dout, const float* lse, float* dk,
-                                 float* dv, int is_bf16, int B, int T_len, int S, int H,
+                                 float* dv, int B, int T_len, int S, int H,
                                  int KVH, int D, long long q_sb, long long q_st,
                                  long long q_sh, long long k_sb, long long k_ss,
                                  long long k_sh, long long v_sb, long long v_ss,
@@ -413,17 +402,17 @@ extern "C" int aat_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const BwdArgs a{key_mask, lse, T_len, S, H, KVH,
                   q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                   sm_scale, pack_len, (unsigned int)seed, rate, inv_keep};
-  return dispatch(is_bf16, D, causal, [&](auto variant) {
+  return dispatch(D, causal, [&](auto variant) {
     using V = decltype(variant);
-    using T = typename V::type;
-    auto kernel = flash_bwd_dkv_kernel<T, V::width, V::causal>;
+    auto kernel = flash_bwd_dkv_kernel<V::width, V::causal>;
     constexpr size_t smem = sizeof(float) * dkv_smem_floats<V::width>();
     const int err = prepare(kernel, smem);
     if (err != 0) return err;
     const dim3 grid((S + kB - 1) / kB, H, B);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(out), static_cast<const T*>(dout), dk, dv, a);
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(out),
+        static_cast<const float*>(dout), dk, dv, a);
     return (int)cudaGetLastError();
   });
 }

@@ -1,10 +1,9 @@
-// Shared by the flash-attention forward (flash_fwd.cu) and backward
-// (flash_bwd.cu): dtype conversions, the masking constants and the
-// attention-dropout position hash, so the backward regenerates exactly the
-// forward's keep mask.
+// Shared by every flash-attention kernel (flash_fwd.cu, flash_bwd.cu and,
+// through mma_common.cuh, flash_fwd_mma.cu and flash_bwd_mma.cu): the masking
+// constants and the attention-dropout position hash, so the backward
+// regenerates exactly the forward's keep mask.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -13,24 +12,6 @@ namespace aat_flash {
 constexpr float kMask = -2e30f;    // masked score
 constexpr float kNegInf = -1e30f;  // running-max floor: exp(kMask - kNegInf) == 0
 constexpr uint32_t kGolden = 0x9e3779b9u;
-
-template <typename T> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-template <> struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
 
 // murmur3 finalizer; uint32 arithmetic gives the bits of the TPU kernel's
 // int32 wraparound with logical shifts (aat_tpu/ops/attention.py:106)

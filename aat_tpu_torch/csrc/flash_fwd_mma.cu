@@ -49,18 +49,16 @@
 //     triangle and pack_len select runs only on the tile that straddles the
 //     diagonal (on every tile with pack_len), and the grid puts heads on x
 //     and query blocks on y in reverse, so the longest blocks start first.
-#include "flash_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
 using namespace aat_flash;
-using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 64;               // query rows of a block, 16 a warp
 constexpr int kBK = 64;               // keys of one K/V tile
 constexpr int kThreads = 32 * kBQ / 16;
 constexpr int kStages = 2;            // the K/V ring
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr int smem_bytes() {
@@ -79,98 +77,6 @@ struct MmaArgs {
   unsigned int keep_min;  // 0: no dropout; else keep where hash >= keep_min
   float inv_keep;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes == 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a·b for one m16n8k16 tile: a row-major 16x16, b column-major 16x8
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats -> bf16x2, the first in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// round(x·scale) to bf16 for both halves of a bf16x2
-__device__ __forceinline__ uint32_t scale_round(uint32_t x, float scale) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  return pack_bf16(f.x * scale, f.y * scale);
-}
-
-// element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
-template <int D>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
-}
-
-// rows [row0, row0 + ROWS) of a [rows, D] bf16 matrix with row stride
-// `stride` into a swizzled tile; rows at or past n_valid become zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride,
-                                          int row0, int n_valid, int tid) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int n = 0; n < ROWS * kChunks / kThreads; ++n) {
-    const int i = tid + n * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = row0 + r < n_valid;
-    const bf16* g = src + (ok ? (long long)(row0 + r) * stride : 0ll) + c * 8;
-    cp_async16(smem_u32(dst + swz<D>(r, c)), g, ok ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ bool keep_bits(uint32_t seed_and_head, int q_pos, int k_pos,
-                                          int s_stride, uint32_t keep_min) {
-  const uint32_t x = (uint32_t)q_pos * (uint32_t)s_stride + (uint32_t)k_pos;
-  return mix32(x ^ seed_and_head) >= keep_min;
-}
 
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -197,15 +103,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int tile, int stage) {
     const int k0 = tile * kBK;
-    load_rows<D, kBK>(ks + stage * kBK * D, kb, a.k_ss, k0, a.s_len, tid);
-    load_rows<D, kBK>(vs + stage * kBK * D, vb, a.v_ss, k0, a.s_len, tid);
+    load_rows<D, kBK, kThreads>(ks + stage * kBK * D, kb, a.k_ss, k0, a.s_len, tid);
+    load_rows<D, kBK, kThreads>(vs + stage * kBK * D, vb, a.v_ss, k0, a.s_len, tid);
     if (tid < kBK) {
       const bool ok = k0 + tid < a.s_len;
       cp_async4(smem_u32(ms + stage * kBK + tid), mb + (ok ? k0 + tid : 0), ok ? 4 : 0);
     }
   };
 
-  load_rows<D, kBQ>(qs, qb, a.q_st, q0, a.t_len, tid);
+  load_rows<D, kBQ, kThreads>(qs, qb, a.q_st, q0, a.t_len, tid);
   cp_async_commit();  // group: Q
   if (n_tiles > 0) load_kv(0, 0);
   cp_async_commit();  // group: tile 0
@@ -397,14 +303,9 @@ extern "C" int aat_flash_fwd_mma(const void* q, const void* k, const void* v,
                                  int causal, int pack_len, int seed, float rate, float inv_keep,
                                  cudaStream_t stream) {
   if (B == 0 || T_len == 0 || H == 0) return 0;
-  // u = (hash >> 8)·2^-24 >= rate  <=>  (hash >> 8) >= ceil(rate·2^24)  <=>
-  // hash >= ceil(rate·2^24)·2^8: rate·2^24 is exact in f32, and rate < 1
-  // (the wrapper checks) keeps the threshold below 2^32
-  const unsigned int keep_min =
-      rate > 0.f ? (unsigned int)ceilf(rate * 16777216.0f) << 8 : 0u;
   const MmaArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
-                  v_sb, v_ss, v_sh, sm_scale, pack_len, (unsigned int)seed, keep_min,
-                  inv_keep};
+                  v_sb, v_ss, v_sh, sm_scale, pack_len, (unsigned int)seed,
+                  aat_flash::keep_min(rate), inv_keep};
   if (D == 64) return launch_d<64>(q, k, v, out, B, causal, a, stream);
   if (D == 128) return launch_d<128>(q, k, v, out, B, causal, a, stream);
   return (int)cudaErrorInvalidValue;

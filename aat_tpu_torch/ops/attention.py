@@ -14,8 +14,10 @@ custom VJP):
   both. It writes the row log-sum-exp when a gradient will be asked for;
   without one (serving, ``torch.no_grad``) the lse-free forward runs, as
   JAX's ``need_residuals=False`` does;
-- backward: ``csrc/flash_bwd.cu``, a dq kernel and a dk/dv kernel. For key
-  lengths up to ``FUSED_BWD_MAX_S`` = 8192 the wrappers
+- backward: a dq kernel and a dk/dv kernel, on the tensor cores for bf16
+  (``csrc/flash_bwd_mma.cu``) and on the FFMA pipes for f32
+  (``csrc/flash_bwd.cu``). For key lengths up to ``FUSED_BWD_MAX_S`` = 8192
+  the wrappers
   :func:`flash_backward_kernel` / :func:`flash_backward_causal_kernel`
   launch both (replacing ``_bwd_fused_kernel`` and
   ``_bwd_fused_tri_kernel``); above it the split route's wrappers
@@ -306,6 +308,11 @@ def _backward_operands(q, k, v, key_mask, out, lse, dout):
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, t):
         raise ValueError(f"out {tuple(out.shape)} dout {tuple(dout.shape)} "
                          f"lse {tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core backward reads out and dout rows in 16-byte chunks
+        for name, x in (("out", out), ("dout", dout)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"bf16 {name} must start on a 16-byte boundary")
     return mask, out, lse, dout
 
 
@@ -315,20 +322,22 @@ def _backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_l
 
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    return (int(q.dtype == torch.bfloat16), b, t, s, h, kvh, d, *_strides(q, k, v),
+    return (b, t, s, h, kvh, d, *_strides(q, k, v),
             float(sm_scale), int(causal), int(pack_len or 0),
             *_dropout_args(dropout_rate, dropout_seed), stream_handle(q.device))
 
 
 def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
                         dropout_seed, pack_len):
-    """``aat_flash_bwd_dq`` → dq ``[B, T, H, D]`` in q's dtype."""
+    """``aat_flash_bwd_dq_mma`` in bf16, ``aat_flash_bwd_dq`` in f32 → dq
+    ``[B, T, H, D]`` in q's dtype."""
     from aat_tpu_torch.runtime.kernels import library
 
     mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
     dq = torch.empty_like(out)
     library().call(
-        "aat_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        "aat_flash_bwd_dq_mma" if q.dtype == torch.bfloat16 else "aat_flash_bwd_dq",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
         *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
     return dq
@@ -336,20 +345,26 @@ def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dro
 
 def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
                          dropout_rate, dropout_seed, pack_len):
-    """``aat_flash_bwd_dkv`` → ``(dk, dv)`` in k's layout and dtype: the
-    kernel writes them per q-head in f32, and the q-heads that share a kv
-    head (GQA) are summed here in f32."""
+    """``aat_flash_bwd_dkv_mma`` in bf16, ``aat_flash_bwd_dkv`` in f32 →
+    ``(dk, dv)`` in k's layout and dtype: the kernel writes them per q-head
+    in f32, and the q-heads that share a kv head (GQA) are summed here in
+    f32. The bf16 entry fills a ``[B, H, T]`` f32 scratch with delta =
+    rowsum(dout·out) first."""
     from aat_tpu_torch.runtime.kernels import library
 
     mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
-    b, _, h, d = q.shape
+    b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     dk_rep = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     dv_rep = torch.empty_like(dk_rep)
+    outputs = (dk_rep.data_ptr(), dv_rep.data_ptr())
+    entry = "aat_flash_bwd_dkv"
+    if q.dtype == torch.bfloat16:
+        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        outputs, entry = outputs + (delta.data_ptr(),), "aat_flash_bwd_dkv_mma"
     library().call(
-        "aat_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dk_rep.data_ptr(),
-        dv_rep.data_ptr(),
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), *outputs,
         *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
     rep = h // kvh
     dk = dk_rep.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype)
@@ -366,7 +381,8 @@ def _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropou
 
 def flash_backward_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                           dropout_rate: float = 0.0, dropout_seed: int = 0):
-    """Launch ``aat_flash_bwd``, dense (replaces the TPU kernel
+    """Launch the dq and dk/dv kernels, dense, on the tensor cores in bf16
+    and the FFMA pipes in f32 (replaces the TPU kernel
     aat_tpu/ops/attention.py:764 ``_bwd_fused_kernel``) → ``(dq, dk, dv)``."""
     grads = _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, False,
                              dropout_rate, dropout_seed, None)
@@ -377,7 +393,7 @@ def flash_backward_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: float,
 def flash_backward_causal_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                                  dropout_rate: float = 0.0, dropout_seed: int = 0,
                                  pack_len: Optional[int] = None):
-    """Launch ``aat_flash_bwd``, causal (replaces the TPU kernel
+    """Launch the dq and dk/dv kernels, causal (replaces the TPU kernel
     aat_tpu/ops/attention.py:709 ``_bwd_fused_tri_kernel``)."""
     grads = _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, True,
                              dropout_rate, dropout_seed, pack_len)
@@ -388,7 +404,7 @@ def flash_backward_causal_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: fl
 def flash_backward_dq_long(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                            causal: bool = False, dropout_rate: float = 0.0,
                            dropout_seed: int = 0, pack_len: Optional[int] = None):
-    """Launch ``aat_flash_bwd_dq``, the dq half of the split route for key
+    """Launch the dq kernel, the dq half of the split route for key
     lengths above ``FUSED_BWD_MAX_S``, dense or causal (replaces the TPU
     kernel aat_tpu/ops/attention.py:562 ``_bwd_dq_kernel``) → dq."""
     dq = _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
@@ -400,7 +416,7 @@ def flash_backward_dq_long(q, k, v, key_mask, out, lse, dout, sm_scale: float,
 def flash_backward_dkv_long(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                             causal: bool = False, dropout_rate: float = 0.0,
                             dropout_seed: int = 0, pack_len: Optional[int] = None):
-    """Launch ``aat_flash_bwd_dkv``, the dk/dv half of the split route,
+    """Launch the dk/dv kernel, the dk/dv half of the split route,
     dense or causal (replaces the TPU kernel aat_tpu/ops/attention.py:595
     ``_bwd_dkv_kernel``) → ``(dk, dv)``."""
     grads = _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,

@@ -28,6 +28,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _FLASH_FWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
               _F, _I, _I, _I, _F, _F, _P]
+_FLASH_BWD_DQ = [_P] * 8 + [_I] * 6 + [_I64] * 9 + [_F, _I, _I, _I, _F, _F, _P]
 
 # C entry points: name -> argtypes (every one returns cudaGetLastError()).
 _SIGNATURES = {
@@ -39,18 +40,16 @@ _SIGNATURES = {
     # the tensor cores (flash_fwd_mma.cu)
     "aat_flash_fwd": _FLASH_FWD,
     "aat_flash_fwd_mma": _FLASH_FWD,
-    # q, k, v, key_mask, out, dout, lse, dq, is_bf16, B, T, S, H, KVH, D,
-    # q/k/v strides as above, sm_scale, causal, pack_len, seed, rate,
-    # inv_keep, stream
-    "aat_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _I, _I,
-                         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                         _F, _I, _I, _I, _F, _F, _P],
-    # as aat_flash_bwd_dq with dk, dv (f32 per q-head) in place of dq
-    "aat_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _I, _I,
-                          _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                          _F, _I, _I, _I, _F, _F, _P],
+    # q, k, v, key_mask, out, dout, lse, dq, B, T, S, H, KVH, D, q/k/v
+    # strides as above, sm_scale, causal, pack_len, seed, rate, inv_keep,
+    # stream: f32 (flash_bwd.cu) and bf16 on the tensor cores
+    # (flash_bwd_mma.cu)
+    "aat_flash_bwd_dq": _FLASH_BWD_DQ,
+    "aat_flash_bwd_dq_mma": _FLASH_BWD_DQ,
+    # as aat_flash_bwd_dq with dk, dv (f32 per q-head) in place of dq; the
+    # tensor-core entry also takes a [B, H, T] f32 scratch for delta
+    "aat_flash_bwd_dkv": [_P] * 9 + _FLASH_BWD_DQ[8:],
+    "aat_flash_bwd_dkv_mma": [_P] * 10 + _FLASH_BWD_DQ[8:],
     # x, codebook, cbn, idx, N, K, D, stream
     "aat_vq_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -59,7 +58,7 @@ _SIGNATURES = {
 class KernelLibrary:
     """The loaded library plus what its build reported. ``calls`` counts the
     launches through each C entry, so a run can tell which of two kernels
-    behind one wrapper (the f32 and bf16 flash forwards) it went through."""
+    behind one wrapper (the f32 and bf16 flash kernels) it went through."""
 
     def __init__(self, path: str, build_seconds: float, build_log: str):
         self.path = path

@@ -29,27 +29,33 @@ Phases, one line each:
      lse) within 1e-4 (f32) / 2e-2 (bf16; out: of max(1, max|ref|)),
      and phase 4's norm ratio,
      gradients within 1e-3 (f32) / 3e-2 (bf16) of max|ref| (sums in
-     another order; bf16 rounds p and ds); in bf16 the yardstick
+     another order; bf16 rounds p and ds) and each of dq, dk and dv within
+     ||g - ref||_F / ||ref||_F <= 1e-4 (f32) / 1e-2 (bf16); bf16 through
+     the tensor-core entries (``*_mma``), f32 through the FFMA ones,
+     counted by C entry; in bf16 the yardstick
      ``scaled_dot_product_attention`` (SDPA) is timed on the same operands
      (forward; backward as forward plus backward minus forward). Then the
-     keep-mask identity check: bf16 [2,300,4,128] against S = D = 128 keys
-     with v the identity and dropout 0.5, dense and causal, so out == 0
-     reads the tensor-core kernel's keep mask, which must equal the plain
+     keep-mask identity checks, bf16, dropout 0.5, dense and causal: the
+     forward at [2,300,4,128] against S = D = 128 keys with v the
+     identity (out == 0 reads its keep mask); the dk/dv kernel with T = D
+     = 128 and dout the identity (dv == 0); the dq kernel with S = D = 128,
+     k = v the identity and out = 0 (dq == 0). Each must equal the plain
      version's ``_keep_mask`` on every allowed position;
   8. training at full width: ``projection_training_config()`` (bf16
      compute over f32 masters, hubert-large train-mode dropout and
      LayerDrop, frozen LM, fused guarded AdamW), 3 optimizer steps of 2
      microbatches of 2 utterances (8-20 s, captions of 32-48 tokens):
      finite losses, the frozen LM bitwise unchanged, trained weights
-     moved, every bf16 forward launch through the C entry
-     ``aat_flash_fwd_mma`` and none through ``aat_flash_fwd``; then one f32
-     gradient step (through ``aat_flash_fwd``) through the kernel route and the
+     moved, every bf16 flash launch through the tensor-core C entries
+     (``aat_flash_fwd_mma``, ``aat_flash_bwd_dq_mma``,
+     ``aat_flash_bwd_dkv_mma``) and none through the FFMA ones; one more
+     step under ``torch.profiler`` gives the device's busy time and idle
+     share, with device time by kernel written beside the build log
+     (``aat_tpu_torch/build/train_profile.txt``) and the forward and
+     backward kernels' device time printed by name; then one f32 gradient
+     step (through the FFMA entries only) through the kernel route and the
      plain route with the same seeds: loss and global grad norm within
-     1e-3 relative, feature_projection grads within 1e-3 * max|ref|; one
-     more step under ``torch.profiler`` gives the device's busy time and
-     idle share, with device time by kernel written beside the build log
-     (``aat_tpu_torch/build/train_profile.txt``) and the forward kernels'
-     device time printed by name.
+     1e-3 relative, feature_projection grads within 1e-3 * max|ref|.
   9. the offline discrete-token pipeline at full width: 8 speech-like
      utterances of 4-20 s through ``scripts.segment_embeddings`` (host
      tokenizer, hubert-large eval with seeded random weights) →
@@ -70,12 +76,15 @@ Phases, one line each:
  11. the long-form path's kernels vs their plain versions at its shapes
      (key length > 8192): HuBERT's dense [1,8499,16,64] with dropout 0.1
      and Qwen's causal [1,8540,16,128], padded key tails, f32 and bf16 at
-     phase 7's tolerances; the forward (out, lse) and the split backward's
-     dq and dk/dv kernels, with SDPA timed in bf16 as in phase 7, and the
-     dense bf16 forward timed again at rate 0. In bf16 two faults are
-     planted through the tensor-core kernel's arguments (the 1/(1 - rate)
-     rescale left out; keys 1024-1087, one 64-key tile, left out): the out
-     checks must reject both. The plain
+     phase 7's tolerances and routing; the forward (out, lse) and the split
+     backward's dq and dk/dv kernels, with SDPA timed in bf16 as in phase 7,
+     and the dense bf16 forward timed again at rate 0. In bf16 two faults
+     are planted through the tensor-core kernels' own arguments (the
+     1/(1 - rate) rescale left out; keys 1024-1087, one 64-key tile, left
+     out), in the forward and in both backward entries: the out and
+     gradient norm ratios must reject every one, and a control launch with
+     the wrappers' arguments must reproduce their output bit for bit. The
+     plain
      versions run 4 heads at a time, so
      their [B, H, T, S] f32 tensors stay near 1.2 GB (a batch of one, so a
      head's dropout mask is keyed on seed + head·GOLDEN, and a chunk
@@ -85,19 +94,20 @@ Phases, one line each:
      ``models.build.build_model``), one utterance of 170 s and one of
      180 s (HuBERT T = 8499 and 8999): finite losses, the frozen Qwen
      bitwise unchanged, the encoder moved, the split kernels launched and
-     the S <= 8192 backward kernels not, the forward only through
-     ``aat_flash_fwd_mma``; then one more step under ``torch.profiler``
+     the S <= 8192 backward kernels not, every flash launch through the
+     tensor-core entries; then one more step under ``torch.profiler``
      (``aat_tpu_torch/build/longform_profile.txt``).
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, the pipeline, the 2 long-form steps) and read
 just after; each kernel of the path must have launched there, and each
-path's forward launches must all go through one C entry (serving's f32
-through ``aat_flash_fwd``, training's and long-form training's bf16 through
-``aat_flash_fwd_mma``). Then a JSON line of kernel results, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``. In the kernel
-line the flash entries report bf16 (the forward: the tensor-core kernel at
-the long-form shapes, counting only launches through its C entry), with the
-f32 results under ``f32_`` keys; the entry ``flash_fwd_f32`` is the FFMA
+path's flash launches must all go through the C entries of one dtype
+(serving's f32 forward through ``aat_flash_fwd``, training's and long-form
+training's bf16 forward and backward through the ``*_mma`` entries). Then a
+JSON line of kernel results, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. In the kernel line the flash entries
+report bf16 (the tensor-core kernels, counting only launches through their
+C entries, ``c_entry``), with the FFMA kernels' f32 results under ``f32_``
+keys and ``f32_source``; the entry ``flash_fwd_f32`` is the FFMA
 forward with serving's launches at serving's shape; ``library_ms`` is SDPA's time
 (null for mel and vq, which no single PyTorch call computes), and
 ``bound_ms`` the larger of the bytes over 3.35 TB/s and the operations
@@ -138,6 +148,11 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FAULT_TILE = (1024, 1088)  # the key tile whose keys a planted fault masks
 GRAD_REL_TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # of max|ref|
+# ||g - ref||_F / ||ref||_F of each of dq, dk and dv: bf16 rounding of q_s,
+# p_v and ds; the faults planted in phase 11 give about 0.1
+GRAD_NORM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the FFMA kernels, whose results the kernels line keeps under f32_ keys
+F32_SOURCE = {"fwd": "aat_tpu_torch/csrc/flash_fwd.cu", "bwd": "aat_tpu_torch/csrc/flash_bwd.cu"}
 ENCODER_REL_TOL = 1e-3
 TRAIN_REL_TOL = 1e-3
 
@@ -387,10 +402,12 @@ def phase_flash(torch, device, rng):
 
 def phase_flash_train(torch, device, rng):
     """Forward (out, lse) and backward kernels vs their plain versions at
-    the training path's shapes. Returns the results of the main cases for
-    the kernels line: bf16, with SDPA's times and the bound, and the f32
-    results under ``f32_`` keys."""
+    the training path's shapes, each case's launches through the C entries
+    of its dtype. Returns the results of the main cases for the kernels
+    line: bf16, with SDPA's times and the bound, and the f32 results under
+    ``f32_`` keys."""
     from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.runtime.kernels import library
 
     # (B, T, H, KVH, D), causal, masking, dropout (rate, seed), pack_len
     cases = [((2, 999, 16, 16, 64), False, "tail", (0.1, 1234567), None),
@@ -418,10 +435,14 @@ def phase_flash_train(torch, device, rng):
             if masking == "dead":
                 mask[b - 1] = 0
             scale = d ** -0.5
+            label = (f"{'causal' if causal else 'dense'} [{b},{t},{h}/{kvh},{d}] {dtype_name}"
+                     f"{f' dropout {rate}' if rate else ''}{f' pack {pack_len}' if pack_len else ''}")
+            before = dict(library().calls)
             out, lse = fwd(q, k, v, mask, scale, **fkw)
             ref_out, ref_lse = att.flash_forward_reference(q, k, v, mask, scale, **pkw)
             # both backward versions read the plain forward's out and lse
             grads = bwd(q, k, v, mask, ref_out, ref_lse, g, scale, **bkw)
+            routed(before, dtype_name, f"flash train {label}")
             ref_grads = att.flash_backward_reference(q, k, v, mask, ref_out, ref_lse, g,
                                                      scale, **pkw)
             torch.cuda.synchronize()
@@ -430,6 +451,7 @@ def phase_flash_train(torch, device, rng):
             lse_err = float((lse - ref_lse)[live].abs().max())
             grad_errs = [float((a.float() - r.float()).abs().max()) / float(r.float().abs().max())
                          for a, r in zip(grads, ref_grads)]
+            grad_rel = [out_errors(a, r)[1] for a, r in zip(grads, ref_grads)]
             fwd_ms = cuda_ms(torch, lambda: fwd(q, k, v, mask, scale, **fkw), iters=10)
             fwd_plain_ms = cuda_ms(torch, lambda: att.flash_forward_reference(
                 q, k, v, mask, scale, **pkw), iters=10)
@@ -441,8 +463,6 @@ def phase_flash_train(torch, device, rng):
             if masking == "dead":
                 dead_ok = (bool((out[b - 1] == 0).all()) and bool((lse[b - 1] == -1e30).all())
                            and all(bool((x[b - 1] == 0).all()) for x in grads))
-            label = (f"{'causal' if causal else 'dense'} [{b},{t},{h}/{kvh},{d}] {dtype_name}"
-                     f"{f' dropout {rate}' if rate else ''}{f' pack {pack_len}' if pack_len else ''}")
             # the out bound scales with the output's size: a bf16 rounding flip
             # is an ulp, 2**-8 of the value, and causal rows near the top
             # average few keys, so |out| reaches 4
@@ -451,7 +471,9 @@ def phase_flash_train(torch, device, rng):
             print(f"flash train: {label} out err {out_err:.3e} (bound {out_bound:.2e}) norm "
                   f"ratio {out_rel:.3e} (bound {FLASH_REL_TOL[dtype_name]}) lse err "
                   f"{lse_err:.3e} (bound {FLASH_TOL[dtype_name]}); dq/dk/dv err/max|ref| "
-                  f"{'/'.join(f'{e:.2e}' for e in grad_errs)} (bound {GRAD_REL_TOL[dtype_name]})"
+                  f"{'/'.join(f'{e:.2e}' for e in grad_errs)} (bound {GRAD_REL_TOL[dtype_name]}) "
+                  f"norm ratios {'/'.join(f'{e:.2e}' for e in grad_rel)} (bound "
+                  f"{GRAD_NORM_TOL[dtype_name]})"
                   f"{' masked_row_zero ' + str(dead_ok) if masking == 'dead' else ''}; "
                   f"fwd {fwd_ms:.4f} ms plain {fwd_plain_ms:.4f} ms, "
                   f"bwd {bwd_ms:.4f} ms plain {bwd_plain_ms:.4f} ms", flush=True)
@@ -461,8 +483,10 @@ def phase_flash_train(torch, device, rng):
                   and lse_err <= FLASH_TOL[dtype_name],
                   f"flash train {label}: forward differs by {out_err} (norm ratio {out_rel}, "
                   f"lse {lse_err})")
-            check(max(grad_errs) <= GRAD_REL_TOL[dtype_name],
-                  f"flash train {label}: gradients differ by {grad_errs} of max|ref|")
+            check(max(grad_errs) <= GRAD_REL_TOL[dtype_name]
+                  and max(grad_rel) <= GRAD_NORM_TOL[dtype_name],
+                  f"flash train {label}: gradients differ by {grad_errs} of max|ref| "
+                  f"(norm ratios {grad_rel})")
             check(dead_ok, f"flash train {label}: fully masked row not exactly zero")
             if masking == "tail" and d == 64:
                 name = "causal" if causal else "dense"
@@ -472,7 +496,8 @@ def phase_flash_train(torch, device, rng):
                 bwd_r = results.setdefault(f"bwd_{name}", {})
                 if dtype_name == "float32":
                     fwd_r.update(f32_max_abs_err=out_err, f32_ms=fwd_ms, f32_plain_ms=fwd_plain_ms)
-                    bwd_r.update(f32_max_abs_err=bwd_err, f32_ms=bwd_ms, f32_plain_ms=bwd_plain_ms)
+                    bwd_r.update(f32_max_abs_err=bwd_err, f32_ms=bwd_ms, f32_plain_ms=bwd_plain_ms,
+                                 f32_norm_ratio=max(grad_rel), f32_source=F32_SOURCE["bwd"])
                     continue
                 lib = sdpa_ms(torch, q, k, v, causal, rate)
                 fwd_bound = attention_bound(torch, "fwd", (q, k, v, mask, out, lse), q, mask,
@@ -482,9 +507,9 @@ def phase_flash_train(torch, device, rng):
                 fwd_r.update(max_abs_err=out_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
                              library_ms=lib["fwd_ms"], bound_ms=fwd_bound[0],
                              bound_by=fwd_bound[1])
-                bwd_r.update(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
-                             library_ms=lib["bwd_ms"], bound_ms=bwd_bound[0],
-                             bound_by=bwd_bound[1])
+                bwd_r.update(max_abs_err=bwd_err, norm_ratio=max(grad_rel), ms=bwd_ms,
+                             plain_ms=bwd_plain_ms, library_ms=lib["bwd_ms"],
+                             bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
                 print(f"flash train: {label}: SDPA (FlashAttention backend, no key mask) fwd "
                       f"{lib['fwd_ms']:.4f} ms bwd {lib['bwd_ms']:.4f} ms; bound fwd "
                       f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}) bwd {bwd_bound[0]:.4f} ms "
@@ -527,6 +552,70 @@ def phase_keep_mask(torch, device, rng):
               f"positions {stray}", flush=True)
         check(differ == 0 and plain_differ == 0 and stray == 0,
               "the keep mask read through an identity v differs from _keep_mask")
+
+
+def phase_backward_keep_mask(torch, device, rng):
+    """The tensor-core backward's dropout keep mask, read from each kernel
+    through identity operands. bf16, B = 2, H = KVH = 4, D = 128, rate 0.5,
+    dense and causal, through the S <= 8192 wrappers (both kernels):
+    - dk/dv: T = D = 128 queries against 300 keys, dout[q] = e_q, so
+      dv[k, d] = p_v[d, k]: dv == 0 exactly where key k was dropped for
+      query d;
+    - dq: 300 queries against S = D = 128 keys, k[j] = v[j] = e_j, out = 0
+      (so delta = 0) and dout random, so dq[q, d] =
+      sm_scale·round(p·keep·dout/(1 - rate))[q, d]: zero exactly where key
+      d was dropped for query q.
+    On every allowed position the zeros must equal ``_keep_mask``, the
+    plain backward's zeros too, and every other position must be zero. (In
+    the dk/dv kernel the hash's row is the fragment's column: a swapped
+    (q, k) passes every tolerance and only this check finds it.)"""
+    from aat_tpu_torch.ops import attention as att
+
+    b, h, d, n, rate, seed = 2, 4, 128, 300, 0.5, 13579
+    scale = d ** -0.5
+    eye = torch.eye(d, device=device, dtype=torch.bfloat16)[None, :, None, :].expand(
+        b, d, h, d).contiguous()
+
+    def gauss(rows):
+        return torch.from_numpy(rng.normal(0, 1, (b, rows, h, d)).astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+
+    for causal in (False, True):
+        bwd = att.flash_backward_causal_kernel if causal else att.flash_backward_kernel
+        pkw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
+        for kernel in ("dk/dv", "dq"):
+            if kernel == "dk/dv":
+                q, k, v, dout = gauss(d), gauss(n), gauss(n), eye
+            else:
+                q, k, v, dout = gauss(n), eye, eye, gauss(n)
+            t, s = q.shape[1], k.shape[1]
+            mask = torch.ones((b, s), dtype=torch.int32, device=device)
+            out, lse = att.flash_forward_reference(q, k, v, mask, scale, **pkw)
+            if kernel == "dq":
+                out = torch.zeros_like(out)
+            grads = bwd(q, k, v, mask, out, lse, dout, scale, dropout_rate=rate,
+                        dropout_seed=seed)
+            ref = att.flash_backward_reference(q, k, v, mask, out, lse, dout, scale, **pkw)
+            torch.cuda.synchronize()
+
+            def nonzero(gr):  # [B, H, T, S]: dv [B, S, H, T], dq [B, T, H, S]
+                x = gr[2].permute(0, 2, 3, 1) if kernel == "dk/dv" else gr[0].permute(0, 2, 1, 3)
+                return x != 0
+
+            kept, ref_kept = nonzero(grads), nonzero(ref)
+            keep = att._keep_mask(seed, b, h, t, s, rate, device)
+            allowed = att._allowed(mask, t, s, causal, None).expand(b, h, t, s)
+            differ = int((kept != keep)[allowed].sum())
+            plain_differ = int((ref_kept != keep)[allowed].sum())
+            stray = int(kept[~allowed].sum())
+            print(f"backward keep mask: {kernel} kernel, {'causal' if causal else 'dense'} "
+                  f"[{b},{t},{h},{d}] against {s} keys, bf16 dropout {rate}: "
+                  f"{int(allowed.sum())} allowed positions, {int(keep[allowed].sum())} kept; "
+                  f"kernel zeros differ from _keep_mask at {differ} (plain version "
+                  f"{plain_differ}), nonzero outside the allowed positions {stray}", flush=True)
+            check(differ == 0 and plain_differ == 0 and stray == 0,
+                  f"the {kernel} kernel's keep mask read through identity operands differs "
+                  "from _keep_mask")
 
 
 def flagship_model(torch, device, seed=0):
@@ -623,18 +712,35 @@ def reset_entry_calls():
     return calls
 
 
-FORWARD_ENTRIES = ("aat_flash_fwd_mma", "aat_flash_fwd")  # bf16, f32
+# the flash kernels' C entries by dtype: forward, dq, dk/dv
+FLASH_ENTRIES = {"bfloat16": ("aat_flash_fwd_mma", "aat_flash_bwd_dq_mma", "aat_flash_bwd_dkv_mma"),
+                 "float32": ("aat_flash_fwd", "aat_flash_bwd_dq", "aat_flash_bwd_dkv")}
 
 
-def forward_entry_calls(calls, path, entry):
-    """A path's forward launches all went through the C entry ``entry``:
-    ``aat_flash_fwd_mma`` on a bf16 path, ``aat_flash_fwd`` on an f32 one.
-    Returns a copy of the path's launches by C entry."""
-    print(f"{path}: forward launches by C entry: "
-          + ", ".join(f"{e} {calls[e]}" for e in FORWARD_ENTRIES), flush=True)
-    check(all((calls[e] > 0) == (e == entry) for e in FORWARD_ENTRIES),
-          f"{path}: the forward launches did not all go through {entry}")
+def flash_entry_calls(calls, path, dtype_name, backward=True):
+    """A path's flash launches all went through the C entries of its dtype
+    (``FLASH_ENTRIES``: the tensor-core kernels in bf16, the FFMA kernels in
+    f32), the backward's too unless ``backward`` is False (serving), and
+    none through the other dtype's. Returns a copy of the path's launches by
+    C entry."""
+    entries = [e for names in FLASH_ENTRIES.values() for e in names]
+    want = FLASH_ENTRIES[dtype_name][:3 if backward else 1]
+    print(f"{path}: flash launches by C entry: "
+          + ", ".join(f"{e} {calls[e]}" for e in entries), flush=True)
+    check(all((calls[e] > 0) == (e in want) for e in entries),
+          f"{path}: the flash launches did not all go through {want}")
     return dict(calls)
+
+
+def routed(before, dtype_name, label):
+    """The flash launches since the copy ``before`` of the library's counts
+    went through each C entry of ``dtype_name`` and no other."""
+    from aat_tpu_torch.runtime.kernels import library
+
+    calls = library().calls
+    moved = {e for e in calls if calls[e] != before.get(e, 0)}
+    check(moved == set(FLASH_ENTRIES[dtype_name]),
+          f"{label}: launches went through {sorted(moved)}, not {FLASH_ENTRIES[dtype_name]}")
 
 
 def training_batches(torch, device, rng, n_steps, accum, per_batch=2):
@@ -713,7 +819,7 @@ def phase_training(torch, model, params, rng):
         check(not torch.equal(old, watched[name]), f"trained weight {name} did not move")
     for name in TRAIN_KERNELS:
         check(launches[name] > 0, f"training never launched the {name} kernel")
-    entry_calls = forward_entry_calls(calls, "training", "aat_flash_fwd_mma")
+    entry_calls = flash_entry_calls(calls, "training", "bfloat16")
     del lm_before, before
 
     profile_training_step(torch, trainer, batches[-1])
@@ -724,6 +830,7 @@ def phase_training(torch, model, params, rng):
         dataclasses.replace(model.lm_config, attention_impl="xla"))
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     routes = {}
+    calls = reset_entry_calls()
     for label, m in (("kernel", model), ("plain", plain_model)):
         t = AATTrainer(m, params, f32)
         grads, metrics = t._grad_step(params, batches[0][0], t.dropout_seed(0, 0))
@@ -731,7 +838,7 @@ def phase_training(torch, model, params, rng):
                          grads["audio_encoder"]["feature_projection"]["projection"]["kernel"])
         del t, grads
         torch.cuda.empty_cache()
-    check(calls["aat_flash_fwd"] > 0, "the f32 step did not launch the f32 forward kernel")
+    flash_entry_calls(calls, "training f32 step", "float32")
     (loss_k, norm_k, fp_k), (loss_p, norm_p, fp_p) = routes["kernel"], routes["plain"]
     fp_err = float((fp_k - fp_p).abs().max())
     fp_scale = float(fp_p.abs().max())
@@ -783,10 +890,12 @@ def profile_training_step(torch, trainer, micro, name="train"):
     print(f"profile: warm {name} step wall {wall:.3f} s (profiled), device busy "
           f"{busy_us / 1e6:.3f} s, idle share {1 - busy_us / 1e6 / wall:.3f}, "
           f"{len(kernels)} kernels ({os.path.relpath(path, REPO)})", flush=True)
-    forward = {short_name(kernel): v for kernel, v in by_name.items() if "flash_fwd" in kernel}
-    print(f"profile: {name} forward kernels {sum(t for t, _ in forward.values()) / 1e6:.4f} s "
-          f"device time: " + "; ".join(f"{kernel} {t / 1e3:.3f} ms, {c} launches"
-                                       for kernel, (t, c) in sorted(forward.items())), flush=True)
+    for kind, tag in (("forward", "flash_fwd"), ("backward", "flash_bwd")):
+        found = {short_name(kernel): v for kernel, v in by_name.items() if tag in kernel}
+        print(f"profile: {name} {kind} kernels {sum(t for t, _ in found.values()) / 1e6:.4f} s "
+              f"device time: " + "; ".join(f"{kernel} {t / 1e3:.3f} ms, {c} launches"
+                                           for kernel, (t, c) in sorted(found.items())),
+              flush=True)
 
 
 def assert_ids_near(torch, label, got, x, codebook):
@@ -1018,15 +1127,67 @@ def planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out, ref_out
     return {name: out_errors(x, ref_out) for name, x in faults.items()}
 
 
+def planted_backward_faults(torch, args, kw, grads, refs):
+    """The bf16 backward's gradient checks, held against faults planted
+    through the tensor-core entries' own arguments: the kept probabilities
+    and dp left unscaled (``inv_keep`` 1 in place of 1/(1 - rate), with
+    dropout), and the key tile ``FAULT_TILE`` masked in the kernels' key mask
+    (not in the reference's). A control launch of both entries with the
+    wrappers' own arguments must reproduce ``grads`` (dq, dk, dv) bit for
+    bit. Returns ``{fault: (dq norm ratio, max of the dk and dv norm
+    ratios)}`` against ``refs``."""
+    from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.runtime.kernels import library
+
+    q, k, v, mask, out, lse, dout, scale = args
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    base = att._backward_args(q, k, v, scale, kw["causal"], kw["dropout_rate"],
+                              kw["dropout_seed"], None)
+    inv_keep = base[-2]
+
+    def launch(key_mask, inv):
+        rest = (*base[:-2], inv, base[-1])
+        dq = torch.empty_like(out)
+        dk, dv = (torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+                  for _ in range(2))
+        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), lse.data_ptr())
+        library().call("aat_flash_bwd_dq_mma", *inputs, dq.data_ptr(), *rest)
+        library().call("aat_flash_bwd_dkv_mma", *inputs, dk.data_ptr(), dv.data_ptr(),
+                       delta.data_ptr(), *rest)
+        rep = h // kvh
+        return (dq, *(x.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype) for x in (dk, dv)))
+
+    check(all(torch.equal(x, y) for x, y in zip(launch(mask, inv_keep), grads)),
+          "a backward launch with the wrappers' arguments does not reproduce their gradients")
+    tile_out = mask.clone()
+    tile_out[:, FAULT_TILE[0]:FAULT_TILE[1]] = 0
+    faults = {f"keys {FAULT_TILE[0]}-{FAULT_TILE[1] - 1} left out": launch(tile_out, inv_keep)}
+    if kw["dropout_rate"] > 0.0:
+        faults["no 1/(1-rate) rescale"] = launch(mask, 1.0)
+    torch.cuda.synchronize()
+    ratios = {}
+    for name, got in faults.items():
+        rel = [out_errors(x, r)[1] for x, r in zip(got, refs)]
+        ratios[name] = (rel[0], max(rel[1:]))
+    return ratios
+
+
 def phase_split_backward(torch, device, rng):
     """The long-form path's kernels at its shapes (``SPLIT_CASES``, key
     lengths above 8192) against their plain versions, f32 and bf16, at
     phase 7's tolerances: the forward kernel (out, lse), then the split
-    route's dq and dk/dv kernels fed the plain forward's out and lse. The
-    plain versions run through :func:`plain_by_heads`. Returns the results
-    for the kernels line: bf16 with SDPA's times and the bounds, the f32
-    results under ``f32_`` keys."""
+    route's dq and dk/dv kernels fed the plain forward's out and lse, each
+    through the C entries of its dtype. The plain versions run through
+    :func:`plain_by_heads`. In bf16 faults are planted in the forward
+    (:func:`planted_faults`) and the backward
+    (:func:`planted_backward_faults`). Returns the results for the kernels
+    line: bf16 with SDPA's times and the bounds, the f32 results under
+    ``f32_`` keys."""
     from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.runtime.kernels import library
 
     results = {}
     for (b, t, h, d), causal, (rate, seed) in SPLIT_CASES:
@@ -1045,11 +1206,15 @@ def phase_split_backward(torch, device, rng):
             def plain(fn, residuals=None):
                 return plain_by_heads(torch, fn, q, k, v, mask, residuals, scale, kw)
 
+            label = (f"{'causal' if causal else 'dense'} [{b},{t},{h},{d}] {dtype_name}"
+                     f"{f' dropout {rate}' if rate else ''}")
+            before = dict(library().calls)
             out, lse = fwd(q, k, v, mask, scale, **fkw)
             ref_out, ref_lse = plain(att.flash_forward_reference)
             args = (q, k, v, mask, ref_out, ref_lse, g, scale)
             dq = att.flash_backward_dq_long(*args, **kw)
             dk, dv = att.flash_backward_dkv_long(*args, **kw)
+            routed(before, dtype_name, f"long-form kernels {label}")
             ref_dq = plain(att.flash_backward_dq_reference, (ref_out, ref_lse, g))
             ref_dk, ref_dv = plain(att.flash_backward_dkv_reference, (ref_out, ref_lse, g))
             torch.cuda.synchronize()
@@ -1058,14 +1223,16 @@ def phase_split_backward(torch, device, rng):
             lse_err = float((lse - ref_lse)[live].abs().max())
             out_bound = FLASH_TOL[dtype_name] * (
                 max(1.0, float(ref_out.float().abs().max())) if dtype_name == "bfloat16" else 1.0)
-            faults = {}
+            faults, bwd_faults = {}, {}
+            refs = (ref_dq, ref_dk, ref_dv)
             if dtype == torch.bfloat16:
                 faults = planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out,
                                         ref_out)
-            errs = [float((a.float() - r.float()).abs().max()) for a, r in
-                    ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv))]
-            rel = [e / float(r.float().abs().max()) for e, r in zip(errs, (ref_dq, ref_dk, ref_dv))]
-            del ref_dq, ref_dk, ref_dv
+                bwd_faults = planted_backward_faults(torch, args, kw, (dq, dk, dv), refs)
+            errs = [float((a.float() - r.float()).abs().max()) for a, r in zip((dq, dk, dv), refs)]
+            rel = [e / float(r.float().abs().max()) for e, r in zip(errs, refs)]
+            grad_rel = [out_errors(a, r)[1] for a, r in zip((dq, dk, dv), refs)]
+            del ref_dq, ref_dk, ref_dv, refs
             torch.cuda.empty_cache()
             fwd_ms = cuda_ms(torch, lambda: fwd(q, k, v, mask, scale, **fkw),
                              iters=20 if dtype == torch.bfloat16 else 3, warmup=1)
@@ -1073,10 +1240,11 @@ def phase_split_backward(torch, device, rng):
             nodrop_ms = (cuda_ms(torch, lambda: fwd(q, k, v, mask, scale, need_lse=True),
                                  iters=20, warmup=1)
                          if rate > 0.0 and dtype == torch.bfloat16 else None)
-            dq_ms = cuda_ms(torch, lambda: att.flash_backward_dq_long(*args, **kw), iters=3,
-                            warmup=1)
-            dkv_ms = cuda_ms(torch, lambda: att.flash_backward_dkv_long(*args, **kw), iters=3,
-                             warmup=1)
+            bwd_iters = 20 if dtype == torch.bfloat16 else 3
+            dq_ms = cuda_ms(torch, lambda: att.flash_backward_dq_long(*args, **kw),
+                            iters=bwd_iters, warmup=1)
+            dkv_ms = cuda_ms(torch, lambda: att.flash_backward_dkv_long(*args, **kw),
+                             iters=bwd_iters, warmup=1)
             fwd_plain_ms = cuda_ms(torch, lambda: plain(att.flash_forward_reference), iters=2,
                                    warmup=1)
             dq_plain_ms = cuda_ms(torch, lambda: plain(att.flash_backward_dq_reference,
@@ -1084,14 +1252,14 @@ def phase_split_backward(torch, device, rng):
             dkv_plain_ms = cuda_ms(torch, lambda: plain(att.flash_backward_dkv_reference,
                                                         (ref_out, ref_lse, g)), iters=2, warmup=1)
             torch.cuda.empty_cache()
-            label = (f"{'causal' if causal else 'dense'} [{b},{t},{h},{d}] {dtype_name}"
-                     f"{f' dropout {rate}' if rate else ''}")
             print(f"long-form kernels: {label} fwd out err {out_err:.3e} (bound {out_bound:.2e}, "
                   f"max|ref| {float(ref_out.float().abs().max()):.3e}) norm ratio {out_rel:.3e} "
                   f"(bound {FLASH_REL_TOL[dtype_name]}) "
                   f"lse err {lse_err:.3e} (bound {FLASH_TOL[dtype_name]}); split bwd dq/dk/dv "
                   f"err/max|ref| {'/'.join(f'{e:.2e}' for e in rel)} (bound "
-                  f"{GRAD_REL_TOL[dtype_name]}); fwd {fwd_ms:.4f} ms plain {fwd_plain_ms:.4f} ms"
+                  f"{GRAD_REL_TOL[dtype_name]}) norm ratios "
+                  f"{'/'.join(f'{e:.2e}' for e in grad_rel)} (bound {GRAD_NORM_TOL[dtype_name]}); "
+                  f"fwd {fwd_ms:.4f} ms plain {fwd_plain_ms:.4f} ms"
                   f"{f' (at rate 0 {nodrop_ms:.4f} ms)' if nodrop_ms else ''}, "
                   f"dq {dq_ms:.4f} ms plain {dq_plain_ms:.4f} ms, dkv {dkv_ms:.4f} ms plain "
                   f"{dkv_plain_ms:.4f} ms", flush=True)
@@ -1102,22 +1270,33 @@ def phase_split_backward(torch, device, rng):
                       f"{FLASH_REL_TOL[dtype_name]})", flush=True)
                 check(f_rel > FLASH_REL_TOL[dtype_name],
                       f"long-form kernels {label}: the out checks pass the planted fault '{fault}'")
+            for fault, (dq_rel, dkv_rel) in bwd_faults.items():
+                print(f"long-form kernels: {label} planted backward fault '{fault}': norm ratio "
+                      f"dq {dq_rel:.3e}, dk/dv {dkv_rel:.3e} (bound {GRAD_NORM_TOL[dtype_name]})",
+                      flush=True)
+                check(min(dq_rel, dkv_rel) > GRAD_NORM_TOL[dtype_name],
+                      f"long-form kernels {label}: the gradient checks pass the planted fault "
+                      f"'{fault}'")
             check(all(bool(torch.isfinite(x.float()).all()) for x in (out, dq, dk, dv)),
                   f"long-form kernels {label}: non-finite output or gradient")
             check(out_err <= out_bound and out_rel <= FLASH_REL_TOL[dtype_name]
                   and lse_err <= FLASH_TOL[dtype_name],
                   f"long-form kernels {label}: forward differs by {out_err} (norm ratio "
                   f"{out_rel}, lse {lse_err})")
-            check(max(rel) <= GRAD_REL_TOL[dtype_name],
-                  f"long-form kernels {label}: gradients differ by {rel} of max|ref|")
+            check(max(rel) <= GRAD_REL_TOL[dtype_name]
+                  and max(grad_rel) <= GRAD_NORM_TOL[dtype_name],
+                  f"long-form kernels {label}: gradients differ by {rel} of max|ref| "
+                  f"(norm ratios {grad_rel})")
             name = "causal" if causal else "dense"
-            measured = {"fwd": (out_err, fwd_ms, fwd_plain_ms),
-                        "dq": (errs[0], dq_ms, dq_plain_ms),
-                        "dkv": (max(errs[1:]), dkv_ms, dkv_plain_ms)}
+            measured = {"fwd": (out_err, out_rel, fwd_ms, fwd_plain_ms),
+                        "dq": (errs[0], grad_rel[0], dq_ms, dq_plain_ms),
+                        "dkv": (max(errs[1:]), max(grad_rel[1:]), dkv_ms, dkv_plain_ms)}
             if dtype_name == "float32":
-                for kind, (err, ms, plain_ms) in measured.items():
-                    results[f"{kind}_{name}"] = {"f32_max_abs_err": err, "f32_ms": ms,
-                                                 "f32_plain_ms": plain_ms}
+                for kind, (err, ratio, ms, plain_ms) in measured.items():
+                    results[f"{kind}_{name}"] = {
+                        "f32_max_abs_err": err, "f32_norm_ratio": ratio, "f32_ms": ms,
+                        "f32_plain_ms": plain_ms,
+                        "f32_source": F32_SOURCE["fwd" if kind == "fwd" else "bwd"]}
             else:
                 lib = sdpa_ms(torch, q, k, v, causal, rate)
                 inputs = (q, k, v, mask, ref_out, ref_lse, g)
@@ -1127,14 +1306,13 @@ def phase_split_backward(torch, device, rng):
                                                 None, rate),
                           "dkv": attention_bound(torch, "dkv", inputs + (dk, dv), q, mask,
                                                  causal, None, rate)}
-                for kind, (err, ms, plain_ms) in measured.items():
+                for kind, (err, ratio, ms, plain_ms) in measured.items():
                     # SDPA's backward computes dq, dk and dv in one call: the
                     # yardstick of each half of the split backward
                     results[f"{kind}_{name}"].update(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        max_abs_err=err, norm_ratio=ratio, ms=ms, plain_ms=plain_ms,
                         library_ms=lib["fwd_ms" if kind == "fwd" else "bwd_ms"],
                         bound_ms=bounds[kind][0], bound_by=bounds[kind][1])
-                results[f"fwd_{name}"]["norm_ratio"] = out_rel
                 print(f"long-form kernels: {label}: SDPA (FlashAttention backend, no key mask) fwd "
                       f"{lib['fwd_ms']:.4f} ms bwd {lib['bwd_ms']:.4f} ms; bounds fwd "
                       f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), dq "
@@ -1217,7 +1395,7 @@ def phase_longform(torch, device, rng):
         check(launches[name] > 0, f"long-form training never launched {name}")
     for name in ("flash_bwd", "flash_bwd_causal"):
         check(launches[name] == 0, f"long-form training launched {name} (S <= 8192 route)")
-    entry_calls = forward_entry_calls(calls, "long-form training", "aat_flash_fwd_mma")
+    entry_calls = flash_entry_calls(calls, "long-form training", "bfloat16")
     del lm_before
     profile_training_step(torch, trainer, [batches[-1]], name="longform")
     return launches, entry_calls
@@ -1262,10 +1440,11 @@ def main():
     # 3-4. kernels vs their plain versions
     mel_result = phase_mel(torch, device, rng)
     serve_fwd_result = phase_flash(torch, device, rng)
-    # 7. training kernels vs their plain versions, and the bf16 forward's
-    # keep mask read through an identity v
+    # 7. training kernels vs their plain versions, and the bf16 kernels'
+    # keep masks read through identity operands
     train_results = phase_flash_train(torch, device, rng)
     phase_keep_mask(torch, device, rng)
+    phase_backward_keep_mask(torch, device, rng)
 
     # 5-6. serving at full width
     start = time.perf_counter()
@@ -1294,7 +1473,7 @@ def main():
     torch.cuda.synchronize()
     whole_s = time.perf_counter() - start
     launches = {name: w.launches for name, w in kernel_wrappers().items()}
-    serve_calls = forward_entry_calls(calls, "serving (f32)", "aat_flash_fwd")
+    serve_calls = flash_entry_calls(calls, "serving (f32)", "float32", backward=False)
 
     vocab = model.lm_config.vocab_size
     print(f"serve adaptive: {len(adaptive_ids)} requests, segments {n_segments} "
@@ -1331,45 +1510,46 @@ def main():
 
     paths = {"serve": launches, "train": train_launches, "pipeline": pipeline_launches,
              "longform": longform_launches}
-    # the forward's launches by C entry (the pipeline launches no forward)
+    # the flash launches by C entry (the pipeline launches no flash kernel)
     path_calls = {"serve": serve_calls, "train": train_calls, "pipeline": {},
                   "longform": longform_calls}
 
     def entry(name, source, replaces, path, result, counter=None, c_entry=None):
         """``launches`` counts the run of ``path``, the path whose shapes the
         times are taken at; ``launches_by_path`` every main path's run. A
-        forward entry reads the counter of its TPU kernel (``counter``) on
-        the paths whose forward went through its C entry ``c_entry`` (each
-        path goes through one only, as checked)."""
+        flash entry reads the counter of its TPU kernel (``counter``) on the
+        paths whose launches went through its C entry ``c_entry`` (a list
+        where the wrapper launches two; each path goes through one dtype's
+        entries only, as checked)."""
         counter = counter or name
+        entries = [c_entry] if isinstance(c_entry, str) else c_entry or []
         by_path = {p: counts.get(counter, 0)
-                   if c_entry is None or path_calls[p].get(c_entry, 0) else 0
+                   if all(path_calls[p].get(e, 0) for e in entries) else 0
                    for p, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": f"aat_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": by_path[path], "launches_by_path": by_path,
                 **({"c_entry": c_entry} if c_entry else {}), **result}
 
-    # the forward: bf16 on the tensor cores at the long-form shapes, with the
-    # FFMA kernel's f32 results there under f32_ keys; the FFMA kernel's own
-    # entry carries serving's f32 launches at serving's shape
-    f32_fwd = {"f32_source": "aat_tpu_torch/csrc/flash_fwd.cu"}
+    # the flash kernels: bf16 on the tensor cores at the path's shapes, with
+    # the FFMA kernels' f32 results there under f32_ keys; the FFMA forward's
+    # own entry carries serving's f32 launches at serving's shape
+    both_bwd = ["aat_flash_bwd_dq_mma", "aat_flash_bwd_dkv_mma"]
     kernels_line = {"kernels": [
         entry("mel", "mel.cu", "aat_tpu/ops/mel_pallas.py:36", "serve", mel_result),
         entry("flash_fwd", "flash_fwd_mma.cu", "aat_tpu/ops/attention.py:186", "longform",
-              {**split_results["fwd_dense"], **f32_fwd}, c_entry="aat_flash_fwd_mma"),
+              split_results["fwd_dense"], c_entry="aat_flash_fwd_mma"),
         entry("flash_fwd_causal", "flash_fwd_mma.cu", "aat_tpu/ops/attention.py:245",
-              "longform", {**split_results["fwd_causal"], **f32_fwd},
-              c_entry="aat_flash_fwd_mma"),
+              "longform", split_results["fwd_causal"], c_entry="aat_flash_fwd_mma"),
         entry("flash_fwd_f32", "flash_fwd.cu", "aat_tpu/ops/attention.py:186", "serve",
               serve_fwd_result, counter="flash_fwd", c_entry="aat_flash_fwd"),
-        entry("flash_bwd", "flash_bwd.cu", "aat_tpu/ops/attention.py:764", "train",
-              train_results["bwd_dense"]),
-        entry("flash_bwd_causal", "flash_bwd.cu", "aat_tpu/ops/attention.py:709", "train",
-              train_results["bwd_causal"]),
-        entry("flash_bwd_dq_long", "flash_bwd.cu", "aat_tpu/ops/attention.py:562", "longform",
-              split_results["dq_dense"]),
-        entry("flash_bwd_dkv_long", "flash_bwd.cu", "aat_tpu/ops/attention.py:595",
-              "longform", split_results["dkv_dense"]),
+        entry("flash_bwd", "flash_bwd_mma.cu", "aat_tpu/ops/attention.py:764", "train",
+              train_results["bwd_dense"], c_entry=both_bwd),
+        entry("flash_bwd_causal", "flash_bwd_mma.cu", "aat_tpu/ops/attention.py:709", "train",
+              train_results["bwd_causal"], c_entry=both_bwd),
+        entry("flash_bwd_dq_long", "flash_bwd_mma.cu", "aat_tpu/ops/attention.py:562",
+              "longform", split_results["dq_dense"], c_entry="aat_flash_bwd_dq_mma"),
+        entry("flash_bwd_dkv_long", "flash_bwd_mma.cu", "aat_tpu/ops/attention.py:595",
+              "longform", split_results["dkv_dense"], c_entry="aat_flash_bwd_dkv_mma"),
         entry("vq", "vq.cu", "aat_tpu/ops/vq.py:50", "pipeline", vq_result),
     ]}
     for k in kernels_line["kernels"]:
