@@ -1,7 +1,7 @@
-// Shared by every flash-attention kernel (flash_fwd.cu, flash_bwd.cu and,
-// through mma_common.cuh, flash_fwd_mma.cu and flash_bwd_mma.cu): the masking
-// constants and the attention-dropout position hash, so the backward
-// regenerates exactly the forward's keep mask.
+// Shared by every flash-attention kernel (flash_bwd.cu and, through
+// mma_common.cuh, flash_fwd_mma.cu, flash_fwd_tf32x3.cu and flash_bwd_mma.cu):
+// the masking constants and the attention-dropout position hash, so the
+// backward regenerates exactly the forward's keep mask.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -4,7 +4,7 @@
 //
 // Replaces, for bf16, the TPU kernels aat_tpu/ops/attention.py:186
 // `_fwd_kernel` (dense) and :245 `_fwd_tri_kernel` (causal); f32 operands
-// take flash_fwd.cu. It computes exactly what that file's note lists:
+// take flash_fwd_tf32x3.cu. It computes exactly what that file's note lists:
 // q·sm_scale rounded to bf16 and f32 accumulation; masked keys at -2e30 with
 // the running max floored at -1e30, so a dead row gives exact zeros and
 // lse == -1e30; a denominator over the undropped, unrounded probabilities;
@@ -291,7 +291,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B, int 
 
 }  // namespace
 
-// aat_flash_fwd's arguments without is_bf16; q, k, v and out are bf16, with
+// aat_flash_fwd_tf32x3's arguments; q, k, v and out are bf16, with
 // strides in multiples of 8 elements and 16-byte-aligned starts (the wrapper
 // checks). Returns cudaGetLastError() after the launch; 1
 // (cudaErrorInvalidValue) for a head width the kernel was not built for.

@@ -1,6 +1,7 @@
-// Shared by the tensor-core flash kernels (flash_fwd_mma.cu and
-// flash_bwd_mma.cu): cp.async copies, ldmatrix, mma.sync m16n8k16 bf16 -> f32,
-// the XOR swizzle of shared tiles, and the dropout keep test as an integer
+// Shared by the tensor-core kernels (flash_fwd_mma.cu, flash_bwd_mma.cu,
+// flash_fwd_tf32x3.cu and vq.cu): cp.async copies, ldmatrix, mma.sync
+// m16n8k16 bf16 -> f32 and m16n8k8 tf32 -> f32 with the 3xTF32 split, the
+// XOR swizzle of shared tiles, and the dropout keep test as an integer
 // compare.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t4 = lane % 4): the
@@ -68,6 +69,56 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 3xTF32: an f32 product on the tf32 tensor cores at f32 accuracy. Each
+// operand splits as a = hi + lo, hi = tf32(a) and lo = tf32(a - hi) (a - hi
+// is exact in f32), and a·b is taken as lo_a·hi_b + hi_a·lo_b + hi_a·hi_b,
+// the two small terms first; only lo·lo (about 2^-22 of |a·b|) is left out.
+// tf32 products are exact in f32, so the error is that of the f32 sums; the
+// tensor cores' f32 accumulation truncates, so a kernel sums a few k-steps
+// from zero at a time and joins them in f32 adds that round to nearest.
+//
+// Fragment layouts of mma.sync.m16n8k8 .tf32 (g = lane / 4, t4 = lane % 4):
+// A (16 x 8, row-major) holds a[0] (g, t4), a[1] (g + 8, t4), a[2] (g,
+// t4 + 4), a[3] (g + 8, t4 + 4); B (8 x 8, column-major) b0 (row t4, column
+// g) and b1 (row t4 + 4, column g); the accumulator (16 x 8) c[0] (g, 2·t4),
+// c[1] (g, 2·t4 + 1), c[2] (g + 8, 2·t4), c[3] (g + 8, 2·t4 + 1). On 32-bit
+// data ldmatrix.x4 (b16, not transposed) gives each lane element (lane / 4,
+// lane % 4) of four 8 x 4 matrices: exactly the A fragment of a row-major
+// tile, and two B fragments of a tile stored n-major (k contiguous).
+
+// round to tf32, to nearest with ties away from zero; the 13 low bits of
+// the result are unspecified, and the tensor cores ignore them
+__device__ __forceinline__ uint32_t cvt_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi is the tf32 value itself (low bits cleared), so x - hi is exact
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = cvt_tf32(x) & 0xffffe000u;
+  lo = cvt_tf32(x - __uint_as_float(hi));
+}
+
+// c += a·b for one m16n8k8 tile of tf32 operands
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a·b in 3xTF32, from the split fragments of a and b
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(c, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(c, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(c, a_hi, b_hi[0], b_hi[1]);
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -90,6 +141,13 @@ __device__ __forceinline__ uint32_t scale_round(uint32_t x, float scale) {
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * D + ((chunk ^ (row & 7)) << 3);
+}
+
+// float offset of 16-byte chunk `chunk` of row `row` in a swizzled f32 tile
+// of W floats a row (W / 4 >= 8 chunks)
+template <int W>
+__device__ __forceinline__ int swz_f32(int row, int chunk) {
+  return row * W + ((chunk ^ (row & 7)) << 2);
 }
 
 // rows [row0, row0 + ROWS) of a [rows, D] bf16 matrix with row stride

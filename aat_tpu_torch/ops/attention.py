@@ -8,10 +8,10 @@ The flash route is a ``torch.autograd.Function`` (the JAX ``_flash_core``
 custom VJP):
 
 - forward (replaces the TPU's ``_fwd_kernel`` and, causal,
-  ``_fwd_tri_kernel``): bf16 operands launch the tensor-core kernel of
-  ``csrc/flash_fwd_mma.cu``, f32 operands the FFMA kernel of
-  ``csrc/flash_fwd.cu``; one wrapper and counter per TPU kernel covers
-  both. It writes the row log-sum-exp when a gradient will be asked for;
+  ``_fwd_tri_kernel``): both dtypes run on the tensor cores, bf16 operands
+  through ``csrc/flash_fwd_mma.cu`` and f32 operands as 3xTF32 through
+  ``csrc/flash_fwd_tf32x3.cu``; one wrapper and counter per TPU kernel
+  covers both. It writes the row log-sum-exp when a gradient will be asked for;
   without one (serving, ``torch.no_grad``) the lse-free forward runs, as
   JAX's ``need_residuals=False`` does;
 - backward: a dq kernel and a dk/dv kernel, on the tensor cores for bf16
@@ -43,6 +43,7 @@ from typing import Optional
 import torch
 
 from aat_tpu_torch.ops.dropout import head_seeds, keep_from_positions, to_int32
+from aat_tpu_torch.runtime import kernels
 
 NEG_INF = -1e30  # masked-score value of the plain route, and the lse of a dead row
 MASK = -2e30  # masked-score value of the kernels; exp(MASK - NEG_INF) == 0
@@ -208,13 +209,13 @@ def flash_backward_dkv_reference(q, k, v, key_mask, out, lse, dout, sm_scale: fl
 # ---------------------------------------------------------------------------
 
 
-def _check_device(q):
-    if q.device.type != "cuda":
-        raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
-
-
-def _check_operands(q, k, v, key_mask):
-    _check_device(q)
+def _check_operands(q, k, v, key_mask, forward: bool = False):
+    """Check the operands of a flash launch; returns the key mask as
+    contiguous int32. The tensor-core kernels (every forward, and the bf16
+    backward) copy q/k/v rows in 16-byte ``cp.async`` chunks, so there the
+    strides must be multiples of 16 bytes (8 bf16, 4 f32 elements) and the
+    starts 16-byte aligned; anything else raises, with no fallback."""
+    kernels.check_cuda(q, "flash")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash kernel takes f32 or bf16, got {q.dtype}")
     b, t, h, d = q.shape
@@ -228,18 +229,19 @@ def _check_operands(q, k, v, key_mask):
                          f"got D={d} H={h} KVH={kvh}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    label = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    chunk = 16 // q.element_size()  # elements of one 16-byte copy
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or x.stride(-1) != 1:
             raise ValueError(f"{name} must lie on {q.device} with a unit last stride")
-        if q.dtype != torch.bfloat16:
+        if not (forward or q.dtype == torch.bfloat16):
             continue
-        # the tensor-core forward copies rows in 16-byte chunks (a stride of
-        # a size-1 axis is never used)
-        if any(x.stride(i) % 8 for i in range(3) if x.shape[i] > 1):
-            raise ValueError(f"bf16 {name} needs strides in multiples of 8 elements, "
+        # (a stride of a size-1 axis is never used)
+        if any(x.stride(i) % chunk for i in range(3) if x.shape[i] > 1):
+            raise ValueError(f"{label} {name} needs strides in multiples of {chunk} elements, "
                              f"got {x.stride()}")
         if x.data_ptr() % 16:
-            raise ValueError(f"bf16 {name} must start on a 16-byte boundary")
+            raise ValueError(f"{label} {name} must start on a 16-byte boundary")
     return key_mask.to(device=q.device, dtype=torch.int32).contiguous()
 
 
@@ -257,28 +259,26 @@ def _dropout_args(dropout_rate: float, dropout_seed: int):
 
 def _launch_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_seed,
                     pack_len, need_lse):
-    from aat_tpu_torch.runtime.kernels import library, stream_handle
-
-    mask = _check_operands(q, k, v, key_mask)
+    mask = _check_operands(q, k, v, key_mask, forward=True)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    library().call(
-        "aat_flash_fwd_mma" if q.dtype == torch.bfloat16 else "aat_flash_fwd",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+    kernels.launch(
+        "aat_flash_fwd_mma" if q.dtype == torch.bfloat16 else "aat_flash_fwd_tf32x3",
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr() if need_lse else None, b, t, s, h, kvh, d,
         *_strides(q, k, v),
         float(sm_scale), int(causal), int(pack_len or 0),
-        *_dropout_args(dropout_rate, dropout_seed), stream_handle(q.device))
+        *_dropout_args(dropout_rate, dropout_seed))
     return (out, lse) if need_lse else out
 
 
 def flash_forward_kernel(q, k, v, key_mask, sm_scale: float, dropout_rate: float = 0.0,
                          dropout_seed: int = 0, need_lse: bool = False):
     """Launch the dense forward, ``aat_flash_fwd_mma`` in bf16 and
-    ``aat_flash_fwd`` in f32 (replaces the TPU kernel
+    ``aat_flash_fwd_tf32x3`` in f32 (replaces the TPU kernel
     aat_tpu/ops/attention.py:186 ``_fwd_kernel``) → out ``[B, T, H, D]`` in
     q's dtype, or ``(out, lse [B, H, T] f32)`` with ``need_lse``."""
     result = _launch_forward(q, k, v, key_mask, sm_scale, False, dropout_rate,
@@ -291,7 +291,7 @@ def flash_forward_causal_kernel(q, k, v, key_mask, sm_scale: float,
                                 dropout_rate: float = 0.0, dropout_seed: int = 0,
                                 pack_len: Optional[int] = None, need_lse: bool = False):
     """Launch the causal forward, ``aat_flash_fwd_mma`` in bf16 and
-    ``aat_flash_fwd`` in f32 (replaces the TPU kernel
+    ``aat_flash_fwd_tf32x3`` in f32 (replaces the TPU kernel
     aat_tpu/ops/attention.py:245 ``_fwd_tri_kernel``)."""
     result = _launch_forward(q, k, v, key_mask, sm_scale, True, dropout_rate,
                              dropout_seed, pack_len, need_lse)
@@ -317,26 +317,23 @@ def _backward_operands(q, k, v, key_mask, out, lse, dout):
 
 
 def _backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len):
-    """The C entries' arguments after the output pointers."""
-    from aat_tpu_torch.runtime.kernels import stream_handle
-
+    """The C entries' arguments after the output pointers, up to the
+    stream, which :func:`kernels.launch` appends."""
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     return (b, t, s, h, kvh, d, *_strides(q, k, v),
             float(sm_scale), int(causal), int(pack_len or 0),
-            *_dropout_args(dropout_rate, dropout_seed), stream_handle(q.device))
+            *_dropout_args(dropout_rate, dropout_seed))
 
 
 def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
                         dropout_seed, pack_len):
     """``aat_flash_bwd_dq_mma`` in bf16, ``aat_flash_bwd_dq`` in f32 → dq
     ``[B, T, H, D]`` in q's dtype."""
-    from aat_tpu_torch.runtime.kernels import library
-
     mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
     dq = torch.empty_like(out)
-    library().call(
-        "aat_flash_bwd_dq_mma" if q.dtype == torch.bfloat16 else "aat_flash_bwd_dq",
+    kernels.launch(
+        "aat_flash_bwd_dq_mma" if q.dtype == torch.bfloat16 else "aat_flash_bwd_dq", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
         *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
@@ -350,8 +347,6 @@ def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
     in f32, and the q-heads that share a kv head (GQA) are summed here in
     f32. The bf16 entry fills a ``[B, H, T]`` f32 scratch with delta =
     rowsum(dout·out) first."""
-    from aat_tpu_torch.runtime.kernels import library
-
     mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -362,8 +357,8 @@ def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
     if q.dtype == torch.bfloat16:
         delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
         outputs, entry = outputs + (delta.data_ptr(),), "aat_flash_bwd_dkv_mma"
-    library().call(
-        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+    kernels.launch(
+        entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), *outputs,
         *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
     rep = h // kvh

@@ -217,10 +217,9 @@ def melspec_frames(frames: torch.Tensor) -> torch.Tensor:
 def melspec_kernel(frames: torch.Tensor) -> torch.Tensor:
     """Launch ``aat_mel_forward`` (replaces the TPU kernel
     aat_tpu/ops/mel_pallas.py:36 ``_mel_kernel``) on a CUDA tensor."""
-    from aat_tpu_torch.runtime.kernels import library, stream_handle
+    from aat_tpu_torch.runtime import kernels
 
-    if frames.device.type != "cuda":
-        raise ValueError(f"mel kernel needs a CUDA tensor, got {frames.device}")
+    kernels.check_cuda(frames, "mel")
     if frames.dtype != torch.float32 or frames.shape[-1] != N_FFT:
         raise ValueError(f"mel kernel takes f32 [..., {N_FFT}] frames, "
                          f"got {frames.dtype} {tuple(frames.shape)}")
@@ -229,9 +228,8 @@ def melspec_kernel(frames: torch.Tensor) -> torch.Tensor:
     basis, filters = _constants_on(frames.device)
     out = torch.empty((flat.shape[0], N_MELS), dtype=torch.float32,
                       device=frames.device)
-    library().call("aat_mel_forward", flat.data_ptr(), basis.data_ptr(),
-                   filters.data_ptr(), out.data_ptr(), flat.shape[0],
-                   stream_handle(frames.device))
+    kernels.launch("aat_mel_forward", frames.device, flat.data_ptr(), basis.data_ptr(),
+                   filters.data_ptr(), out.data_ptr(), flat.shape[0])
     melspec_kernel.launches += 1
     return out.reshape(lead + (N_MELS,))
 

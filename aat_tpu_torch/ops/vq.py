@@ -53,10 +53,9 @@ def nearest_codebook_kernel(x: torch.Tensor, codebook: torch.Tensor,
     """Launch ``aat_vq_nearest`` (replaces the TPU kernel
     aat_tpu/ops/vq.py:50 ``_make_vq_kernel``) on CUDA tensors → ``[N]``
     int32 code ids."""
-    from aat_tpu_torch.runtime.kernels import library, stream_handle
+    from aat_tpu_torch.runtime import kernels
 
-    if x.device.type != "cuda":
-        raise ValueError(f"vq kernel needs CUDA tensors, got {x.device}")
+    kernels.check_cuda(x, "vq")
     if x.ndim != 2 or codebook.ndim != 2 or x.shape[1] != codebook.shape[1]:
         raise ValueError(f"shapes x {tuple(x.shape)} codebook {tuple(codebook.shape)}")
     n, d = x.shape
@@ -67,8 +66,8 @@ def nearest_codebook_kernel(x: torch.Tensor, codebook: torch.Tensor,
         if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous f32 on {x.device}")
     idx = torch.empty((n,), dtype=torch.int32, device=x.device)
-    library().call("aat_vq_nearest", x.data_ptr(), codebook.data_ptr(), cbn.data_ptr(),
-                   idx.data_ptr(), n, k, d, stream_handle(x.device))
+    kernels.launch("aat_vq_nearest", x.device, x.data_ptr(), codebook.data_ptr(),
+                   cbn.data_ptr(), idx.data_ptr(), n, k, d)
     nearest_codebook_kernel.launches += 1
     return idx
 

@@ -36,9 +36,9 @@ _SIGNATURES = {
     "aat_mel_forward": [_P, _P, _P, _P, _I, _P],
     # q, k, v, key_mask, out, lse (or null), B, T, S, H, KVH, D, q strides
     # (b, t, h), k strides (b, s, h), v strides (b, s, h), sm_scale, causal,
-    # pack_len, seed, rate, inv_keep, stream: f32 (flash_fwd.cu) and bf16 on
-    # the tensor cores (flash_fwd_mma.cu)
-    "aat_flash_fwd": _FLASH_FWD,
+    # pack_len, seed, rate, inv_keep, stream: both on the tensor cores, f32 as
+    # 3xTF32 (flash_fwd_tf32x3.cu) and bf16 (flash_fwd_mma.cu)
+    "aat_flash_fwd_tf32x3": _FLASH_FWD,
     "aat_flash_fwd_mma": _FLASH_FWD,
     # q, k, v, key_mask, out, dout, lse, dq, B, T, S, H, KVH, D, q/k/v
     # strides as above, sm_scale, causal, pack_len, seed, rate, inv_keep,
@@ -159,3 +159,22 @@ def stream_handle(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch through the C entry ``name`` on the operands' ``device``: the
+    C entries set no device, so ``device`` is made current around the call
+    (``cudaFuncSetAttribute`` and the launch then reach its GPU, not the
+    current one), and its current stream is passed as the last argument.
+    Every wrapper launches through here."""
+    import torch
+
+    with torch.cuda.device(device):
+        library().call(name, *args, stream_handle(device))
+
+
+def check_cuda(x, kernel: str) -> None:
+    """Raise unless ``x`` lies on a CUDA device: a wrapper launches its
+    kernel or raises, and only a CPU tensor takes a plain version."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel} kernel needs CUDA tensors, got {x.device}")

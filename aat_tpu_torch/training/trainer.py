@@ -301,12 +301,19 @@ class AATTrainer:
         ``gradient_accumulation_steps`` microbatches (a trailing partial
         group is dropped), metrics logged every ``logging_steps``, stop at
         ``max_steps``. Evaluation, checkpoints and resume are not ported
-        yet (ROADMAP Queue 1): passing them raises, and no checkpoint is
-        written at ``save_steps``."""
+        yet (ROADMAP Queue 1): passing them raises, and so does a run that
+        could reach a multiple of ``save_steps``, before its first step."""
         if eval_batches is not None or resume_from_checkpoint or fast_forward:
             raise NotImplementedError(
                 "evaluation, checkpoints and resume are not ported yet (ROADMAP Queue 1)")
         cfg = self.config
+        if cfg.save_steps and (cfg.max_steps is None
+                               or cfg.max_steps // cfg.save_steps
+                               > self.state.step // cfg.save_steps):
+            raise NotImplementedError(
+                f"save_steps={cfg.save_steps} would write a checkpoint, and checkpoints are "
+                "not ported yet (ROADMAP Queue 1 item 1): set save_steps=0 or max_steps "
+                f"below {cfg.save_steps}")
         micro: List[dict] = []
         t_start = time.time()
         for batch in train_batches:

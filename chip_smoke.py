@@ -9,11 +9,13 @@ Phases, one line each:
   3. mel kernel vs its plain PyTorch version at the serving path's shape
      (frames of 8 x 12 s of speech-like audio): max abs error <= 1e-4;
   4. flash forward kernels vs their plain version at [1,999,16,64] and
-     [2,1499,16,64] with a padded key tail and a fully masked row, f32
-     (<= 1e-4, the FFMA kernel of csrc/flash_fwd.cu) and bf16 (<= 2e-2,
-     the tensor-core kernel of csrc/flash_fwd_mma.cu), and every flash
-     forward's ||out - ref||_F / ||ref||_F within 1e-4 (f32) / 1e-2 (bf16);
-     the masked row must be exactly 0; SDPA timed at serving's f32 shape;
+     [2,1499,16,64] with a padded key tail and a fully masked row, and GQA
+     [1,300,8/2,128], f32 (<= 1e-4, the 3xTF32 tensor-core kernel of
+     csrc/flash_fwd_tf32x3.cu) and bf16 (<= 2e-2, the tensor-core kernel
+     of csrc/flash_fwd_mma.cu), each launch through its dtype's C entry,
+     and every flash forward's ||out - ref||_F / ||ref||_F within 1e-4
+     (f32) / 1e-2 (bf16); the masked row must be exactly 0; SDPA's f32
+     (memory-efficient backend) time printed beside each f32 case;
   5. adaptive serving at full width (hubert-large + linear projection +
      SmolLM-135M, random weights from a seed): 6 utterances of 2-12 s,
      4 slots, 32 new tokens, chunks of 8; segment tables of the kernel and
@@ -31,16 +33,18 @@ Phases, one line each:
      gradients within 1e-3 (f32) / 3e-2 (bf16) of max|ref| (sums in
      another order; bf16 rounds p and ds) and each of dq, dk and dv within
      ||g - ref||_F / ||ref||_F <= 1e-4 (f32) / 1e-2 (bf16); bf16 through
-     the tensor-core entries (``*_mma``), f32 through the FFMA ones,
-     counted by C entry; in bf16 the yardstick
+     the tensor-core entries (``*_mma``), f32 through the 3xTF32 forward
+     and the FFMA backward entries, counted by C entry; in bf16 the yardstick
      ``scaled_dot_product_attention`` (SDPA) is timed on the same operands
      (forward; backward as forward plus backward minus forward). Then the
-     keep-mask identity checks, bf16, dropout 0.5, dense and causal: the
-     forward at [2,300,4,128] against S = D = 128 keys with v the
-     identity (out == 0 reads its keep mask); the dk/dv kernel with T = D
-     = 128 and dout the identity (dv == 0); the dq kernel with S = D = 128,
-     k = v the identity and out = 0 (dq == 0). Each must equal the plain
-     version's ``_keep_mask`` on every allowed position;
+     keep-mask identity checks, dropout 0.5, dense and causal: the bf16
+     and f32 forwards at [2,300,4,128] against S = D = 128 keys with v the
+     identity (out == 0 reads its keep mask; in f32 this also pins the
+     3xTF32 kernel's relabelled P.V, whose hash must take the true key);
+     in bf16 the dk/dv kernel with T = D = 128 and dout the identity
+     (dv == 0) and the dq kernel with S = D = 128, k = v the identity and
+     out = 0 (dq == 0). Each must equal the plain version's ``_keep_mask``
+     on every allowed position;
   8. training at full width: ``projection_training_config()`` (bf16
      compute over f32 masters, hubert-large train-mode dropout and
      LayerDrop, frozen LM, fused guarded AdamW), 3 optimizer steps of 2
@@ -48,14 +52,15 @@ Phases, one line each:
      finite losses, the frozen LM bitwise unchanged, trained weights
      moved, every bf16 flash launch through the tensor-core C entries
      (``aat_flash_fwd_mma``, ``aat_flash_bwd_dq_mma``,
-     ``aat_flash_bwd_dkv_mma``) and none through the FFMA ones; one more
+     ``aat_flash_bwd_dkv_mma``) and none through the f32 ones; one more
      step under ``torch.profiler`` gives the device's busy time and idle
      share, with device time by kernel written beside the build log
      (``aat_tpu_torch/build/train_profile.txt``) and the forward and
      backward kernels' device time printed by name; then one f32 gradient
-     step (through the FFMA entries only) through the kernel route and the
-     plain route with the same seeds: loss and global grad norm within
-     1e-3 relative, feature_projection grads within 1e-3 * max|ref|.
+     step through the kernel route and the plain route with the same seeds: loss and global grad norm within
+     1e-3 relative, feature_projection grads within 1e-3 * max|ref|; its
+     flash launches through the 3xTF32 forward and the FFMA backward
+     entries only.
   9. the offline discrete-token pipeline at full width: 8 speech-like
      utterances of 4-20 s through ``scripts.segment_embeddings`` (host
      tokenizer, hubert-large eval with seeded random weights) →
@@ -68,10 +73,15 @@ Phases, one line each:
      the best-to-second gap exceeds 1e-4 * max(1, |best|) (near-ties may
      resolve either way: the kernel and cuBLAS sum x.c in other orders),
      with the chosen distance within that margin on every row;
- 10. the vq kernel vs its plain version at corpus scale, N = 262,144
-     seeded Gaussian-mixture rows of D = 1024 against K = 1024 and the
-     overhanging K = 1000, with exact duplicate codes (which must go to the
-     lowest id) and the same near-tie rule; then 10 iterations of the
+ 10. the vq kernel (3xTF32 on the tensor cores) vs its plain version at
+     corpus scale, N = 262,144 seeded Gaussian-mixture rows of D = 1024
+     against K = 1024 and the overhanging K = 1000, with exact duplicate
+     codes (which must go to the lowest id), 4,096 planted near-tie rows
+     (best-to-second gap 0.25-0.75 of the margin, ``NEAR_TIE_GAP``, built
+     between two codes of one mixture centre: the ids must equal the f64
+     argmin on every one; one-pass TF32 would miss about one in ten)
+     and the same near-tie rule; a ragged case (N 4,099, K 333, D 1,001:
+     4-byte copies) under the same rules; then 10 iterations of the
      quantize loop at that size, after one that warms it up;
  11. the long-form path's kernels vs their plain versions at its shapes
      (key length > 8192): HuBERT's dense [1,8499,16,64] with dropout 0.1
@@ -101,19 +111,23 @@ Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, the pipeline, the 2 long-form steps) and read
 just after; each kernel of the path must have launched there, and each
 path's flash launches must all go through the C entries of one dtype
-(serving's f32 forward through ``aat_flash_fwd``, training's and long-form
+(serving's f32 forward through ``aat_flash_fwd_tf32x3``, training's and long-form
 training's bf16 forward and backward through the ``*_mma`` entries). Then a
 JSON line of kernel results, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. In the kernel line the flash entries
 report bf16 (the tensor-core kernels, counting only launches through their
-C entries, ``c_entry``), with the FFMA kernels' f32 results under ``f32_``
-keys and ``f32_source``; the entry ``flash_fwd_f32`` is the FFMA
-forward with serving's launches at serving's shape; ``library_ms`` is SDPA's time
-(null for mel and vq, which no single PyTorch call computes), and
-``bound_ms`` the larger of the bytes over 3.35 TB/s and the operations
-over their peak rates (989 TFLOP/s bf16, 67 TFLOP/s f32, the exponentials
-and the dropout hash at the SM's MUFU and INT32 issue rates), counted
-from this run's inputs.
+C entries, ``c_entry``), with the f32 kernels' results (the 3xTF32
+forward, the FFMA backward) under ``f32_`` keys and ``f32_source``; the
+entry ``flash_fwd_f32`` is the 3xTF32 forward with serving's launches at
+serving's shape; ``library_ms`` is SDPA's time (null for mel and vq, which
+no single PyTorch call computes), and ``bound_ms`` the larger of the bytes
+over 3.35 TB/s and the operations over their peak rates, counted from this
+run's inputs: matrix products at 989 TFLOP/s in bf16 and, in f32, at 495 /
+3 = 165 TFLOP/s (``PEAK_FLOPS``: an f32-accurate product is three TF32
+products on the tensor cores, as 3xTF32; this prices the flash kernels and
+vq whatever pipes they use), mel's f32 work at the FFMA rate of 67 TFLOP/s
+(``FFMA_FLOPS``: its contract keeps it off TF32), the exponentials and the
+dropout hash at the SM's MUFU and INT32 issue rates.
 
 There is no CPU route: without a CUDA device, or outside the repository,
 the script exits non-zero and prints no result.
@@ -134,6 +148,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # shapes of phases 9-11
 PIPELINE_SECONDS = (4.0, 6.5, 9.0, 11.5, 14.0, 16.5, 18.0, 20.0)
 VQ_CORPUS = (262144, 1024, (1024, 1000))  # N, D, codebook sizes
+NEAR_TIES = 4096  # planted near-tie rows of phase 10
+# their best-to-second gap, in near-tie margins: one-pass TF32's error in a
+# gap is about 0.36 margins (its standard deviation in the CPU emulation of
+# tests/test_torch_tf32x3.py, at this construction and D = 1024), so at 1.1
+# margins and above it flips almost no row; here it flips about one in ten,
+# while 3xTF32's largest error in the emulation is 0.02 margins
+NEAR_TIE_GAP = (0.25, 0.75)
+VQ_RAGGED = (4099, 333, 1001)  # N, K, D of phase 10's ragged case
 # (B, T, H, D), causal, dropout: HuBERT's and Qwen's attention in phase 11
 SPLIT_CASES = (((1, 8499, 16, 64), False, (0.1, 24680)),
                ((1, 8540, 16, 128), True, (0.0, 0)))
@@ -151,14 +173,17 @@ GRAD_REL_TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # of max|ref|
 # ||g - ref||_F / ||ref||_F of each of dq, dk and dv: bf16 rounding of q_s,
 # p_v and ds; the faults planted in phase 11 give about 0.1
 GRAD_NORM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-# the FFMA kernels, whose results the kernels line keeps under f32_ keys
-F32_SOURCE = {"fwd": "aat_tpu_torch/csrc/flash_fwd.cu", "bwd": "aat_tpu_torch/csrc/flash_bwd.cu"}
+# the f32 kernels, whose results the kernels line keeps under f32_ keys
+F32_SOURCE = {"fwd": "aat_tpu_torch/csrc/flash_fwd_tf32x3.cu",
+              "bwd": "aat_tpu_torch/csrc/flash_bwd.cu"}
 ENCODER_REL_TOL = 1e-3
 TRAIN_REL_TOL = 1e-3
 
 # the bounds of the kernels line: NVIDIA H100 SXM peaks (data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# matrix products: f32-accurate ones as three TF32 products (3xTF32)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+FFMA_FLOPS = 67e12  # f32 outside the tensor cores: mel, which must stay off TF32
 # Hopper SM issue rates (16 MUFU and 64 INT32 operations a clock) x 132 SMs
 # at the 1.98 GHz boost clock behind the data sheet's f32 rate
 MUFU_PER_S = 132 * 16 * 1.98e9
@@ -344,16 +369,18 @@ def phase_mel(torch, device, rng):
     n = frames.numel() // frames.shape[-1]
     flops = n * (2 * 400 * 402 + 3 * 201 + 2 * 201 * 64)
     bound = bound_ms((frames, basis.float(), filters.float(), got),
-                     [flops / PEAK_FLOPS["float32"]])
+                     [flops / FFMA_FLOPS])
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": None}
 
 
 def phase_flash(torch, device, rng):
-    """The dense forward at serving's shapes, f32 and bf16. Returns the f32
-    result at [1,999,16,64], the shape serving's HuBERT runs through the
-    FFMA kernel, for the kernels line."""
+    """The dense forward at serving's shapes, f32 (3xTF32) and bf16, each
+    launch through its dtype's C entry, with SDPA's f32 time beside each f32
+    case. Returns the f32 result at [1,999,16,64], the shape serving's
+    HuBERT runs, for the kernels line."""
     from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.runtime.kernels import library
 
     cases = [((1, 999, 16, 16, 64), "tail"), ((2, 1499, 16, 16, 64), "tail+dead"),
              ((1, 300, 8, 2, 128), "tail")]  # the last: GQA and D=128
@@ -370,7 +397,10 @@ def phase_flash(torch, device, rng):
             if "dead" in masking:
                 mask[b - 1] = 0
             scale = d ** -0.5
+            label = f"[{b},{t},{h}/{kvh},{d}] {dtype_name}"
+            before = dict(library().calls)
             got = att.flash_forward_kernel(q, k, v, mask, scale)
+            routed(before, dtype_name, f"flash {label}", backward=False)
             ref = att.reference_attention_bthd(q, k, v, mask, scale)
             torch.cuda.synchronize()
             err, rel = out_errors(got, ref)
@@ -379,24 +409,23 @@ def phase_flash(torch, device, rng):
             dead_ok = True
             if "dead" in masking:
                 dead_ok = bool((got[b - 1] == 0).all())
-            print(f"flash: [{b},{t},{h}/{kvh},{d}] {dtype_name} max_abs_err {err:.3e} "
-                  f"(bound {FLASH_TOL[dtype_name]}) norm ratio {rel:.3e} (bound "
-                  f"{FLASH_REL_TOL[dtype_name]}) masked_row_zero {dead_ok} "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
+            lib = sdpa_ms(torch, q, k, v, False, 0.0) if dtype_name == "float32" else None
+            print(f"flash: {label} max_abs_err {err:.3e} (bound {FLASH_TOL[dtype_name]}) "
+                  f"norm ratio {rel:.3e} (bound {FLASH_REL_TOL[dtype_name]}) masked_row_zero "
+                  f"{dead_ok} kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                  + (f" SDPA (memory-efficient backend, no key mask) {lib['fwd_ms']:.4f} ms"
+                     if lib else ""), flush=True)
             check(bool(torch.isfinite(got.float()).all()), "flash output not finite")
             check(err <= FLASH_TOL[dtype_name] and rel <= FLASH_REL_TOL[dtype_name],
                   f"flash kernel differs by {err} (norm ratio {rel})")
             check(dead_ok, "fully masked row is not exactly zero")
             if result is None:
-                lib = sdpa_ms(torch, q, k, v, False, 0.0)
                 bound = attention_bound(torch, "fwd", (q, k, v, mask, got), q, mask, False,
                                         None, 0.0)
-                result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                result = {"max_abs_err": err, "norm_ratio": rel, "ms": ms, "plain_ms": plain_ms,
                           "library_ms": lib["fwd_ms"], "bound_ms": bound[0],
                           "bound_by": bound[1]}
-                print(f"flash: [{b},{t},{h}/{kvh},{d}] {dtype_name}: SDPA (memory-efficient "
-                      f"backend, no key mask) {lib['fwd_ms']:.4f} ms; bound {bound[0]:.4f} ms "
-                      f"({bound[1]})", flush=True)
+                print(f"flash: {label}: bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
     return result
 
 
@@ -518,40 +547,44 @@ def phase_flash_train(torch, device, rng):
 
 
 def phase_keep_mask(torch, device, rng):
-    """The tensor-core forward's dropout keep mask, read directly. With v
+    """The tensor-core forwards' dropout keep masks, read directly. With v
     the identity (v[k] = e_k, S = D = 128), out[q, k] is p[q, k] dropped and
-    scaled, so out == 0 exactly where key k was dropped for query q. bf16,
-    B = 2, T = 300, H = 4, rate 0.5, dense and causal: the zeros must equal
-    the plain version's ``_keep_mask`` on every allowed position, and every
-    other position must be zero. (A transposed or shifted mask has the same
-    distribution, which the tolerances of the other checks cannot see.)"""
+    scaled, so out == 0 exactly where key k was dropped for query q. bf16
+    and f32, B = 2, T = 300, H = 4, rate 0.5, dense and causal: the zeros
+    must equal the plain version's ``_keep_mask`` on every allowed position,
+    and every other position must be zero. (A transposed, shifted or
+    permuted mask has the same distribution, which the tolerances of the
+    other checks cannot see: the 3xTF32 kernel reads P.V's keys in a
+    relabelled order, and a hash given the relabelled key passes them all.)"""
     from aat_tpu_torch.ops import attention as att
 
     b, t, h, s, rate, seed = 2, 300, 4, 128, 0.5, 97531
-    q = torch.from_numpy(rng.normal(0, 1, (b, t, h, s)).astype(np.float32))
-    k = torch.from_numpy(rng.normal(0, 1, (b, s, h, s)).astype(np.float32))
-    q, k = (x.to(device=device, dtype=torch.bfloat16) for x in (q, k))
-    v = torch.eye(s, device=device, dtype=torch.bfloat16)[None, :, None, :].expand(
-        b, s, h, s).contiguous()
+    q32 = torch.from_numpy(rng.normal(0, 1, (b, t, h, s)).astype(np.float32)).to(device)
+    k32 = torch.from_numpy(rng.normal(0, 1, (b, s, h, s)).astype(np.float32)).to(device)
     mask = torch.ones((b, s), dtype=torch.int32, device=device)
     keep = att._keep_mask(seed, b, h, t, s, rate, device)  # [B, H, T, S]
-    for causal in (False, True):
-        fwd = att.flash_forward_causal_kernel if causal else att.flash_forward_kernel
-        out = fwd(q, k, v, mask, s ** -0.5, dropout_rate=rate, dropout_seed=seed)
-        ref = att.reference_attention_bthd(q, k, v, mask, s ** -0.5, causal, rate, seed)
-        torch.cuda.synchronize()
-        allowed = att._allowed(mask, t, s, causal, None).expand(b, h, t, s)
-        kept, ref_kept = ((x != 0).permute(0, 2, 1, 3) for x in (out, ref))
-        differ = int((kept != keep)[allowed].sum())
-        plain_differ = int((ref_kept != keep)[allowed].sum())
-        stray = int(kept[~allowed].sum())
-        print(f"keep mask: {'causal' if causal else 'dense'} [{b},{t},{h},{s}] bf16 dropout "
-              f"{rate}, identity v: {int(allowed.sum())} allowed positions, "
-              f"{int(keep[allowed].sum())} kept; kernel zeros differ from _keep_mask at "
-              f"{differ} (plain version {plain_differ}), nonzero outside the allowed "
-              f"positions {stray}", flush=True)
-        check(differ == 0 and plain_differ == 0 and stray == 0,
-              "the keep mask read through an identity v differs from _keep_mask")
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        q, k = q32.to(dtype), k32.to(dtype)
+        v = torch.eye(s, device=device, dtype=dtype)[None, :, None, :].expand(
+            b, s, h, s).contiguous()
+        for causal in (False, True):
+            fwd = att.flash_forward_causal_kernel if causal else att.flash_forward_kernel
+            out = fwd(q, k, v, mask, s ** -0.5, dropout_rate=rate, dropout_seed=seed)
+            ref = att.reference_attention_bthd(q, k, v, mask, s ** -0.5, causal, rate, seed)
+            torch.cuda.synchronize()
+            allowed = att._allowed(mask, t, s, causal, None).expand(b, h, t, s)
+            kept, ref_kept = ((x != 0).permute(0, 2, 1, 3) for x in (out, ref))
+            differ = int((kept != keep)[allowed].sum())
+            plain_differ = int((ref_kept != keep)[allowed].sum())
+            stray = int(kept[~allowed].sum())
+            print(f"keep mask: {'causal' if causal else 'dense'} [{b},{t},{h},{s}] {dtype_name} "
+                  f"dropout {rate}, identity v: {int(allowed.sum())} allowed positions, "
+                  f"{int(keep[allowed].sum())} kept; kernel zeros differ from _keep_mask at "
+                  f"{differ} (plain version {plain_differ}), nonzero outside the allowed "
+                  f"positions {stray}", flush=True)
+            check(differ == 0 and plain_differ == 0 and stray == 0,
+                  f"the {dtype_name} keep mask read through an identity v differs from _keep_mask")
 
 
 def phase_backward_keep_mask(torch, device, rng):
@@ -714,13 +747,14 @@ def reset_entry_calls():
 
 # the flash kernels' C entries by dtype: forward, dq, dk/dv
 FLASH_ENTRIES = {"bfloat16": ("aat_flash_fwd_mma", "aat_flash_bwd_dq_mma", "aat_flash_bwd_dkv_mma"),
-                 "float32": ("aat_flash_fwd", "aat_flash_bwd_dq", "aat_flash_bwd_dkv")}
+                 "float32": ("aat_flash_fwd_tf32x3", "aat_flash_bwd_dq", "aat_flash_bwd_dkv")}
 
 
 def flash_entry_calls(calls, path, dtype_name, backward=True):
     """A path's flash launches all went through the C entries of its dtype
-    (``FLASH_ENTRIES``: the tensor-core kernels in bf16, the FFMA kernels in
-    f32), the backward's too unless ``backward`` is False (serving), and
+    (``FLASH_ENTRIES``: the tensor-core kernels in bf16; in f32 the 3xTF32
+    forward and the FFMA backward), the backward's too unless ``backward``
+    is False (serving), and
     none through the other dtype's. Returns a copy of the path's launches by
     C entry."""
     entries = [e for names in FLASH_ENTRIES.values() for e in names]
@@ -732,15 +766,16 @@ def flash_entry_calls(calls, path, dtype_name, backward=True):
     return dict(calls)
 
 
-def routed(before, dtype_name, label):
+def routed(before, dtype_name, label, backward=True):
     """The flash launches since the copy ``before`` of the library's counts
-    went through each C entry of ``dtype_name`` and no other."""
+    went through each C entry of ``dtype_name`` (only its forward's unless
+    ``backward``) and no other."""
     from aat_tpu_torch.runtime.kernels import library
 
     calls = library().calls
     moved = {e for e in calls if calls[e] != before.get(e, 0)}
-    check(moved == set(FLASH_ENTRIES[dtype_name]),
-          f"{label}: launches went through {sorted(moved)}, not {FLASH_ENTRIES[dtype_name]}")
+    want = FLASH_ENTRIES[dtype_name][:3 if backward else 1]
+    check(moved == set(want), f"{label}: launches went through {sorted(moved)}, not {want}")
 
 
 def training_batches(torch, device, rng, n_steps, accum, per_batch=2):
@@ -1012,10 +1047,70 @@ def corpus_embeddings(torch, device, n, d, seed):
     return centres[which] + 0.5 * torch.randn((n, d), generator=g, device=device)
 
 
+def corpus_codebook(torch, x, k, seed):
+    """K codes drawn from the corpus rows x (so about its mixture centres)
+    plus noise at 0.1, with exact duplicates: the last 24 codes and code K/2
+    repeat codes 5 and 7."""
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    n, d = x.shape
+    cb = x[torch.randperm(n, generator=g, device=x.device)[:k]] + 0.1 * torch.randn(
+        (k, d), generator=g, device=x.device)
+    cb[k - 24:] = cb[5]  # exact duplicates of code 5
+    cb[k // 2] = cb[7]  # and of code 7, between the two
+    return cb
+
+
+def planted_near_ties(torch, cb, rows, seed, gap=NEAR_TIE_GAP):
+    """``rows`` near-tie rows ``[rows, D]`` f32 against the codebook ``cb``
+    and the ids that must win, ``(x, want)``. Each row lies between a code a
+    and its nearest other code b (two codes of one mixture centre):
+    x = (c_a + c_b)/2 + e·(c_a − c_b)/‖c_a − c_b‖, so a is nearer than b by
+    2e‖c_a − c_b‖, set to ``gap`` (a uniform draw) times the near-tie margin
+    1e-4·max(1, |best|) of ``assert_ids_near``. Codes with exact duplicates,
+    and codes with no other code of their centre, are left out. Raises
+    unless, in f64 on the f32 rows, a is the nearest code, b the second (no
+    third code nearer) and the gap lies within ``gap`` margins (to 0.01)."""
+    g = torch.Generator(device=cb.device)
+    g.manual_seed(seed)
+    c = cb.double()
+    norms = (c * c).sum(-1)
+    d2 = norms[:, None] + norms[None, :] - 2.0 * c @ c.t()
+    d2.fill_diagonal_(float("inf"))
+    typical = d2[torch.isfinite(d2)].median()  # two codes of different centres
+    dup = (d2 < 1e-9 * typical).any(1)
+    d2[dup] = float("inf")
+    d2[:, dup] = float("inf")
+    # a code whose nearest other code is far closer than typical shares its
+    # mixture centre with it
+    usable = torch.nonzero(d2.min(1).values < 0.5 * typical)[:, 0]
+    check(len(usable) > 0, "no two codes share a mixture centre")
+    a = usable[torch.randint(0, len(usable), (rows,), generator=g, device=cb.device)]
+    b = d2[a].argmin(1)
+    length = d2[a, b].sqrt()[:, None]
+    ca, cb_ = c[a], c[b]
+    best0 = -(ca * cb_).sum(-1, keepdim=True)  # a's distance at the midpoint
+    f = gap[0] + (gap[1] - gap[0]) * torch.rand((rows, 1), generator=g, device=cb.device,
+                                                 dtype=torch.float64)
+    eps = f * 1e-4 * best0.abs().clamp_min(1.0) / (2.0 * length)
+    x = ((ca + cb_) / 2 + eps * (ca - cb_) / length).float()
+    dist = norms[None, :] - 2.0 * x.double() @ c.t()
+    three = torch.topk(dist, 3, dim=1, largest=False)
+    margin = 1e-4 * three.values[:, 0].abs().clamp_min(1.0)
+    ratio = (three.values[:, 1] - three.values[:, 0]) / margin
+    check(bool((three.indices[:, 0] == a).all()), "a planted near-tie's code is not the nearest")
+    check(bool((three.indices[:, 1] == b).all()), "a third code is nearer than a planted pair")
+    check(bool(((ratio >= gap[0] - 0.01) & (ratio <= gap[1] + 0.01)).all()),
+          f"planted gaps span {float(ratio.min())}-{float(ratio.max())} margins, not {gap}")
+    return x, a.int()
+
+
 def phase_vq_corpus(torch, device):
     """Kernel 8 against its plain version at corpus scale (N = 262,144,
     D = 1024), K = 1024 and the overhanging K = 1000, with exact duplicate
-    codes; then 10 EMA iterations of the quantize command line's loop.
+    codes and 4,096 planted near-ties (:func:`planted_near_ties`, which must
+    resolve as the f64 argmin does); a ragged N, K and D under the same
+    rules; then 10 EMA iterations of the quantize command line's loop.
     Returns the K = 1024 result for the kernels line."""
     from aat_tpu_torch.ops import vq
     from aat_tpu_torch.scripts.quantize_embeddings import train_codebook
@@ -1024,37 +1119,52 @@ def phase_vq_corpus(torch, device):
     x = corpus_embeddings(torch, device, n, d, seed=10)
     result = None
     for k in sizes:
-        g = torch.Generator(device=device)
-        g.manual_seed(k)
-        cb = x[torch.randperm(n, generator=g, device=device)[:k]] + 0.1 * torch.randn(
-            (k, d), generator=g, device=device)
-        cb[k - 24:] = cb[5]  # exact duplicates of code 5
-        cb[k // 2] = cb[7]  # and of code 7, between the two
+        cb = corpus_codebook(torch, x, k, seed=k)
         x[:64] = cb[5]  # rows sitting exactly on a duplicated code
         x[64:128] = cb[7]
+        ties, want = planted_near_ties(torch, cb, NEAR_TIES, seed=k + 1)
+        x[128:128 + NEAR_TIES] = ties
         cbn = vq.codebook_norms(cb)
         got = vq.nearest_codebook_kernel(x, cb, cbn)
         ref, clear, differ, excess = assert_ids_near(torch, f"vq K={k}", got, x, cb)
+        planted_wrong = int((got[128:128 + NEAR_TIES] != want).sum())
+        planted_plain_wrong = int((ref[128:128 + NEAR_TIES] != want).sum())
         ms = cuda_ms(torch, lambda: vq.nearest_codebook_kernel(x, cb, cbn), iters=5, warmup=1)
         plain_ms = cuda_ms(torch, lambda: vq.nearest_codebook_reference(x, cb, cbn), iters=5,
                            warmup=1)
         gflop = 2.0 * n * k * d / 1e9
         print(f"vq: N {n} D {d} K {k}: {clear} rows with a clear gap equal, {differ} ids "
               f"differ from the plain route (near-ties), worst excess {excess:.3e}; exact "
-              f"duplicates -> {sorted(set(got[:128].tolist()))}; kernel {ms:.4f} ms "
+              f"duplicates -> {sorted(set(got[:128].tolist()))}; planted near-ties (gap "
+              f"{NEAR_TIE_GAP} margins): kernel {planted_wrong} of {NEAR_TIES} off the f64 argmin, "
+              f"plain route {planted_plain_wrong}; kernel {ms:.4f} ms "
               f"({gflop / ms:.1f} TFLOP/s) plain {plain_ms:.4f} ms", flush=True)
         check(bool((got[:64] == 5).all() and (got[64:128] == 7).all()),
               f"vq K={k}: an exact tie did not go to the lowest id")
         check(bool((ref[:64] == 5).all() and (ref[64:128] == 7).all()),
               f"vq K={k}: the plain route broke an exact tie")
+        check(planted_wrong == 0, f"vq K={k}: {planted_wrong} planted near-ties off the f64 argmin")
         if result is None:
             # ids that differ count as the error: an id is right or wrong. The
-            # bound: the f32 FFMA product x.c; no single PyTorch call
-            # computes an argmin of distances
+            # bound: the f32-accurate product x.c at PEAK_FLOPS (3xTF32); no
+            # single PyTorch call computes an argmin of distances
             bound = bound_ms((x, cb, cbn, got), [2.0 * n * k * d / PEAK_FLOPS["float32"]])
             result = {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
         del ref
+
+    # a ragged case: N, K and D off every tile, D off 4 (4-byte copies)
+    rn, rk, rd = VQ_RAGGED
+    xr = corpus_embeddings(torch, device, rn, rd, seed=11)
+    cbr = corpus_codebook(torch, xr, rk, seed=12)
+    xr[:8] = cbr[5]
+    got = vq.nearest_codebook_kernel(xr, cbr, vq.codebook_norms(cbr))
+    _, clear, differ, excess = assert_ids_near(torch, f"vq ragged N {rn} K {rk} D {rd}", got, xr,
+                                               cbr)
+    print(f"vq: ragged N {rn} K {rk} D {rd}: {clear} rows with a clear gap equal, {differ} "
+          f"differ on near-ties, worst excess {excess:.3e}", flush=True)
+    check(bool((got[:8] == 5).all()), "vq ragged: an exact tie did not go to the lowest id")
+
     train_codebook(x, sizes[0], 1, 0.8, log=lambda line: None)  # warm-up: first-call costs
     torch.cuda.synchronize()
     mse = []
@@ -1102,7 +1212,7 @@ def planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out, ref_out
     wrapper's own arguments must reproduce ``out`` bit for bit. Returns
     ``{fault: (max abs err, norm ratio)}`` against ``ref_out``."""
     from aat_tpu_torch.ops import attention as att
-    from aat_tpu_torch.runtime.kernels import library, stream_handle
+    from aat_tpu_torch.runtime import kernels
 
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -1110,10 +1220,10 @@ def planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out, ref_out
 
     def launch(key_mask, inv):
         result = torch.empty_like(q)
-        library().call("aat_flash_fwd_mma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kernels.launch("aat_flash_fwd_mma", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        key_mask.data_ptr(), result.data_ptr(), None, b, t, s, h, kvh, d,
                        *att._strides(q, k, v), float(scale), int(causal), 0, seed32, rate32,
-                       inv, stream_handle(q.device))
+                       inv)
         return result
 
     check(torch.equal(launch(mask, inv_keep), out),
@@ -1137,25 +1247,25 @@ def planted_backward_faults(torch, args, kw, grads, refs):
     bit. Returns ``{fault: (dq norm ratio, max of the dk and dv norm
     ratios)}`` against ``refs``."""
     from aat_tpu_torch.ops import attention as att
-    from aat_tpu_torch.runtime.kernels import library
+    from aat_tpu_torch.runtime import kernels
 
     q, k, v, mask, out, lse, dout, scale = args
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     base = att._backward_args(q, k, v, scale, kw["causal"], kw["dropout_rate"],
                               kw["dropout_seed"], None)
-    inv_keep = base[-2]
+    inv_keep = base[-1]
 
     def launch(key_mask, inv):
-        rest = (*base[:-2], inv, base[-1])
+        rest = (*base[:-1], inv)
         dq = torch.empty_like(out)
         dk, dv = (torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
                   for _ in range(2))
         delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
         inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
                   dout.data_ptr(), lse.data_ptr())
-        library().call("aat_flash_bwd_dq_mma", *inputs, dq.data_ptr(), *rest)
-        library().call("aat_flash_bwd_dkv_mma", *inputs, dk.data_ptr(), dv.data_ptr(),
+        kernels.launch("aat_flash_bwd_dq_mma", q.device, *inputs, dq.data_ptr(), *rest)
+        kernels.launch("aat_flash_bwd_dkv_mma", q.device, *inputs, dk.data_ptr(), dv.data_ptr(),
                        delta.data_ptr(), *rest)
         rep = h // kvh
         return (dq, *(x.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype) for x in (dk, dv)))
@@ -1432,9 +1542,11 @@ def main():
     lib = kernels.library()
     with open(os.path.join(os.path.dirname(lib.path), "nvcc.log"), "w") as f:
         f.write(lib.build_log)  # nvcc and ptxas -v output, beside the library
+    usage = ptxas_usage(lib.build_log)
     print(f"build: {time.perf_counter() - start:.1f} s (nvcc {lib.build_seconds:.1f} s) "
-          f"{os.path.relpath(lib.path, REPO)}; ptxas: {' | '.join(ptxas_usage(lib.build_log))}",
-          flush=True)
+          f"{os.path.relpath(lib.path, REPO)}; ptxas: {' | '.join(usage)}", flush=True)
+    for kernel in ("flash_fwd_tf32x3", "vq_nearest"):  # the 3xTF32 kernels
+        print(f"ptxas {kernel}: {' | '.join(u for u in usage if kernel in u)}", flush=True)
 
     rng = np.random.default_rng(0)
     # 3-4. kernels vs their plain versions
@@ -1531,7 +1643,7 @@ def main():
                 **({"c_entry": c_entry} if c_entry else {}), **result}
 
     # the flash kernels: bf16 on the tensor cores at the path's shapes, with
-    # the FFMA kernels' f32 results there under f32_ keys; the FFMA forward's
+    # the f32 kernels' results there under f32_ keys; the 3xTF32 forward's
     # own entry carries serving's f32 launches at serving's shape
     both_bwd = ["aat_flash_bwd_dq_mma", "aat_flash_bwd_dkv_mma"]
     kernels_line = {"kernels": [
@@ -1540,8 +1652,8 @@ def main():
               split_results["fwd_dense"], c_entry="aat_flash_fwd_mma"),
         entry("flash_fwd_causal", "flash_fwd_mma.cu", "aat_tpu/ops/attention.py:245",
               "longform", split_results["fwd_causal"], c_entry="aat_flash_fwd_mma"),
-        entry("flash_fwd_f32", "flash_fwd.cu", "aat_tpu/ops/attention.py:186", "serve",
-              serve_fwd_result, counter="flash_fwd", c_entry="aat_flash_fwd"),
+        entry("flash_fwd_f32", "flash_fwd_tf32x3.cu", "aat_tpu/ops/attention.py:186", "serve",
+              serve_fwd_result, counter="flash_fwd", c_entry="aat_flash_fwd_tf32x3"),
         entry("flash_bwd", "flash_bwd_mma.cu", "aat_tpu/ops/attention.py:764", "train",
               train_results["bwd_dense"], c_entry=both_bwd),
         entry("flash_bwd_causal", "flash_bwd_mma.cu", "aat_tpu/ops/attention.py:709", "train",

@@ -1,15 +1,19 @@
-"""The flash forward's two kernels: bf16 operands go to the tensor-core
-kernel (``aat_flash_fwd_mma``, ``csrc/flash_fwd_mma.cu``), f32 operands to
-the FFMA kernel (``aat_flash_fwd``), behind one wrapper per TPU kernel.
+"""The flash forward's two kernels, both on the tensor cores: bf16 operands
+go to ``aat_flash_fwd_mma`` (``csrc/flash_fwd_mma.cu``), f32 operands to
+the 3xTF32 kernel ``aat_flash_fwd_tf32x3`` (``csrc/flash_fwd_tf32x3.cu``),
+behind one wrapper per TPU kernel; and the one launch helper
+(``kernels.launch``) that every wrapper goes through.
 
 The dispatch runs on the meta device (shapes without data) with a library
-that records the C entries it is asked for; the C declarations are held
-against the ctypes signatures, since no compiler runs here. The keep-mask
-identity construction (v[k] = e_k with S = D, so out[q, k] is the dropped,
-scaled p[q, k] and out == 0 exactly where a key was dropped) is pinned on
-the plain version and on the JAX flash forward (Pallas in interpret mode):
-``chip_smoke.py`` reads the kernel's mask the same way on the card."""
+that records the C entries it is asked for and the device made current
+around each; the C declarations are held against the ctypes signatures,
+since no compiler runs here. The keep-mask identity construction (v[k] =
+e_k with S = D, so out[q, k] is the dropped, scaled p[q, k] and out == 0
+exactly where a key was dropped) is pinned on the plain version and on the
+JAX flash forward (Pallas in interpret mode): ``chip_smoke.py`` reads each
+forward kernel's mask the same way on the card."""
 
+import contextlib
 import os
 import re
 
@@ -21,27 +25,42 @@ import jax.numpy as jnp
 
 import aat_tpu.ops.attention as jatt
 import aat_tpu_torch.ops.attention as tatt
+from aat_tpu_torch.ops import mel as tmel
+from aat_tpu_torch.ops import vq as tvq
 from aat_tpu_torch.runtime import kernels
 
 
 class RecordingLibrary:
-    """Stands in for the kernel library: records each C entry's name and
-    checks its argument count against the ctypes signature."""
+    """Stands in for the kernel library: records each C entry's name, its
+    arguments and the device made current around the call, and checks the
+    argument count against the ctypes signature."""
 
     def __init__(self):
-        self.names = []
+        self.names, self.args, self.devices = [], [], []
+        self.current = None  # the device of the innermost torch.cuda.device
 
     def call(self, name, *args):
         assert len(args) == len(kernels._SIGNATURES[name]), name
         self.names.append(name)
+        self.args.append(args)
+        self.devices.append(self.current)
+
+    @contextlib.contextmanager
+    def device_guard(self, device):
+        outer, self.current = self.current, device
+        try:
+            yield
+        finally:
+            self.current = outer
 
 
 @pytest.fixture
 def meta_library(monkeypatch):
     lib = RecordingLibrary()
-    monkeypatch.setattr(tatt, "_check_device", lambda q: None)  # meta stands in for CUDA
+    monkeypatch.setattr(kernels, "check_cuda", lambda x, kernel: None)  # meta stands in for CUDA
     monkeypatch.setattr(kernels, "library", lambda: lib)
-    monkeypatch.setattr(kernels, "stream_handle", lambda device: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: ("stream", device))
+    monkeypatch.setattr(torch.cuda, "device", lib.device_guard)
     return lib
 
 
@@ -59,7 +78,7 @@ def meta_operands(dtype, t=300, h=4, kvh=2, d=128, head_stride=None):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype, entry", [(torch.bfloat16, "aat_flash_fwd_mma"),
-                                          (torch.float32, "aat_flash_fwd")])
+                                          (torch.float32, "aat_flash_fwd_tf32x3")])
 def test_forward_dispatch_by_dtype(meta_library, dtype, entry, causal):
     """One launch through the entry of the operands' dtype, counted on the
     wrapper of the TPU kernel it replaces."""
@@ -113,10 +132,70 @@ def test_dropout_rate_outside_unit_interval_raises(meta_library, rate):
 
 
 def test_f32_takes_any_head_stride(meta_library):
-    """The FFMA kernel reads elements one by one, so f32 has no such rule."""
+    """f32's 16-byte copies are 4 elements, so f32 takes the head stride of
+    132 elements that bf16's 8-element rule refuses."""
     q, k, v, mask = meta_operands(torch.float32, head_stride=132)
     tatt.flash_forward(q, k, v, mask, 128 ** -0.5, False, 0.0, 0, None, False)
-    assert meta_library.names == ["aat_flash_fwd"]
+    assert meta_library.names == ["aat_flash_fwd_tf32x3"]
+
+
+@pytest.mark.parametrize("fault", ["stride", "start"])
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_f32_forward_refuses_unaligned_operands(meta_library, operand, fault):
+    """The 3xTF32 forward copies f32 rows in 16-byte chunks: a head stride
+    off 4 elements (130), or a start 2 elements (8 bytes) into the buffer,
+    is refused, with no fallback to another kernel."""
+    q, k, v, mask = meta_operands(torch.float32)
+    operands = {"q": q, "k": k, "v": v}
+    x = operands[operand]
+    if fault == "stride":
+        operands[operand] = torch.empty(x.shape[:-1] + (130,), device="meta")[..., :128]
+    else:
+        operands[operand] = torch.empty(x.numel() + 4, device="meta")[2:2 + x.numel()].view(
+            x.shape)
+    match = "multiples of 4" if fault == "stride" else "f32 .* 16-byte boundary"
+    with pytest.raises(ValueError, match=match):
+        tatt.flash_forward(*operands.values(), mask, 128 ** -0.5, True, 0.0, 0, None, True)
+    assert meta_library.names == []
+
+
+def _launch_five_wrappers():
+    """One launch of each wrapper on meta operands: the flash forward, the
+    backward's dq and dk/dv kernels (the split route's wrappers, one C
+    entry each), mel and vq. Returns the operands' device."""
+    q, k, v, mask = meta_operands(torch.float32, kvh=4)
+    lse = torch.empty((1, 4, 300), device="meta")
+    tatt.flash_forward_kernel(q, k, v, mask, 128 ** -0.5)
+    tatt.flash_backward_dq_long(q, k, v, mask, q, lse, q, 128 ** -0.5)
+    tatt.flash_backward_dkv_long(q, k, v, mask, q, lse, q, 128 ** -0.5)
+    tmel.melspec_kernel(torch.empty((2, 7, tmel.N_FFT), device="meta"))
+    x = torch.empty((5, 16), device="meta")
+    tvq.nearest_codebook_kernel(x, torch.empty((3, 16), device="meta"),
+                                torch.empty((3,), device="meta"))
+    return q.device
+
+
+def test_every_wrapper_launches_through_the_device_guard(meta_library):
+    """Each of the five wrappers launches through ``kernels.launch``: the
+    operands' device is current around the C call, and the stream passed
+    last is that device's."""
+    device = _launch_five_wrappers()
+    assert meta_library.names == ["aat_flash_fwd_tf32x3", "aat_flash_bwd_dq",
+                                  "aat_flash_bwd_dkv", "aat_mel_forward", "aat_vq_nearest"]
+    assert meta_library.devices == [device] * 5
+    assert [args[-1] for args in meta_library.args] == [("stream", device)] * 5
+
+
+def test_launch_makes_the_operands_device_current(meta_library):
+    """``kernels.launch`` on a second card: that card is current around the
+    C call (the C entries set none), its stream is passed, and the caller's
+    device is current again afterwards."""
+    second = torch.device("cuda", 1)
+    kernels.launch("aat_vq_nearest", second, 1, 2, 3, 4, 5, 6, 7)
+    assert meta_library.names == ["aat_vq_nearest"]
+    assert meta_library.devices == [second]
+    assert meta_library.args[0] == (1, 2, 3, 4, 5, 6, 7, ("stream", second))
+    assert meta_library.current is None
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -213,3 +213,24 @@ def test_train_epoch_logs_and_stops_at_max_steps():
     assert state.step == 2 and len(logged) == 2
     assert logged[1]["train/lr"] == float(t.schedule(2))
     assert all(np.isfinite(m["train/loss"]) and m["train/step_time"] > 0 for m in logged)
+
+
+@pytest.mark.parametrize("save_steps, max_steps, raises", [
+    (2, 2, True), (5, None, True), (1000, 3, False), (0, 2, False)])
+def test_train_refuses_a_run_that_would_reach_save_steps(save_steps, max_steps, raises):
+    """Checkpoints are not ported: a run that could reach a multiple of
+    ``save_steps`` raises before its first step (the JAX trainer would
+    write ``checkpoint-{step}`` there); one that cannot, or with
+    ``save_steps=0``, trains to ``max_steps``."""
+    jm, tm = models()
+    params = from_jax_params(jax.device_get(jax_params(jm)))
+    t = TTrainer(tm, params, TConfig(**dict(TRAIN, save_steps=save_steps, max_steps=max_steps),
+                                     gradient_accumulation_steps=1))
+    rng = np.random.default_rng(7)
+    batches = [whole_batch(rng) for _ in range(3)]
+    if raises:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
+            t.train(batches)
+        assert t.state.step == 0
+    else:
+        assert t.train(batches).step == max_steps
