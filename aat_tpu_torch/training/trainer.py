@@ -307,13 +307,13 @@ class AATTrainer:
             raise NotImplementedError(
                 "evaluation, checkpoints and resume are not ported yet (ROADMAP Queue 1)")
         cfg = self.config
-        if cfg.save_steps and (cfg.max_steps is None
-                               or cfg.max_steps // cfg.save_steps
-                               > self.state.step // cfg.save_steps):
+        if cfg.save_steps:
+            next_save = (self.state.step // cfg.save_steps + 1) * cfg.save_steps
+        if cfg.save_steps and (cfg.max_steps is None or cfg.max_steps >= next_save):
             raise NotImplementedError(
-                f"save_steps={cfg.save_steps} would write a checkpoint, and checkpoints are "
-                "not ported yet (ROADMAP Queue 1 item 1): set save_steps=0 or max_steps "
-                f"below {cfg.save_steps}")
+                f"save_steps={cfg.save_steps} would write a checkpoint at step {next_save}, and "
+                "checkpoints are not ported yet (ROADMAP Queue 1 item 1): set save_steps=0 or "
+                f"max_steps below {next_save}")
         micro: List[dict] = []
         t_start = time.time()
         for batch in train_batches:

@@ -57,10 +57,10 @@ Phases, one line each:
      share, with device time by kernel written beside the build log
      (``aat_tpu_torch/build/train_profile.txt``) and the forward and
      backward kernels' device time printed by name; then one f32 gradient
-     step through the kernel route and the plain route with the same seeds: loss and global grad norm within
-     1e-3 relative, feature_projection grads within 1e-3 * max|ref|; its
-     flash launches through the 3xTF32 forward and the FFMA backward
-     entries only.
+     step through the kernel route and the plain route with the same seeds:
+     loss and global grad norm within 1e-3 relative, feature_projection
+     grads within 1e-3 * max|ref|; its flash launches through the 3xTF32
+     forward and the FFMA backward entries only.
   9. the offline discrete-token pipeline at full width: 8 speech-like
      utterances of 4-20 s through ``scripts.segment_embeddings`` (host
      tokenizer, hubert-large eval with seeded random weights) →
@@ -149,11 +149,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PIPELINE_SECONDS = (4.0, 6.5, 9.0, 11.5, 14.0, 16.5, 18.0, 20.0)
 VQ_CORPUS = (262144, 1024, (1024, 1000))  # N, D, codebook sizes
 NEAR_TIES = 4096  # planted near-tie rows of phase 10
-# their best-to-second gap, in near-tie margins: one-pass TF32's error in a
-# gap is about 0.36 margins (its standard deviation in the CPU emulation of
-# tests/test_torch_tf32x3.py, at this construction and D = 1024), so at 1.1
-# margins and above it flips almost no row; here it flips about one in ten,
-# while 3xTF32's largest error in the emulation is 0.02 margins
+# their best-to-second gap, in near-tie margins: in the CPU emulation of
+# tests/test_torch_tf32x3.py (this construction, D = 1024) one-pass TF32's
+# error in a gap spreads over about a third of a margin, so at 1.1 margins
+# and above it flips almost no row; here it flips about one in ten, while
+# 3xTF32's error stays within a fiftieth of a margin
 NEAR_TIE_GAP = (0.25, 0.75)
 VQ_RAGGED = (4099, 333, 1001)  # N, K, D of phase 10's ragged case
 # (B, T, H, D), causal, dropout: HuBERT's and Qwen's attention in phase 11

@@ -74,7 +74,8 @@ def test_tf32_rounding():
     r = torch.from_numpy(np.random.default_rng(1).normal(0, 1, 4096).astype(np.float32))
     hi, lo = split(r)
     assert torch.equal(tf32(hi), hi) and torch.equal(tf32(lo), lo)
-    assert float(((hi.double() + lo.double() - r.double()).abs() / r.double().abs()).max()) < 2 ** -21
+    rel = (hi.double() + lo.double() - r.double()).abs() / r.double().abs()
+    assert float(rel.max()) < 2 ** -21
 
 
 # -------------------------------------------------------------------- (a) vq
@@ -128,14 +129,31 @@ def test_planted_near_ties_reject_one_pass_tf32(mixture):
     between two codes of one centre): 3xTF32 and plain f32 give the f64
     argmin on every row, one-pass TF32 misses some (about one in ten), so
     phase 10's check can tell them apart. At gaps of 1.1 margins and more
-    one-pass TF32 would flip almost none: its error in a gap is about 0.36
-    margins."""
+    one-pass TF32 would flip almost none: its error in a gap spreads over
+    about a third of a margin."""
     _, cb = mixture
     x, want = chip_smoke.planted_near_ties(torch, cb, 1024, seed=1025)
+    matmuls = dict(MATMULS, f32=torch.matmul)
     wrong = {name: int((nearest(x, cb, mm) != want.long()).sum())
-             for name, mm in dict(MATMULS, f32=torch.matmul).items()}
+             for name, mm in matmuls.items()}
     assert wrong["3xtf32"] == 0 and wrong["f32"] == 0, wrong
     assert wrong["tf32"] > 1024 // 30, wrong
+    # the error in the gap itself, in margins: one-pass TF32's spreads over
+    # about a third of a margin, 3xTF32's and f32's stay within a fiftieth
+    c64 = cb.double()
+    exact = (c64 ** 2).sum(-1)[None, :] - 2.0 * x.double() @ c64.t()
+    two = torch.topk(exact, 2, dim=1, largest=False)
+    rows = torch.arange(len(want))
+    second = two.indices[:, 1]
+    margin = MARGIN * two.values[:, 0].abs().clamp_min(1.0)
+    cbn = (cb ** 2).sum(-1)
+    gap_err = {}
+    for name, mm in matmuls.items():
+        dist = (cbn[None, :] - 2.0 * mm(x, cb.t())).double()
+        gap = dist[rows, second] - dist[rows, want.long()]
+        gap_err[name] = (gap - (two.values[:, 1] - two.values[:, 0])) / margin
+    assert 0.2 < float(gap_err["tf32"].std()) < 0.6, gap_err
+    assert max(float(gap_err[n].abs().max()) for n in ("3xtf32", "f32")) < 0.05
 
 
 # ----------------------------------------------------------------- (b) flash
