@@ -32,8 +32,9 @@
 // TFLOP/s; here each f32 product is three tf32 products on the tensor cores
 // (mma_common.cuh: a = hi + lo, a·b = lo·hi + hi·lo + hi·hi), 495 / 3 = 165
 // TFLOP/s of f32-accurate work, with the f32 sums' error and not TF32's
-// (one-pass TF32 would miss the 1e-4 f32 bounds by 3x). Memory (q, k, v,
-// out once) is a tenth of that time at serving's [1,999,16,64].
+// (one-pass TF32 reads norm ratios of about 4e-4 against the 1e-4 f32
+// bound in tests/test_torch_tf32x3.py). Memory (q, k, v, out once) is a
+// tenth of that time at serving's [1,999,16,64].
 // The design (the FlashAttention-2 pattern on mma.sync, as flash_fwd_mma.cu;
 // wgmma and TMA are later work):
 //   - A block of 4 warps owns 64 query rows of one (batch, head), 16 rows a

@@ -12,7 +12,8 @@
 //
 // What bounds it on the H100: arithmetic, 2*N*K*D flops (550 GFLOP at
 // N = 262144, K = D = 1024) against N*D*4 bytes of x. One-pass TF32 would
-// move distances by ~1e-3 relative and flip near-ties, so x.c runs on the
+// move distances by more than half the near-tie margin of 1e-4·|best|
+// (tests/test_torch_tf32x3.py) and flip near-ties, so x.c runs on the
 // tensor cores as 3xTF32 (mma_common.cuh: three tf32 products per f32
 // product, f32 accumulation), whose error is that of the f32 sums: 495 / 3
 // = 165 TFLOP/s of f32-accurate products, against 67 on the FFMA pipes. The
