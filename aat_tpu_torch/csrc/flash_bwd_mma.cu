@@ -14,7 +14,7 @@
 // Replaces, for bf16, the TPU kernels of aat_tpu/ops/attention.py: :764
 // `_bwd_fused_kernel` and :709 `_bwd_fused_tri_kernel` (S <= 8192, one
 // launch of each entry), :562 `_bwd_dq_kernel` and :595 `_bwd_dkv_kernel`
-// (S > 8192, one entry each); f32 operands take flash_bwd.cu. It computes
+// (S > 8192, one entry each); f32 operands take flash_bwd_tf32x3.cu. It computes
 // exactly what that file's note lists (`_ds_block` :525):
 //   - q_s = round_bf16(q·sm_scale), s = q_s·k, with f32 accumulation;
 //   - p = exp(s - lse) from the undropped scores; masked scores are -2e30,
@@ -84,18 +84,6 @@ constexpr int kBK = 64;  // keys of a dq key tile, and of a dk/dv block
 constexpr int kThreads = 128;  // 4 warps of 16 rows
 constexpr int kStages = 2;     // the ring
 constexpr float kPadLse = 1e30f;  // lse of a padded query row: p == 0 there
-
-struct BwdArgs {
-  const int* key_mask;
-  const float* lse;
-  int t_len, s_len, n_heads, n_kv_heads;
-  long long q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  float sm_scale;
-  int pack_len;
-  unsigned int seed;
-  unsigned int keep_min;  // 0: no dropout; else keep where hash >= keep_min
-  float inv_keep;
-};
 
 template <int D>
 constexpr int dq_smem_bytes() {
@@ -518,21 +506,6 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<float2*>(dv + off + 8 * i) = make_float2(dv_acc[i][2], dv_acc[i][3]);
     }
   }
-}
-
-template <int D, bool CAUSAL>
-struct Variant {
-  static constexpr int width = D;
-  static constexpr bool causal = CAUSAL;
-};
-
-// Calls f(Variant<D, CAUSAL>{}) for the run's head width and masking; 1
-// (cudaErrorInvalidValue) for a head width the kernels were not built for.
-template <typename F>
-int dispatch(int D, int causal, F&& f) {
-  if (D == 64) return causal ? f(Variant<64, true>{}) : f(Variant<64, false>{});
-  if (D == 128) return causal ? f(Variant<128, true>{}) : f(Variant<128, false>{});
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

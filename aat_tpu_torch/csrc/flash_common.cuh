@@ -1,7 +1,9 @@
-// Shared by every flash-attention kernel (flash_bwd.cu and, through
-// mma_common.cuh, flash_fwd_mma.cu, flash_fwd_tf32x3.cu and flash_bwd_mma.cu):
+// Shared by every flash-attention kernel (through mma_common.cuh:
+// flash_fwd_mma.cu, flash_fwd_tf32x3.cu, flash_bwd_mma.cu and
+// flash_bwd_tf32x3.cu):
 // the masking constants and the attention-dropout position hash, so the
-// backward regenerates exactly the forward's keep mask.
+// backward regenerates exactly the forward's keep mask, and the backward
+// kernels' arguments and head-width dispatch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,21 +25,40 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// Keep decision for score (q_pos, k_pos) of one batch·head
-// (`_keep_from_positions`, :115): seed_and_head = seed + (b·H + h)·golden,
-// positions absolute, s_stride the unpadded key length.
-__device__ __forceinline__ bool keep(uint32_t seed_and_head, int q_pos,
-                                     int k_pos, int s_stride, float rate) {
-  const uint32_t x = (uint32_t)q_pos * (uint32_t)s_stride + (uint32_t)k_pos;
-  const float u = (float)(mix32(x ^ seed_and_head) >> 8) * (1.0f / 16777216.0f);
-  return u >= rate;
-}
-
 // Score mask of the causal path: the triangle and, with pack_len > 0, the
 // block-diagonal same-utterance constraint (`_causal_mask`, :152).
 __device__ __forceinline__ bool causal_allowed(int q_pos, int k_pos, int pack_len) {
   if (k_pos > q_pos) return false;
   return pack_len <= 0 || (q_pos / pack_len == k_pos / pack_len);
+}
+
+// The backward kernels' arguments after their tensors (flash_bwd_mma.cu,
+// flash_bwd_tf32x3.cu)
+struct BwdArgs {
+  const int* key_mask;
+  const float* lse;
+  int t_len, s_len, n_heads, n_kv_heads;
+  long long q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float sm_scale;
+  int pack_len;
+  unsigned int seed;
+  unsigned int keep_min;  // 0: no dropout; else keep where hash >= keep_min
+  float inv_keep;
+};
+
+template <int D, bool CAUSAL>
+struct Variant {
+  static constexpr int width = D;
+  static constexpr bool causal = CAUSAL;
+};
+
+// Calls f(Variant<D, CAUSAL>{}) for the run's head width and masking; 1
+// (cudaErrorInvalidValue) for a head width the kernels were not built for.
+template <typename F>
+int dispatch(int D, int causal, F&& f) {
+  if (D == 64) return causal ? f(Variant<64, true>{}) : f(Variant<64, false>{});
+  if (D == 128) return causal ? f(Variant<128, true>{}) : f(Variant<128, false>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace aat_flash

@@ -18,8 +18,8 @@
 //     and applied as a reciprocal;
 //   - dropout keeps a probability where the position hash of (q, k) under
 //     seed + (b*H + h)*0x9e3779b9 is >= rate, scaling kept ones by
-//     1/(1-rate) (flash_common.cuh; here the integer compare keep_bits of
-//     mma_common.cuh, bit-identical to it);
+//     1/(1-rate) (flash_common.cuh's hash, tested as the integer compare
+//     keep_bits of mma_common.cuh);
 //   - GQA: q-head h reads kv-head h / (H / KVH);
 //   - causal: key k is allowed for query q when k <= q and, with
 //     pack_len > 0, k / pack_len == q / pack_len.
@@ -104,38 +104,6 @@ struct Tf32Args {
   float inv_keep;
 };
 
-// rows [row0, row0 + ROWS) of an f32 [rows, D] matrix with row stride
-// `stride` into a tile swizzled in 16-byte chunks; rows at or past n_valid
-// become zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows_swz(float* dst, const float* src, long long stride,
-                                              int row0, int n_valid, int tid) {
-  constexpr int kChunks = D / 4;
-#pragma unroll
-  for (int n = 0; n < ROWS * kChunks / kThreads; ++n) {
-    const int i = tid + n * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = row0 + r < n_valid;
-    const float* g = src + (ok ? (long long)(row0 + r) * stride : 0ll) + c * 4;
-    cp_async16(smem_u32(dst + swz_f32<D>(r, c)), g, ok ? 16 : 0);
-  }
-}
-
-// the same into a tile of v_pitch<D>() floats a row, not swizzled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows_padded(float* dst, const float* src, long long stride,
-                                                 int row0, int n_valid, int tid) {
-  constexpr int kChunks = D / 4;
-#pragma unroll
-  for (int n = 0; n < ROWS * kChunks / kThreads; ++n) {
-    const int i = tid + n * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = row0 + r < n_valid;
-    const float* g = src + (ok ? (long long)(row0 + r) * stride : 0ll) + c * 4;
-    cp_async16(smem_u32(dst + r * v_pitch<D>() + c * 4), g, ok ? 16 : 0);
-  }
-}
-
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -163,15 +131,16 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
 
   auto load_kv = [&](int tile, int stage) {
     const int k0 = tile * kBK;
-    load_rows_swz<D, kBK>(ks + stage * kBK * D, kb, a.k_ss, k0, a.s_len, tid);
-    load_rows_padded<D, kBK>(vs + stage * kBK * kVP, vb, a.v_ss, k0, a.s_len, tid);
+    load_rows_f32_swz<D, kBK, kThreads>(ks + stage * kBK * D, kb, a.k_ss, k0, a.s_len, tid);
+    load_rows_f32_padded<D, kBK, kThreads, kVP>(vs + stage * kBK * kVP, vb, a.v_ss, k0, a.s_len,
+                                                tid);
     if (tid < kBK) {
       const bool ok = k0 + tid < a.s_len;
       cp_async4(smem_u32(ms + stage * kBK + tid), mb + (ok ? k0 + tid : 0), ok ? 4 : 0);
     }
   };
 
-  load_rows_swz<D, kBQ>(qs, qb, a.q_st, q0, a.t_len, tid);
+  load_rows_f32_swz<D, kBQ, kThreads>(qs, qb, a.q_st, q0, a.t_len, tid);
   cp_async_commit();  // group: Q
   if (n_tiles > 0) load_kv(0, 0);
   cp_async_commit();  // group: tile 0

@@ -1,8 +1,9 @@
 // Shared by the tensor-core kernels (flash_fwd_mma.cu, flash_bwd_mma.cu,
-// flash_fwd_tf32x3.cu and vq.cu): cp.async copies, ldmatrix, mma.sync
-// m16n8k16 bf16 -> f32 and m16n8k8 tf32 -> f32 with the 3xTF32 split, the
-// XOR swizzle of shared tiles, and the dropout keep test as an integer
-// compare.
+// flash_fwd_tf32x3.cu, flash_bwd_tf32x3.cu and vq.cu) and, for its cp.async
+// copies, by mel.cu: cp.async copies, ldmatrix, mma.sync m16n8k16 bf16 ->
+// f32 and m16n8k8 tf32 -> f32 with the 3xTF32 split, the XOR swizzle of
+// shared tiles and the row loaders into them, and the dropout keep test as
+// an integer compare.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t4 = lane % 4): the
 // A fragment (16 x 16, row-major) holds rows g and g + 8, columns 2·t4, +1
@@ -167,10 +168,46 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long 
   }
 }
 
-// The position hash's keep test as an integer compare: u = (hash >> 8)·2^-24
-// >= rate  <=>  (hash >> 8) >= ceil(rate·2^24)  <=>  hash >= keep_min with
-// keep_min = ceil(rate·2^24)·2^8 (rate·2^24 is exact in f32, and rate < 1,
-// which the wrappers check, keeps it below 2^32). Bit-identical to `keep`.
+// rows [row0, row0 + ROWS) of an f32 [rows, D] matrix with row stride
+// `stride` into a tile swizzled in 16-byte chunks, by THREADS threads; rows
+// at or past n_valid become zeros
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows_f32_swz(float* dst, const float* src, long long stride,
+                                                  int row0, int n_valid, int tid) {
+  constexpr int kChunks = D / 4;
+#pragma unroll
+  for (int n = 0; n < ROWS * kChunks / THREADS; ++n) {
+    const int i = tid + n * THREADS;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = row0 + r < n_valid;
+    const float* g = src + (ok ? (long long)(row0 + r) * stride : 0ll) + c * 4;
+    cp_async16(smem_u32(dst + swz_f32<D>(r, c)), g, ok ? 16 : 0);
+  }
+}
+
+// the same into a tile of PITCH floats a row, not swizzled
+template <int D, int ROWS, int THREADS, int PITCH>
+__device__ __forceinline__ void load_rows_f32_padded(float* dst, const float* src,
+                                                     long long stride, int row0, int n_valid,
+                                                     int tid) {
+  constexpr int kChunks = D / 4;
+#pragma unroll
+  for (int n = 0; n < ROWS * kChunks / THREADS; ++n) {
+    const int i = tid + n * THREADS;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = row0 + r < n_valid;
+    const float* g = src + (ok ? (long long)(row0 + r) * stride : 0ll) + c * 4;
+    cp_async16(smem_u32(dst + r * PITCH + c * 4), g, ok ? 16 : 0);
+  }
+}
+
+// The keep decision for score (q_pos, k_pos) of one batch·head
+// (`_keep_from_positions`, :115; seed_and_head = seed + (b·H + h)·golden,
+// positions absolute, s_stride the unpadded key length) as an integer
+// compare: u = (hash >> 8)·2^-24 >= rate  <=>  (hash >> 8) >=
+// ceil(rate·2^24)  <=>  hash >= keep_min with keep_min = ceil(rate·2^24)·2^8
+// (rate·2^24 is exact in f32, and rate < 1, which the wrappers check, keeps
+// it below 2^32).
 __device__ __forceinline__ bool keep_bits(uint32_t seed_and_head, int q_pos, int k_pos,
                                           int s_stride, uint32_t keep_min) {
   const uint32_t x = (uint32_t)q_pos * (uint32_t)s_stride + (uint32_t)k_pos;

@@ -14,9 +14,10 @@ custom VJP):
   covers both. It writes the row log-sum-exp when a gradient will be asked for;
   without one (serving, ``torch.no_grad``) the lse-free forward runs, as
   JAX's ``need_residuals=False`` does;
-- backward: a dq kernel and a dk/dv kernel, on the tensor cores for bf16
-  (``csrc/flash_bwd_mma.cu``) and on the FFMA pipes for f32
-  (``csrc/flash_bwd.cu``). For key lengths up to ``FUSED_BWD_MAX_S`` = 8192
+- backward: a dq kernel and a dk/dv kernel, both on the tensor cores, bf16
+  operands through ``csrc/flash_bwd_mma.cu`` and f32 operands as 3xTF32
+  through ``csrc/flash_bwd_tf32x3.cu``. For key lengths up to
+  ``FUSED_BWD_MAX_S`` = 8192
   the wrappers
   :func:`flash_backward_kernel` / :func:`flash_backward_causal_kernel`
   launch both (replacing ``_bwd_fused_kernel`` and
@@ -209,12 +210,12 @@ def flash_backward_dkv_reference(q, k, v, key_mask, out, lse, dout, sm_scale: fl
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(q, k, v, key_mask, forward: bool = False):
+def _check_operands(q, k, v, key_mask):
     """Check the operands of a flash launch; returns the key mask as
-    contiguous int32. The tensor-core kernels (every forward, and the bf16
-    backward) copy q/k/v rows in 16-byte ``cp.async`` chunks, so there the
-    strides must be multiples of 16 bytes (8 bf16, 4 f32 elements) and the
-    starts 16-byte aligned; anything else raises, with no fallback."""
+    contiguous int32. Every flash kernel copies q/k/v rows in 16-byte
+    ``cp.async`` chunks, so the strides must be multiples of 16 bytes (8
+    bf16, 4 f32 elements) and the starts 16-byte aligned; anything else
+    raises, with no fallback."""
     kernels.check_cuda(q, "flash")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash kernel takes f32 or bf16, got {q.dtype}")
@@ -234,8 +235,6 @@ def _check_operands(q, k, v, key_mask, forward: bool = False):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or x.stride(-1) != 1:
             raise ValueError(f"{name} must lie on {q.device} with a unit last stride")
-        if not (forward or q.dtype == torch.bfloat16):
-            continue
         # (a stride of a size-1 axis is never used)
         if any(x.stride(i) % chunk for i in range(3) if x.shape[i] > 1):
             raise ValueError(f"{label} {name} needs strides in multiples of {chunk} elements, "
@@ -259,7 +258,7 @@ def _dropout_args(dropout_rate: float, dropout_seed: int):
 
 def _launch_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_seed,
                     pack_len, need_lse):
-    mask = _check_operands(q, k, v, key_mask, forward=True)
+    mask = _check_operands(q, k, v, key_mask)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -308,11 +307,12 @@ def _backward_operands(q, k, v, key_mask, out, lse, dout):
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, t):
         raise ValueError(f"out {tuple(out.shape)} dout {tuple(dout.shape)} "
                          f"lse {tuple(lse.shape)} do not fit q {tuple(q.shape)}")
-    if q.dtype == torch.bfloat16:
-        # the tensor-core backward reads out and dout rows in 16-byte chunks
-        for name, x in (("out", out), ("dout", dout)):
-            if x.data_ptr() % 16:
-                raise ValueError(f"bf16 {name} must start on a 16-byte boundary")
+    # the kernels copy dout rows in 16-byte chunks, and the bf16 ones out's
+    # too (the 3xTF32 kernels read out with 4-byte loads)
+    for name, x in (("out", out), ("dout", dout)):
+        if x.data_ptr() % 16 and (name == "dout" or q.dtype == torch.bfloat16):
+            raise ValueError(f"{'bf16' if q.dtype == torch.bfloat16 else 'f32'} {name} must "
+                             "start on a 16-byte boundary")
     return mask, out, lse, dout
 
 
@@ -328,12 +328,13 @@ def _backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_l
 
 def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
                         dropout_seed, pack_len):
-    """``aat_flash_bwd_dq_mma`` in bf16, ``aat_flash_bwd_dq`` in f32 → dq
-    ``[B, T, H, D]`` in q's dtype."""
+    """``aat_flash_bwd_dq_mma`` in bf16, ``aat_flash_bwd_dq_tf32x3`` in f32
+    → dq ``[B, T, H, D]`` in q's dtype."""
     mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
     dq = torch.empty_like(out)
     kernels.launch(
-        "aat_flash_bwd_dq_mma" if q.dtype == torch.bfloat16 else "aat_flash_bwd_dq", q.device,
+        "aat_flash_bwd_dq_mma" if q.dtype == torch.bfloat16 else "aat_flash_bwd_dq_tf32x3",
+        q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
         *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
@@ -342,24 +343,22 @@ def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dro
 
 def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
                          dropout_rate, dropout_seed, pack_len):
-    """``aat_flash_bwd_dkv_mma`` in bf16, ``aat_flash_bwd_dkv`` in f32 →
-    ``(dk, dv)`` in k's layout and dtype: the kernel writes them per q-head
-    in f32, and the q-heads that share a kv head (GQA) are summed here in
-    f32. The bf16 entry fills a ``[B, H, T]`` f32 scratch with delta =
+    """``aat_flash_bwd_dkv_mma`` in bf16, ``aat_flash_bwd_dkv_tf32x3`` in
+    f32 → ``(dk, dv)`` in k's layout and dtype: the kernel writes them per
+    q-head in f32, and the q-heads that share a kv head (GQA) are summed
+    here in f32. Either entry fills a ``[B, H, T]`` f32 scratch with delta =
     rowsum(dout·out) first."""
     mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     dk_rep = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     dv_rep = torch.empty_like(dk_rep)
-    outputs = (dk_rep.data_ptr(), dv_rep.data_ptr())
-    entry = "aat_flash_bwd_dkv"
-    if q.dtype == torch.bfloat16:
-        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-        outputs, entry = outputs + (delta.data_ptr(),), "aat_flash_bwd_dkv_mma"
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     kernels.launch(
-        entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), *outputs,
+        "aat_flash_bwd_dkv_mma" if q.dtype == torch.bfloat16 else "aat_flash_bwd_dkv_tf32x3",
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dk_rep.data_ptr(), dv_rep.data_ptr(),
+        delta.data_ptr(),
         *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
     rep = h // kvh
     dk = dk_rep.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype)
@@ -376,8 +375,8 @@ def _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropou
 
 def flash_backward_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                           dropout_rate: float = 0.0, dropout_seed: int = 0):
-    """Launch the dq and dk/dv kernels, dense, on the tensor cores in bf16
-    and the FFMA pipes in f32 (replaces the TPU kernel
+    """Launch the dq and dk/dv kernels, dense, on the tensor cores (bf16,
+    and f32 as 3xTF32) (replaces the TPU kernel
     aat_tpu/ops/attention.py:764 ``_bwd_fused_kernel``) → ``(dq, dk, dv)``."""
     grads = _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, False,
                              dropout_rate, dropout_seed, None)

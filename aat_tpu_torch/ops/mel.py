@@ -148,11 +148,64 @@ def _dft_mel_constants(n_fft: int, n_mels: int, sampling_rate: int, fmax: float)
     return basis.astype(np.float32), mel_filters.astype(np.float32)
 
 
+# the mel kernel's column tile: 52 threads across the columns, 4 bins each
+KERNEL_BINS = 208
+# the longest band of nonzero weights a mel filter may have in the kernel's
+# fold (csrc/mel.cu kMaxBand); the reference's filters have 1-18 bins
+MAX_BAND = 18
+
+
+def kernel_basis(basis: np.ndarray) -> np.ndarray:
+    """The DFT basis ``[n_fft, 2*bins]`` (cos | -sin) in the mel kernel's
+    order, ``[n_fft, 2*KERNEL_BINS]``: cos and sin interleaved per bin, bins
+    padded with zeros to ``KERNEL_BINS``. Column j = 208·h + 4·c + e holds
+    bin 104·h + 2·c + e // 2, its cos for even e and its -sin for odd e, so
+    kernel thread c reads bins 2c, 2c+1 and 104+2c, 105+2c as two float4s."""
+    n, bins = basis.shape[0], basis.shape[1] // 2
+    j = np.arange(2 * KERNEL_BINS)
+    half, within = j // KERNEL_BINS, j % KERNEL_BINS
+    bin_ = (KERNEL_BINS // 2) * half + 2 * (within // 4) + (within % 4) // 2
+    part = within % 2
+    out = np.zeros((n, 2 * KERNEL_BINS), basis.dtype)
+    real = bin_ < bins
+    out[:, real] = basis[:, part[real] * bins + bin_[real]]
+    return out
+
+
+def mel_band(filters: np.ndarray) -> np.ndarray:
+    """Each mel filter's nonzero bins as ``[n_mels, 2]`` int32 (first bin,
+    count): a Slaney filter is nonzero on one contiguous band of at most
+    ``MAX_BAND`` bins, and a bin lies in at most two bands. Raises if
+    ``filters`` is not so banded."""
+    nonzero = filters != 0
+    if nonzero.sum(1).max(initial=0) > 2:
+        raise ValueError("a bin has more than two nonzero mel weights")
+    band = np.zeros((filters.shape[1], 2), np.int32)
+    for m in range(filters.shape[1]):
+        bins = np.nonzero(nonzero[:, m])[0]
+        if bins.size and not np.array_equal(bins, np.arange(bins[0], bins[0] + bins.size)):
+            raise ValueError(f"mel filter {m} is not one contiguous band")
+        if bins.size > MAX_BAND:
+            raise ValueError(f"mel filter {m} spans {bins.size} bins, over {MAX_BAND}")
+        band[m] = (bins[0], bins.size) if bins.size else (0, 0)
+    return band
+
+
 @functools.lru_cache(maxsize=8)
 def _constants_on(device: torch.device):
     """The f32 basis and filters as tensors on ``device``, copied once."""
     basis, filters = _dft_mel_constants(N_FFT, N_MELS, SAMPLING_RATE, FMAX)
     return (torch.from_numpy(basis).to(device), torch.from_numpy(filters).to(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_constants_on(device: torch.device):
+    """The mel kernel's constants on ``device``, copied once: the basis in
+    its order (:func:`kernel_basis`), the filters and the band table
+    (:func:`mel_band`)."""
+    basis, filters = _dft_mel_constants(N_FFT, N_MELS, SAMPLING_RATE, FMAX)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (kernel_basis(basis), filters, mel_band(filters)))
 
 
 def frame_waveform_ragged(
@@ -216,20 +269,30 @@ def melspec_frames(frames: torch.Tensor) -> torch.Tensor:
 
 def melspec_kernel(frames: torch.Tensor) -> torch.Tensor:
     """Launch ``aat_mel_forward`` (replaces the TPU kernel
-    aat_tpu/ops/mel_pallas.py:36 ``_mel_kernel``) on a CUDA tensor."""
+    aat_tpu/ops/mel_pallas.py:36 ``_mel_kernel``) on a CUDA tensor. Frames
+    ``[N, n_fft]`` or ``[B, F, n_fft]`` are read through their strides, so
+    :func:`frame_waveform_ragged`'s view goes in without a copy; the kernel
+    copies them in 16-byte chunks, so strides must be multiples of 4 and the
+    start 16-byte aligned (else this raises)."""
     from aat_tpu_torch.runtime import kernels
 
     kernels.check_cuda(frames, "mel")
-    if frames.dtype != torch.float32 or frames.shape[-1] != N_FFT:
+    if frames.dtype != torch.float32 or frames.shape[-1] != N_FFT or frames.dim() < 2:
         raise ValueError(f"mel kernel takes f32 [..., {N_FFT}] frames, "
                          f"got {frames.dtype} {tuple(frames.shape)}")
     lead = frames.shape[:-1]
-    flat = frames.reshape(-1, N_FFT).contiguous()
-    basis, filters = _constants_on(frames.device)
-    out = torch.empty((flat.shape[0], N_MELS), dtype=torch.float32,
-                      device=frames.device)
-    kernels.launch("aat_mel_forward", frames.device, flat.data_ptr(), basis.data_ptr(),
-                   filters.data_ptr(), out.data_ptr(), flat.shape[0])
+    rows = frames[None] if frames.dim() == 2 else frames.reshape(-1, *frames.shape[-2:])
+    n_batch, n_per = rows.shape[0], rows.shape[1]
+    # (a stride of a size-1 axis is never used)
+    if (rows.stride(-1) != 1 or rows.data_ptr() % 16
+            or any(rows.stride(i) % 4 for i in (0, 1) if rows.shape[i] > 1)):
+        raise ValueError(f"mel kernel needs frame strides in multiples of 4 elements, a unit "
+                         f"last stride and a 16-byte-aligned start, got {tuple(rows.stride())}")
+    basis, filters, band = _kernel_constants_on(frames.device)
+    out = torch.empty((n_batch * n_per, N_MELS), dtype=torch.float32, device=frames.device)
+    kernels.launch("aat_mel_forward", frames.device, rows.data_ptr(), basis.data_ptr(),
+                   filters.data_ptr(), band.data_ptr(), out.data_ptr(), n_batch, n_per,
+                   rows.stride(0), rows.stride(1))
     melspec_kernel.launches += 1
     return out.reshape(lead + (N_MELS,))
 

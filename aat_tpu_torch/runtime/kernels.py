@@ -32,8 +32,9 @@ _FLASH_BWD_DQ = [_P] * 8 + [_I] * 6 + [_I64] * 9 + [_F, _I, _I, _I, _F, _F, _P]
 
 # C entry points: name -> argtypes (every one returns cudaGetLastError()).
 _SIGNATURES = {
-    # frames, basis, filters, out, n_frames, stream
-    "aat_mel_forward": [_P, _P, _P, _P, _I, _P],
+    # frames, basis, filters, band, out, n_batch, frames per batch row, batch
+    # stride, frame stride, stream
+    "aat_mel_forward": [_P, _P, _P, _P, _P, _I, _I, _I64, _I64, _P],
     # q, k, v, key_mask, out, lse (or null), B, T, S, H, KVH, D, q strides
     # (b, t, h), k strides (b, s, h), v strides (b, s, h), sm_scale, causal,
     # pack_len, seed, rate, inv_keep, stream: both on the tensor cores, f32 as
@@ -42,13 +43,13 @@ _SIGNATURES = {
     "aat_flash_fwd_mma": _FLASH_FWD,
     # q, k, v, key_mask, out, dout, lse, dq, B, T, S, H, KVH, D, q/k/v
     # strides as above, sm_scale, causal, pack_len, seed, rate, inv_keep,
-    # stream: f32 (flash_bwd.cu) and bf16 on the tensor cores
-    # (flash_bwd_mma.cu)
-    "aat_flash_bwd_dq": _FLASH_BWD_DQ,
+    # stream: both on the tensor cores, f32 as 3xTF32 (flash_bwd_tf32x3.cu)
+    # and bf16 (flash_bwd_mma.cu)
+    "aat_flash_bwd_dq_tf32x3": _FLASH_BWD_DQ,
     "aat_flash_bwd_dq_mma": _FLASH_BWD_DQ,
-    # as aat_flash_bwd_dq with dk, dv (f32 per q-head) in place of dq; the
-    # tensor-core entry also takes a [B, H, T] f32 scratch for delta
-    "aat_flash_bwd_dkv": [_P] * 9 + _FLASH_BWD_DQ[8:],
+    # as the dq entries with dk, dv (f32 per q-head) in place of dq, and a
+    # [B, H, T] f32 scratch for delta
+    "aat_flash_bwd_dkv_tf32x3": [_P] * 10 + _FLASH_BWD_DQ[8:],
     "aat_flash_bwd_dkv_mma": [_P] * 10 + _FLASH_BWD_DQ[8:],
     # x, codebook, cbn, idx, N, K, D, stream
     "aat_vq_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -7,7 +7,10 @@ Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile ``aat_tpu_torch/csrc/*.cu`` for sm_90a (nvcc, ctypes);
   3. mel kernel vs its plain PyTorch version at the serving path's shape
-     (frames of 8 x 12 s of speech-like audio): max abs error <= 1e-4;
+     (frames of 8 x 12 s of speech-like audio), on the framing's strided
+     view and on a contiguous copy: max abs error <= 1e-4, against the f64
+     computation too, the two inputs' results equal; timed beside PR 6's
+     first version (another call's time) and at serving's [1,1201,400];
   4. flash forward kernels vs their plain version at [1,999,16,64] and
      [2,1499,16,64] with a padded key tail and a fully masked row, and GQA
      [1,300,8/2,128], f32 (<= 1e-4, the 3xTF32 tensor-core kernel of
@@ -33,18 +36,18 @@ Phases, one line each:
      gradients within 1e-3 (f32) / 3e-2 (bf16) of max|ref| (sums in
      another order; bf16 rounds p and ds) and each of dq, dk and dv within
      ||g - ref||_F / ||ref||_F <= 1e-4 (f32) / 1e-2 (bf16); bf16 through
-     the tensor-core entries (``*_mma``), f32 through the 3xTF32 forward
-     and the FFMA backward entries, counted by C entry; in bf16 the yardstick
+     the tensor-core entries (``*_mma``), f32 through the 3xTF32 entries
+     (``*_tf32x3``), counted by C entry; the yardstick
      ``scaled_dot_product_attention`` (SDPA) is timed on the same operands
-     (forward; backward as forward plus backward minus forward). Then the
-     keep-mask identity checks, dropout 0.5, dense and causal: the bf16
-     and f32 forwards at [2,300,4,128] against S = D = 128 keys with v the
-     identity (out == 0 reads its keep mask; in f32 this also pins the
-     3xTF32 kernel's relabelled P.V, whose hash must take the true key);
-     in bf16 the dk/dv kernel with T = D = 128 and dout the identity
-     (dv == 0) and the dq kernel with S = D = 128, k = v the identity and
-     out = 0 (dq == 0). Each must equal the plain version's ``_keep_mask``
-     on every allowed position;
+     (forward; backward as forward plus backward minus forward), with the
+     bounds, in both dtypes. Then the keep-mask identity checks, dropout
+     0.5, dense and causal: the bf16 and f32 forwards at [2,300,4,128]
+     against S = D = 128 keys with v the identity (out == 0 reads its keep
+     mask; in f32 this also pins the 3xTF32 kernel's relabelled P.V, whose
+     hash must take the true key); in bf16 and f32 the dk/dv kernel with
+     T = D = 128 and dout the identity (dv == 0) and the dq kernel with
+     S = D = 128, k = v the identity and out = 0 (dq == 0). Each must equal
+     the plain version's ``_keep_mask`` on every allowed position;
   8. training at full width: ``projection_training_config()`` (bf16
      compute over f32 masters, hubert-large train-mode dropout and
      LayerDrop, frozen LM, fused guarded AdamW), 3 optimizer steps of 2
@@ -60,7 +63,7 @@ Phases, one line each:
      step through the kernel route and the plain route with the same seeds:
      loss and global grad norm within 1e-3 relative, feature_projection
      grads within 1e-3 * max|ref|; its flash launches through the 3xTF32
-     forward and the FFMA backward entries only.
+     entries only.
   9. the offline discrete-token pipeline at full width: 8 speech-like
      utterances of 4-20 s through ``scripts.segment_embeddings`` (host
      tokenizer, hubert-large eval with seeded random weights) →
@@ -87,11 +90,11 @@ Phases, one line each:
      (key length > 8192): HuBERT's dense [1,8499,16,64] with dropout 0.1
      and Qwen's causal [1,8540,16,128], padded key tails, f32 and bf16 at
      phase 7's tolerances and routing; the forward (out, lse) and the split
-     backward's dq and dk/dv kernels, with SDPA timed in bf16 as in phase 7,
-     and the dense bf16 forward timed again at rate 0. In bf16 two faults
-     are planted through the tensor-core kernels' own arguments (the
-     1/(1 - rate) rescale left out; keys 1024-1087, one 64-key tile, left
-     out), in the forward and in both backward entries: the out and
+     backward's dq and dk/dv kernels, with SDPA timed as in phase 7,
+     and the dense bf16 forward timed again at rate 0. Two faults are
+     planted through the kernels' own arguments (the 1/(1 - rate) rescale
+     left out; keys 1024-1087, one 64-key tile, left out), in the bf16
+     forward and in both backward entries of each dtype: the out and
      gradient norm ratios must reject every one, and a control launch with
      the wrappers' arguments must reproduce their output bit for bit. The
      plain
@@ -117,7 +120,8 @@ JSON line of kernel results, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. In the kernel line the flash entries
 report bf16 (the tensor-core kernels, counting only launches through their
 C entries, ``c_entry``), with the f32 kernels' results (the 3xTF32
-forward, the FFMA backward) under ``f32_`` keys and ``f32_source``; the
+forward and backward, with their own bounds and SDPA's memory-efficient
+f32 times) under ``f32_`` keys and ``f32_source``; the
 entry ``flash_fwd_f32`` is the 3xTF32 forward with serving's launches at
 serving's shape; ``library_ms`` is SDPA's time (null for mel and vq, which
 no single PyTorch call computes), and ``bound_ms`` the larger of the bytes
@@ -163,6 +167,9 @@ PLAIN_HEADS = 4  # heads per call of a plain version in phase 11
 LONGFORM_SECONDS = (170.0, 180.0)
 
 MEL_TOL = 1e-4
+# the first FFMA mel kernel at phase 3's shape, chip run 5 of PR 6 (NVIDIA
+# H100 80GB HBM3, 700 W): another call's time, printed beside this one's
+MEL_EARLIER_MS = 0.3383
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # ||out - ref||_F / ||ref||_F of a flash forward: bf16 rounding of q, p and
 # out gives about 3e-3; leaving the 1/(1 - rate) rescale out at rate 0.1
@@ -175,7 +182,8 @@ GRAD_REL_TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # of max|ref|
 GRAD_NORM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # the f32 kernels, whose results the kernels line keeps under f32_ keys
 F32_SOURCE = {"fwd": "aat_tpu_torch/csrc/flash_fwd_tf32x3.cu",
-              "bwd": "aat_tpu_torch/csrc/flash_bwd.cu"}
+              "bwd": "aat_tpu_torch/csrc/flash_bwd_tf32x3.cu"}
+SDPA_BACKEND = {"bfloat16": "FlashAttention", "float32": "memory-efficient"}  # sdpa_ms
 ENCODER_REL_TOL = 1e-3
 TRAIN_REL_TOL = 1e-3
 
@@ -340,8 +348,12 @@ def phase_mel(torch, device, rng):
     waves = [speechlike_waveform(rng, 12.0) for _ in range(8)]
     x, lengths = padded_batch(torch, waves, device)
     x = (x - x.mean(-1, keepdim=True)) / (x.std(-1, keepdim=True) + 1e-6)
-    frames = mel.frame_waveform_ragged(x, lengths).contiguous()  # [8, 1201, 400]
+    # the framing's strided view, as the serving path passes it, and a copy
+    strided = mel.frame_waveform_ragged(x, lengths)  # [8, 1201, 400]
+    check(not strided.is_contiguous(), "the framed view is not strided")
+    frames = strided.contiguous()
     got = mel.melspec_kernel(frames)
+    got_strided = mel.melspec_kernel(strided)
     ref = mel.melspec_frames_reference(frames)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
@@ -354,22 +366,32 @@ def phase_mel(torch, device, rng):
     exact = torch.log10(torch.clamp_min(
         (spec[..., :201] ** 2 + spec[..., 201:] ** 2) @ filters, mel.MEL_FLOOR))
     err64 = float((got.double() - exact).abs().max())
+    err64_strided = float((got_strided.double() - exact).abs().max())
     plain_err64 = float((ref.double() - exact).abs().max())
     n_diff = int((got != ref).sum())
-    ms = cuda_ms(torch, lambda: mel.melspec_kernel(frames))
-    plain_ms = cuda_ms(torch, lambda: mel.melspec_frames_reference(frames))
+    ms = cuda_ms(torch, lambda: mel.melspec_kernel(strided))
+    plain_ms = cuda_ms(torch, lambda: mel.melspec_frames_reference(strided))
+    one = strided[:1]  # one 12 s request, as serving frames it
+    serve_ms = cuda_ms(torch, lambda: mel.melspec_kernel(one))
     print(f"mel: frames {tuple(frames.shape)} max_abs_err {err:.3e} (bound {MEL_TOL}), "
-          f"{n_diff} of {got.numel()} values differ; vs f64: kernel {err64:.3e} "
-          f"plain {plain_err64:.3e}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
-    check(err64 <= MEL_TOL, f"mel kernel differs from the f64 computation by {err64}")
+          f"{n_diff} of {got.numel()} values differ; vs f64: kernel {err64:.3e} (strided view "
+          f"{err64_strided:.3e}) plain {plain_err64:.3e}; kernel {ms:.4f} ms on the strided view "
+          f"(another call, chip run 5 of PR 6: {MEL_EARLIER_MS} ms, the first FFMA version) "
+          f"plain {plain_ms:.4f} ms; serving's [1,1201,400] {serve_ms:.4f} ms", flush=True)
+    check(err64 <= MEL_TOL and err64_strided <= MEL_TOL,
+          f"mel kernel differs from the f64 computation by {err64} ({err64_strided} strided)")
+    check(torch.equal(got, got_strided), "mel kernel: the strided view and its copy differ")
     check(bool(torch.isfinite(got).all()), "mel kernel output not finite")
     check(err <= MEL_TOL, f"mel kernel differs from its plain version by {err}")
-    # f32 FFMA: the DFT product (400 x 402), the power, the mel product
-    # (201 x 64), per frame; no single PyTorch call computes a log-mel
+    # f32 FFMA on the work these inputs need, per frame: the dense DFT
+    # (400 x 402), the power, and the nonzero Slaney products (388 of
+    # 201 x 64); no single PyTorch call computes a log-mel
     n = frames.numel() // frames.shape[-1]
-    flops = n * (2 * 400 * 402 + 3 * 201 + 2 * 201 * 64)
+    flops = n * (2 * 400 * 402 + 3 * 201 + 2 * int((filters != 0).sum()))
     bound = bound_ms((frames, basis.float(), filters.float(), got),
                      [flops / FFMA_FLOPS])
+    print(f"mel: {flops / 1e9:.3f} GFLOP, bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": None}
 
@@ -521,26 +543,27 @@ def phase_flash_train(torch, device, rng):
                 name = "causal" if causal else "dense"
                 bwd_err = max(float((a.float() - r.float()).abs().max())
                               for a, r in zip(grads, ref_grads))
-                fwd_r = results.setdefault(f"fwd_{name}", {})
-                bwd_r = results.setdefault(f"bwd_{name}", {})
-                if dtype_name == "float32":
-                    fwd_r.update(f32_max_abs_err=out_err, f32_ms=fwd_ms, f32_plain_ms=fwd_plain_ms)
-                    bwd_r.update(f32_max_abs_err=bwd_err, f32_ms=bwd_ms, f32_plain_ms=bwd_plain_ms,
-                                 f32_norm_ratio=max(grad_rel), f32_source=F32_SOURCE["bwd"])
-                    continue
+                # SDPA on its flash backend in bf16, its memory-efficient one
+                # in f32; the bounds at the dtype's matrix rate
                 lib = sdpa_ms(torch, q, k, v, causal, rate)
                 fwd_bound = attention_bound(torch, "fwd", (q, k, v, mask, out, lse), q, mask,
                                             causal, pack_len, rate)
                 bwd_bound = attention_bound(torch, "bwd", (q, k, v, mask, ref_out, ref_lse, g,
                                                            *grads), q, mask, causal, pack_len, rate)
-                fwd_r.update(max_abs_err=out_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
-                             library_ms=lib["fwd_ms"], bound_ms=fwd_bound[0],
-                             bound_by=fwd_bound[1])
-                bwd_r.update(max_abs_err=bwd_err, norm_ratio=max(grad_rel), ms=bwd_ms,
-                             plain_ms=bwd_plain_ms, library_ms=lib["bwd_ms"],
-                             bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
-                print(f"flash train: {label}: SDPA (FlashAttention backend, no key mask) fwd "
-                      f"{lib['fwd_ms']:.4f} ms bwd {lib['bwd_ms']:.4f} ms; bound fwd "
+                pre = "f32_" if dtype_name == "float32" else ""
+                results.setdefault(f"fwd_{name}", {}).update({
+                    f"{pre}max_abs_err": out_err, f"{pre}ms": fwd_ms,
+                    f"{pre}plain_ms": fwd_plain_ms, f"{pre}library_ms": lib["fwd_ms"],
+                    f"{pre}bound_ms": fwd_bound[0], f"{pre}bound_by": fwd_bound[1]})
+                results.setdefault(f"bwd_{name}", {}).update({
+                    f"{pre}max_abs_err": bwd_err, f"{pre}norm_ratio": max(grad_rel),
+                    f"{pre}ms": bwd_ms, f"{pre}plain_ms": bwd_plain_ms,
+                    f"{pre}library_ms": lib["bwd_ms"], f"{pre}bound_ms": bwd_bound[0],
+                    f"{pre}bound_by": bwd_bound[1]})
+                if pre:
+                    results[f"bwd_{name}"]["f32_source"] = F32_SOURCE["bwd"]
+                print(f"flash train: {label}: SDPA ({SDPA_BACKEND[dtype_name]} backend, no key "
+                      f"mask) fwd {lib['fwd_ms']:.4f} ms bwd {lib['bwd_ms']:.4f} ms; bound fwd "
                       f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}) bwd {bwd_bound[0]:.4f} ms "
                       f"({bwd_bound[1]})", flush=True)
     return results
@@ -589,8 +612,9 @@ def phase_keep_mask(torch, device, rng):
 
 def phase_backward_keep_mask(torch, device, rng):
     """The tensor-core backward's dropout keep mask, read from each kernel
-    through identity operands. bf16, B = 2, H = KVH = 4, D = 128, rate 0.5,
-    dense and causal, through the S <= 8192 wrappers (both kernels):
+    through identity operands. bf16 and f32 (3xTF32), B = 2, H = KVH = 4,
+    D = 128, rate 0.5, dense and causal, through the S <= 8192 wrappers
+    (both kernels):
     - dk/dv: T = D = 128 queries against 300 keys, dout[q] = e_q, so
       dv[k, d] = p_v[d, k]: dv == 0 exactly where key k was dropped for
       query d;
@@ -600,20 +624,23 @@ def phase_backward_keep_mask(torch, device, rng):
       d was dropped for query q.
     On every allowed position the zeros must equal ``_keep_mask``, the
     plain backward's zeros too, and every other position must be zero. (In
-    the dk/dv kernel the hash's row is the fragment's column: a swapped
-    (q, k) passes every tolerance and only this check finds it.)"""
+    the dk/dv kernel the hash's row is the fragment's column, and the
+    3xTF32 kernels relabel the columns of p and ds: a swapped (q, k), or a
+    hash given a relabelled index, passes every tolerance and only this
+    check finds it.)"""
     from aat_tpu_torch.ops import attention as att
 
     b, h, d, n, rate, seed = 2, 4, 128, 300, 0.5, 13579
     scale = d ** -0.5
-    eye = torch.eye(d, device=device, dtype=torch.bfloat16)[None, :, None, :].expand(
-        b, d, h, d).contiguous()
+    for dtype_name, causal in ((x, c) for x in ("bfloat16", "float32") for c in (False, True)):
+        dtype = getattr(torch, dtype_name)
+        eye = torch.eye(d, device=device, dtype=dtype)[None, :, None, :].expand(
+            b, d, h, d).contiguous()
 
-    def gauss(rows):
-        return torch.from_numpy(rng.normal(0, 1, (b, rows, h, d)).astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
+        def gauss(rows):
+            return torch.from_numpy(rng.normal(0, 1, (b, rows, h, d)).astype(np.float32)).to(
+                device=device, dtype=dtype)
 
-    for causal in (False, True):
         bwd = att.flash_backward_causal_kernel if causal else att.flash_backward_kernel
         pkw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
         for kernel in ("dk/dv", "dq"):
@@ -642,13 +669,13 @@ def phase_backward_keep_mask(torch, device, rng):
             plain_differ = int((ref_kept != keep)[allowed].sum())
             stray = int(kept[~allowed].sum())
             print(f"backward keep mask: {kernel} kernel, {'causal' if causal else 'dense'} "
-                  f"[{b},{t},{h},{d}] against {s} keys, bf16 dropout {rate}: "
+                  f"[{b},{t},{h},{d}] against {s} keys, {dtype_name} dropout {rate}: "
                   f"{int(allowed.sum())} allowed positions, {int(keep[allowed].sum())} kept; "
                   f"kernel zeros differ from _keep_mask at {differ} (plain version "
                   f"{plain_differ}), nonzero outside the allowed positions {stray}", flush=True)
             check(differ == 0 and plain_differ == 0 and stray == 0,
-                  f"the {kernel} kernel's keep mask read through identity operands differs "
-                  "from _keep_mask")
+                  f"the {dtype_name} {kernel} kernel's keep mask read through identity operands "
+                  "differs from _keep_mask")
 
 
 def flagship_model(torch, device, seed=0):
@@ -747,13 +774,14 @@ def reset_entry_calls():
 
 # the flash kernels' C entries by dtype: forward, dq, dk/dv
 FLASH_ENTRIES = {"bfloat16": ("aat_flash_fwd_mma", "aat_flash_bwd_dq_mma", "aat_flash_bwd_dkv_mma"),
-                 "float32": ("aat_flash_fwd_tf32x3", "aat_flash_bwd_dq", "aat_flash_bwd_dkv")}
+                 "float32": ("aat_flash_fwd_tf32x3", "aat_flash_bwd_dq_tf32x3",
+                             "aat_flash_bwd_dkv_tf32x3")}
 
 
 def flash_entry_calls(calls, path, dtype_name, backward=True):
     """A path's flash launches all went through the C entries of its dtype
-    (``FLASH_ENTRIES``: the tensor-core kernels in bf16; in f32 the 3xTF32
-    forward and the FFMA backward), the backward's too unless ``backward``
+    (``FLASH_ENTRIES``: the tensor-core kernels, bf16 or 3xTF32), the
+    backward's too unless ``backward``
     is False (serving), and
     none through the other dtype's. Returns a copy of the path's launches by
     C entry."""
@@ -1238,8 +1266,9 @@ def planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out, ref_out
 
 
 def planted_backward_faults(torch, args, kw, grads, refs):
-    """The bf16 backward's gradient checks, held against faults planted
-    through the tensor-core entries' own arguments: the kept probabilities
+    """The backward's gradient checks, held against faults planted through
+    the C entries of q's dtype (``FLASH_ENTRIES``: bf16 or 3xTF32), with
+    their own arguments: the kept probabilities
     and dp left unscaled (``inv_keep`` 1 in place of 1/(1 - rate), with
     dropout), and the key tile ``FAULT_TILE`` masked in the kernels' key mask
     (not in the reference's). A control launch of both entries with the
@@ -1264,8 +1293,9 @@ def planted_backward_faults(torch, args, kw, grads, refs):
         delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
         inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
                   dout.data_ptr(), lse.data_ptr())
-        kernels.launch("aat_flash_bwd_dq_mma", q.device, *inputs, dq.data_ptr(), *rest)
-        kernels.launch("aat_flash_bwd_dkv_mma", q.device, *inputs, dk.data_ptr(), dv.data_ptr(),
+        _, dq_entry, dkv_entry = FLASH_ENTRIES[str(q.dtype)[6:]]
+        kernels.launch(dq_entry, q.device, *inputs, dq.data_ptr(), *rest)
+        kernels.launch(dkv_entry, q.device, *inputs, dk.data_ptr(), dv.data_ptr(),
                        delta.data_ptr(), *rest)
         rep = h // kvh
         return (dq, *(x.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype) for x in (dk, dv)))
@@ -1291,8 +1321,8 @@ def phase_split_backward(torch, device, rng):
     phase 7's tolerances: the forward kernel (out, lse), then the split
     route's dq and dk/dv kernels fed the plain forward's out and lse, each
     through the C entries of its dtype. The plain versions run through
-    :func:`plain_by_heads`. In bf16 faults are planted in the forward
-    (:func:`planted_faults`) and the backward
+    :func:`plain_by_heads`. Faults are planted in the bf16 forward
+    (:func:`planted_faults`) and in the backward of both dtypes
     (:func:`planted_backward_faults`). Returns the results for the kernels
     line: bf16 with SDPA's times and the bounds, the f32 results under
     ``f32_`` keys."""
@@ -1333,12 +1363,12 @@ def phase_split_backward(torch, device, rng):
             lse_err = float((lse - ref_lse)[live].abs().max())
             out_bound = FLASH_TOL[dtype_name] * (
                 max(1.0, float(ref_out.float().abs().max())) if dtype_name == "bfloat16" else 1.0)
-            faults, bwd_faults = {}, {}
+            faults = {}
             refs = (ref_dq, ref_dk, ref_dv)
             if dtype == torch.bfloat16:
                 faults = planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out,
                                         ref_out)
-                bwd_faults = planted_backward_faults(torch, args, kw, (dq, dk, dv), refs)
+            bwd_faults = planted_backward_faults(torch, args, kw, (dq, dk, dv), refs)
             errs = [float((a.float() - r.float()).abs().max()) for a, r in zip((dq, dk, dv), refs)]
             rel = [e / float(r.float().abs().max()) for e, r in zip(errs, refs)]
             grad_rel = [out_errors(a, r)[1] for a, r in zip((dq, dk, dv), refs)]
@@ -1401,32 +1431,29 @@ def phase_split_backward(torch, device, rng):
             measured = {"fwd": (out_err, out_rel, fwd_ms, fwd_plain_ms),
                         "dq": (errs[0], grad_rel[0], dq_ms, dq_plain_ms),
                         "dkv": (max(errs[1:]), max(grad_rel[1:]), dkv_ms, dkv_plain_ms)}
-            if dtype_name == "float32":
-                for kind, (err, ratio, ms, plain_ms) in measured.items():
-                    results[f"{kind}_{name}"] = {
-                        "f32_max_abs_err": err, "f32_norm_ratio": ratio, "f32_ms": ms,
-                        "f32_plain_ms": plain_ms,
-                        "f32_source": F32_SOURCE["fwd" if kind == "fwd" else "bwd"]}
-            else:
-                lib = sdpa_ms(torch, q, k, v, causal, rate)
-                inputs = (q, k, v, mask, ref_out, ref_lse, g)
-                bounds = {"fwd": attention_bound(torch, "fwd", (q, k, v, mask, out, lse), q,
-                                                 mask, causal, None, rate),
-                          "dq": attention_bound(torch, "dq", inputs + (dq,), q, mask, causal,
-                                                None, rate),
-                          "dkv": attention_bound(torch, "dkv", inputs + (dk, dv), q, mask,
-                                                 causal, None, rate)}
-                for kind, (err, ratio, ms, plain_ms) in measured.items():
-                    # SDPA's backward computes dq, dk and dv in one call: the
-                    # yardstick of each half of the split backward
-                    results[f"{kind}_{name}"].update(
-                        max_abs_err=err, norm_ratio=ratio, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib["fwd_ms" if kind == "fwd" else "bwd_ms"],
-                        bound_ms=bounds[kind][0], bound_by=bounds[kind][1])
-                print(f"long-form kernels: {label}: SDPA (FlashAttention backend, no key mask) fwd "
-                      f"{lib['fwd_ms']:.4f} ms bwd {lib['bwd_ms']:.4f} ms; bounds fwd "
-                      f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), dq "
-                      f"{bounds['dq'][0]:.4f} ms, dkv {bounds['dkv'][0]:.4f} ms", flush=True)
+            lib = sdpa_ms(torch, q, k, v, causal, rate)
+            inputs = (q, k, v, mask, ref_out, ref_lse, g)
+            bounds = {"fwd": attention_bound(torch, "fwd", (q, k, v, mask, out, lse), q,
+                                             mask, causal, None, rate),
+                      "dq": attention_bound(torch, "dq", inputs + (dq,), q, mask, causal,
+                                            None, rate),
+                      "dkv": attention_bound(torch, "dkv", inputs + (dk, dv), q, mask,
+                                             causal, None, rate)}
+            pre = "f32_" if dtype_name == "float32" else ""
+            for kind, (err, ratio, ms, plain_ms) in measured.items():
+                # SDPA's backward computes dq, dk and dv in one call: the
+                # yardstick of each half of the split backward
+                r = results.setdefault(f"{kind}_{name}", {})
+                r.update({f"{pre}max_abs_err": err, f"{pre}norm_ratio": ratio, f"{pre}ms": ms,
+                          f"{pre}plain_ms": plain_ms,
+                          f"{pre}library_ms": lib["fwd_ms" if kind == "fwd" else "bwd_ms"],
+                          f"{pre}bound_ms": bounds[kind][0], f"{pre}bound_by": bounds[kind][1]})
+                if pre:
+                    r["f32_source"] = F32_SOURCE["fwd" if kind == "fwd" else "bwd"]
+            print(f"long-form kernels: {label}: SDPA ({SDPA_BACKEND[dtype_name]} backend, no key "
+                  f"mask) fwd {lib['fwd_ms']:.4f} ms bwd {lib['bwd_ms']:.4f} ms; bounds fwd "
+                  f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), dq "
+                  f"{bounds['dq'][0]:.4f} ms, dkv {bounds['dkv'][0]:.4f} ms", flush=True)
             del q, k, v, g, out, lse, ref_out, ref_lse, args, dq, dk, dv
             torch.cuda.empty_cache()
     return results
@@ -1545,7 +1572,9 @@ def main():
     usage = ptxas_usage(lib.build_log)
     print(f"build: {time.perf_counter() - start:.1f} s (nvcc {lib.build_seconds:.1f} s) "
           f"{os.path.relpath(lib.path, REPO)}; ptxas: {' | '.join(usage)}", flush=True)
-    for kernel in ("flash_fwd_tf32x3", "vq_nearest"):  # the 3xTF32 kernels
+    # the kernels of the last two redesigns: 3xTF32 and the mel kernel
+    for kernel in ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3",
+                   "vq_nearest", "mel_kernel"):
         print(f"ptxas {kernel}: {' | '.join(u for u in usage if kernel in u)}", flush=True)
 
     rng = np.random.default_rng(0)
@@ -1668,6 +1697,9 @@ def main():
         check(all(key in k for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                        "max_abs_err")), f"kernel entry {k['name']} incomplete")
         check(k["launches"] > 0, f"kernel entry {k['name']}: no launch on its path")
+        if k["name"].startswith("flash_bwd"):
+            check(all(f"f32_{key}" in k for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
+                  f"kernel entry {k['name']}: f32 results incomplete")
     print(json.dumps(kernels_line), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""The flash backward's two kernel pairs: bf16 operands go to the
-tensor-core kernels (``aat_flash_bwd_dq_mma`` and ``aat_flash_bwd_dkv_mma``,
-``csrc/flash_bwd_mma.cu``), f32 operands to the FFMA kernels
-(``aat_flash_bwd_dq`` and ``aat_flash_bwd_dkv``), on the S <= 8192 route
+"""The flash backward's two kernel pairs, both on the tensor cores: bf16
+operands go to ``aat_flash_bwd_dq_mma`` and ``aat_flash_bwd_dkv_mma``
+(``csrc/flash_bwd_mma.cu``), f32 operands to the 3xTF32 kernels
+``aat_flash_bwd_dq_tf32x3`` and ``aat_flash_bwd_dkv_tf32x3``
+(``csrc/flash_bwd_tf32x3.cu``), on the S <= 8192 route
 and on the split route, behind one wrapper and counter per TPU kernel.
 
 The dispatch runs on the meta device with a library that records the C
@@ -32,7 +33,7 @@ from aat_tpu_torch.training.config import TrainingConfig
 from test_torch_flash_fwd_mma import meta_library  # noqa: F401  (the fixture)
 
 ENTRIES = {torch.bfloat16: ["aat_flash_bwd_dq_mma", "aat_flash_bwd_dkv_mma"],
-           torch.float32: ["aat_flash_bwd_dq", "aat_flash_bwd_dkv"]}
+           torch.float32: ["aat_flash_bwd_dq_tf32x3", "aat_flash_bwd_dkv_tf32x3"]}
 
 
 def meta_backward_operands(dtype, s, h=4, kvh=2, d=64):
@@ -82,7 +83,8 @@ def test_bf16_backward_refuses_unaligned_out_and_dout(meta_library, operand):
 
 
 def test_f32_backward_takes_any_start(meta_library):
-    """The FFMA kernels read elements one by one, so f32 has no such rule."""
+    """The 3xTF32 kernels read out with 4-byte loads (only delta =
+    rowsum(dout·out) reads it), so an f32 out may start anywhere."""
     q, k, v, mask, out, lse, dout = meta_backward_operands(torch.float32, 300)
     out = torch.empty(out.numel() + 8, device="meta")[3:3 + out.numel()].view(out.shape)
     tatt.flash_backward(q, k, v, mask, out, lse, dout, 0.125, True, 0.0, 0, None)

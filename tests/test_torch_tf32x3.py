@@ -1,5 +1,6 @@
-"""3xTF32, the arithmetic of the two f32 tensor-core kernels
-(``csrc/flash_fwd_tf32x3.cu`` and ``csrc/vq.cu``), emulated on the CPU.
+"""3xTF32, the arithmetic of the f32 tensor-core kernels
+(``csrc/flash_fwd_tf32x3.cu``, ``csrc/flash_bwd_tf32x3.cu`` and
+``csrc/vq.cu``), emulated on the CPU.
 
 No kernel runs here, so this file holds the arithmetic the kernels use to
 the JAX package's f32 results and to the f32 contracts that
@@ -20,7 +21,13 @@ the JAX package's f32 results and to the f32 contracts that
   t4 + 4 key 2·t4 + 1, V read in that order) equals the plain product, and
   a dropout hash given the relabelled key index in place of the true one
   drops keys with the same distribution but not ``_keep_mask``'s, which
-  only the identity construction (v = I) shows."""
+  only the identity construction (v = I) shows;
+- (d) the backward: against the JAX flash backward (Pallas in interpret
+  mode) the 3xTF32 dq, dk and dv lie within the f32 gradient bounds (1e-3
+  of max|ref|, 1e-4 norm ratio) and one-pass TF32's do not; the kernels'
+  relabelled dS·K and P_v^T·dout equal the plain products; and a hash
+  given the relabelled index in place of the true one breaks the identity
+  checks (dout = I; k = v = I) while keeping the share of kept entries."""
 
 import numpy as np
 import pytest
@@ -302,3 +309,148 @@ def test_a_relabelled_hash_index_breaks_only_the_identity_check():
                                         torch.ones((b, s), dtype=torch.int32), None, False,
                                         rate, seed)
     assert torch.equal((ref != 0).permute(0, 2, 1, 3), keep)
+
+
+# ------------------------------------------------------------- (d) backward
+
+BWD_DROPOUT = (0.1, 24680)  # rate, seed
+
+
+def emulated_backward(q, k, v, mask, out, lse, dout, causal, matmul, rate, seed):
+    """The 3xTF32 backward kernels with their products taken by ``matmul``:
+    q_s = q·sm_scale in f32, masked scores at -2e30, p = exp(s - lse), dp
+    and p_v dropped and scaled by the keep mask, delta = rowsum(dout·out),
+    ds = p·(dp - delta); dq = (ds·k)·sm_scale, dk = ds^T·q_s and dv =
+    p_v^T·dout per q-head, summed over the heads that share a kv head.
+    Operands [B, T, H, D] (k, v [B, S, KVH, D]) and lse [B, H, T]."""
+    qt, kt, vt, ot, dt = (torch.from_numpy(x) for x in (q, k, v, out, dout))
+    b, t, h, d = qt.shape
+    s, kvh = kt.shape[1], kt.shape[2]
+    scale = d ** -0.5
+    kr, vr = tatt._repeat_kv(kt, vt, h, axis=2)
+    qs = (qt * scale).transpose(1, 2)  # [B, H, T, D]
+    kh, vh, doh = kr.transpose(1, 2), vr.transpose(1, 2), dt.transpose(1, 2)
+    scores = matmul(qs, kh.transpose(-1, -2))
+    allowed = tatt._allowed(torch.from_numpy(mask), t, s, causal, None)
+    scores = torch.where(allowed, scores, torch.full_like(scores, tatt.MASK))
+    p = torch.exp(scores - torch.from_numpy(lse)[..., None])
+    dp = matmul(doh, vh.transpose(-1, -2))
+    keep = tatt._keep_mask(seed, b, h, t, s, rate, "cpu")
+    p_v = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
+    dp = torch.where(keep, dp / (1.0 - rate), torch.zeros_like(dp))
+    delta = (dt * ot).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta)
+    dq = (matmul(ds, kh) * scale).transpose(1, 2)
+    dk = matmul(ds.transpose(-1, -2), qs).transpose(1, 2)
+    dv = matmul(p_v.transpose(-1, -2), doh).transpose(1, 2)
+    rep = h // kvh
+    dk, dv = (x.reshape(b, s, kvh, rep, d).sum(3) for x in (dk, dv))
+    return tuple(x.numpy() for x in (dq, dk, dv))
+
+
+@pytest.fixture(scope="module")
+def backward_results():
+    """{case: (jax (dq, dk, dv), {matmul: (dq, dk, dv)})}: the JAX flash
+    forward and backward (Pallas in interpret mode) with dropout, and the
+    emulated kernels fed JAX's out and lse."""
+    rate, seed = BWD_DROPOUT
+    results = {}
+    for n, (name, (causal, h, kvh, d)) in enumerate(FLASH_CASES.items()):
+        q, k, v, mask = flash_case(10 + n, causal, h, kvh, d)
+        dout = np.random.default_rng(20 + n).normal(0, 1, q.shape).astype(np.float32)
+        qj, kj, vj, dj = (jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v, dout))
+        maskj = jnp.asarray(mask)
+        b, t = q.shape[:2]
+        out_j, lse_j, _ = jatt._flash_forward(qj, kj, vj, maskj, causal, d ** -0.5,
+                                              dropout_rate=rate, dropout_seed=jnp.int32(seed))
+        grads = jatt._flash_backward(qj, kj, vj, maskj, out_j, lse_j, causal, d ** -0.5, dj,
+                                     dropout_rate=rate, dropout_seed=jnp.int32(seed))
+        want = tuple(np.asarray(x).transpose(0, 2, 1, 3) for x in grads)
+        out = np.array(out_j).transpose(0, 2, 1, 3).copy()
+        lse = np.array(lse_j)[:, :t, 0].reshape(b, h, t)
+        results[name] = (want, {mm: emulated_backward(q, k, v, mask, out, lse, dout, causal, fn,
+                                                      rate, seed)
+                                for mm, fn in MATMULS.items()})
+    return results
+
+
+def grad_errors(got, want):
+    """Phase 7's readings of each of dq, dk, dv: max abs error over max|ref|
+    and the norm ratio."""
+    return [(float(np.abs(g - w).max() / np.abs(w).max()),
+             float(np.linalg.norm(g.astype(np.float64) - w) / np.linalg.norm(w)))
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_backward_3xtf32_within_the_f32_bounds(backward_results, case):
+    want, emulated = backward_results[case]
+    for rel, ratio in grad_errors(emulated["3xtf32"], want):
+        assert rel <= chip_smoke.GRAD_REL_TOL["float32"], (rel, ratio)
+        assert ratio <= chip_smoke.GRAD_NORM_TOL["float32"], (rel, ratio)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_backward_one_pass_tf32_fails_the_f32_bounds(backward_results, case):
+    """A backward that drops the lo terms is caught by the same checks: at
+    least one of dq, dk and dv leaves the norm-ratio bound."""
+    want, emulated = backward_results[case]
+    errs = grad_errors(emulated["tf32"], want)
+    assert any(rel > chip_smoke.GRAD_REL_TOL["float32"]
+               or ratio > chip_smoke.GRAD_NORM_TOL["float32"] for rel, ratio in errs), errs
+
+
+@pytest.mark.parametrize("product", ["dS·K", "P_v^T·dout"])
+def test_relabelled_backward_products_equal_the_plain_products(product):
+    """dq's dS·K (A columns keys) and dk/dv's P_v^T·dout (A columns
+    queries): the columns of A and the rows of B in the kernels' relabelled
+    order give the plain product up to the order of the f32 sums."""
+    rng = np.random.default_rng(4 if product == "dS·K" else 5)
+    rows, inner, cols = (16, 32, 64) if product == "dS·K" else (16, 32, 128)
+    x = rng.normal(0, 1, (rows, inner)) if product == "dS·K" else rng.uniform(0, 1, (rows, inner))
+    a = torch.from_numpy(x.astype(np.float32))
+    bm = torch.from_numpy(rng.normal(0, 1, (inner, cols)).astype(np.float32))
+    perm = torch.from_numpy(relabel(inner))
+    got = matmul_3xtf32(a[:, perm], bm[perm])
+    exact = a.double() @ bm.double()
+    scale = a.double().abs() @ bm.double().abs()
+    assert float(((got.double() - exact).abs() / scale).max()) < 1e-6
+    assert torch.allclose(got, matmul_3xtf32(a, bm), rtol=0, atol=1e-5)
+
+
+def identity_backward(p, keep, rate, transposed, hash_index):
+    """The zeros of the backward identity constructions as the kernels take
+    them. ``transposed`` (dk/dv: dout = I, so dv = p_v^T): rows are keys and
+    the relabelled A columns queries; else (dq: k = v = I, out = 0, so dq
+    is sm_scale·ds): rows are queries and the columns keys. The keep test
+    takes each A column's true index (``hash_index`` "true") or its
+    relabelled position ("relabelled"). Returns the nonzeros, oriented as
+    ``keep`` [B, H, T, S]."""
+    x = p.transpose(-1, -2) if transposed else p
+    kept = keep.transpose(-1, -2) if transposed else keep
+    n = x.shape[-1]
+    perm = torch.from_numpy(relabel(n))
+    a = x[..., perm]
+    test = kept[..., perm] if hash_index == "true" else kept
+    a = torch.where(test, a / (1.0 - rate), torch.zeros_like(a))
+    got = matmul_3xtf32(a, torch.eye(n)[perm]) != 0
+    return got.transpose(-1, -2) if transposed else got
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_a_relabelled_backward_hash_breaks_only_the_identity_check(kernel):
+    """With the true index the zeros are ``_keep_mask``'s; with the
+    relabelled position they keep the same share of entries but differ
+    from it on many positions."""
+    rng = np.random.default_rng(6)
+    b, h, t, s, rate, seed = 2, 2, 24, 16, 0.5, 13579
+    if kernel == "dkv":
+        t, s = s, t  # T = D queries against more keys
+    p = torch.from_numpy(rng.uniform(0.01, 1.0, (b, h, t, s)).astype(np.float32))
+    keep = tatt._keep_mask(seed, b, h, t, s, rate, "cpu")
+    transposed = kernel == "dkv"
+    right = identity_backward(p, keep, rate, transposed, "true")
+    wrong = identity_backward(p, keep, rate, transposed, "relabelled")
+    assert torch.equal(right, keep)
+    assert int((wrong != keep).sum()) > keep.numel() // 8
+    assert abs(float(wrong.float().mean()) - float(keep.float().mean())) < 0.05
