@@ -28,7 +28,7 @@
 //     share each word they read: a k costs the warp 4 shared wavefronts
 //     (2 for its 64 basis words, 2 for its frames) against 16 SM clocks of
 //     its FFMAs. Lanes that all read other columns of the same frames would
-//     need 16: shared memory, not the FFMA pipes, would bound the kernel.
+//     need 16, as many as those clocks.
 //   - The basis is laid out on the host in the kernel's order (ops/mel.py
 //     `kernel_basis`): [400][416], cos and sin interleaved per bin, bins
 //     padded to 208 = 52 threads x 4 bins. Thread c owns the float4s at
@@ -55,7 +55,9 @@
 //     wrapper passes the framing's strided view without a copy.
 // Each DFT sum runs k = 0..399 in one FFMA chain, and the power (two
 // products and an add, not fused) and the fold keep the first version's
-// order: the same arithmetic in the same order as that version.
+// order: the same arithmetic in the same order as that version. On the
+// card it reaches a third of its bound (PERF.md); its FFMA loop alone runs
+// below half the FFMA rate, for a reason not yet measured.
 #include "mma_common.cuh"  // the cp.async copies; mel runs no tensor-core instruction
 
 namespace {
