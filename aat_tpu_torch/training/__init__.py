@@ -1,1 +1,2 @@
-"""Training: config, LR schedule, optimizer and the ASLM trainer."""
+"""Training: config, LR schedule, optimizer, the ASLM trainer, its
+checkpoint files, generation and evaluation metrics."""

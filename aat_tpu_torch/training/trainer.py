@@ -2,8 +2,10 @@
 device: audio encoding → projection → input assembly → caption
 cross-entropy, gradient accumulation over microbatches, and the fused
 guarded AdamW update, through the same entry points as the JAX package
-(``AATTrainer(model, params, config).training_step(microbatches)`` and
-``AATTrainer.train(batches)``).
+(``AATTrainer(model, params, config).training_step(microbatches)``,
+``train(batches, eval_batches=..., resume_from_checkpoint=...)``,
+``evaluate``, ``save_checkpoint`` / ``restore_checkpoint``,
+``save_pretrained`` and ``finalize``).
 
 Mixed precision as in JAX: the parameters are float32 masters; with
 ``compute_dtype="bfloat16"`` the forward runs on differentiable bf16
@@ -11,22 +13,31 @@ copies, so the gradients land on the masters in float32. Frozen subtrees
 are detached (``_stop_grad_frozen``): no parameter gradient is formed for
 them, while activation gradients still flow through them (through the
 frozen LM to the audio embeddings, which runs the causal flash backward).
+Evaluation's loss runs at the compute dtype; its generation prefix encodes
+with the f32 masters, uncast, as JAX's does.
 
 Train-mode dropout seeds derive from ``(config.seed, step, microbatch)``
 alone (:func:`~aat_tpu_torch.ops.dropout.fold_seed`), so a resumed run
-would draw the same masks. The JAX package gets this from ``fold_in``; its
+draws the same masks. The JAX package gets this from ``fold_in``; its
 bits cannot be reproduced here, so the two trainers' dropout masks differ
 by construction (parity tests run with dropout off or with explicit seeds).
 
-Not ported yet (ROADMAP Queue 1): evaluation and generation, checkpoints,
-adafactor and the unfused optimizer chain, remat, EfficientNet melspec
-batches, multi-device meshes.
+Checkpoints are the port's own files (:mod:`~aat_tpu_torch.training.
+checkpoint`) in JAX's ``checkpoint-{step}`` layout; a JAX run's orbax
+state converts into them through :func:`aat_tpu_torch.utils.port.
+checkpoint_from_jax`.
+
+Not ported yet (ROADMAP Queue 1): adafactor and the unfused optimizer
+chain, ``unfreeze_lm_decoder``, remat, EfficientNet melspec batches,
+multi-device meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import shutil
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
@@ -36,6 +47,7 @@ import torch.nn.functional as F
 
 from aat_tpu_torch.models.aslm import AslmModel
 from aat_tpu_torch.ops.dropout import fold_seed
+from aat_tpu_torch.training import checkpoint as ckpt_lib
 from aat_tpu_torch.training import optim as optim_lib
 from aat_tpu_torch.training.config import TrainingConfig
 from aat_tpu_torch.training.lr_schedule import warmup_linear_schedule
@@ -95,6 +107,9 @@ class AATTrainer:
         self.tx = self._build_tx(params)
         self.device = optim_lib.tree_leaves(params)[0].device
         self.state = TrainState(0, params, self.tx.init(params))
+        # load_best_model_at_end bookkeeping
+        self._best_metric: Optional[float] = None
+        self._best_checkpoint: Optional[str] = None
 
     def _build_tx(self, params):
         cfg = self.config
@@ -295,28 +310,45 @@ class AATTrainer:
                            host["train/loss"], self.state.step)
         return host
 
-    def train(self, train_batches: Iterable[dict], eval_batches=None,
+    def train(self, train_batches: Iterable[dict],
+              eval_batches: Optional[Callable[[], Iterable[dict]]] = None,
               resume_from_checkpoint: Optional[str] = None, fast_forward: bool = False):
         """Run one epoch over ``train_batches``: a step every
         ``gradient_accumulation_steps`` microbatches (a trailing partial
-        group is dropped), metrics logged every ``logging_steps``, stop at
-        ``max_steps``. Evaluation, checkpoints and resume are not ported
-        yet (ROADMAP Queue 1): passing them raises, and so does a run that
-        could reach a multiple of ``save_steps``, before its first step."""
-        if eval_batches is not None or resume_from_checkpoint or fast_forward:
-            raise NotImplementedError(
-                "evaluation, checkpoints and resume are not ported yet (ROADMAP Queue 1)")
+        group is dropped), metrics logged every ``logging_steps``, an
+        evaluation of ``eval_batches()`` every ``eval_steps``, a checkpoint
+        every ``save_steps``, stop at ``max_steps`` (or early stopping).
+        ``resume_from_checkpoint`` restores in place first, then
+        fast-forwards; ``fast_forward`` skips the microbatches that the
+        restored step implies this epoch already consumed (HF
+        ``resume_from_checkpoint`` semantics; whole completed epochs are the
+        caller's to skip)."""
         cfg = self.config
-        if cfg.save_steps:
-            next_save = (self.state.step // cfg.save_steps + 1) * cfg.save_steps
-        if cfg.save_steps and (cfg.max_steps is None or cfg.max_steps >= next_save):
-            raise NotImplementedError(
-                f"save_steps={cfg.save_steps} would write a checkpoint at step {next_save}, and "
-                "checkpoints are not ported yet (ROADMAP Queue 1 item 1): set save_steps=0 or "
-                f"max_steps below {next_save}")
+        skip_micro = 0
+        if resume_from_checkpoint:
+            self.restore_checkpoint(resume_from_checkpoint)
+            fast_forward = True
+        if fast_forward:
+            # an epoch consumes steps_per_epoch * accum microbatches (the
+            # trailing partial group is dropped), so the position within the
+            # epoch is step % steps_per_epoch
+            if hasattr(train_batches, "__len__") and len(train_batches) > 0:
+                steps_per_epoch = len(train_batches) // cfg.gradient_accumulation_steps
+                if steps_per_epoch > 0:
+                    skip_micro = ((self.state.step % steps_per_epoch)
+                                  * cfg.gradient_accumulation_steps)
+            logger.info("resume: skipping %d microbatches", skip_micro)
+        early_stopping = (EarlyStopping(cfg.early_stopping_patience, cfg.early_stopping_threshold)
+                          if cfg.early_stopping_patience else None)
+
         micro: List[dict] = []
+        last_eval_metric: Optional[float] = None
+        last_eval_step: Optional[int] = None
         t_start = time.time()
         for batch in train_batches:
+            if skip_micro > 0:
+                skip_micro -= 1
+                continue
             micro.append(batch)
             if len(micro) < cfg.gradient_accumulation_steps:
                 continue
@@ -329,9 +361,305 @@ class AATTrainer:
                 metrics["train/lr"] = float(self.schedule(step))
                 self.log_fn(metrics)
                 t_start = time.time()
+            if cfg.eval_steps and step % cfg.eval_steps == 0 and eval_batches is not None:
+                eval_metrics = self.evaluate(eval_batches())
+                self.log_fn(eval_metrics)
+                last_eval_metric = eval_metrics.get(cfg.metric_for_best_model)
+                last_eval_step = step
+                if early_stopping is not None and early_stopping.should_stop(eval_metrics):
+                    logger.info("early stopping at step %d", step)
+                    break
+            if cfg.save_steps and step % cfg.save_steps == 0:
+                # best-model credit only for a metric measured on THESE
+                # weights (an earlier eval's would credit a checkpoint that
+                # never achieved it)
+                fresh_metric = last_eval_metric if last_eval_step == step else None
+                path = self.save_checkpoint(metric=fresh_metric)
+                self._track_best(path, fresh_metric)
             if cfg.max_steps is not None and step >= cfg.max_steps:
                 break
         return self.state
+
+    def _track_best(self, path: str, metric: Optional[float]):
+        if metric is None:
+            return
+        better = self._best_metric is None or (
+            metric > self._best_metric if self.config.greater_is_better
+            else metric < self._best_metric)
+        if better:
+            self._best_metric = metric
+            self._best_checkpoint = path
+
+    def finalize(self):
+        """End-of-training hook: reload the best checkpoint's params when
+        ``load_best_model_at_end``. Only the weights roll back: the step and
+        the optimizer state stay, so a later ``save_checkpoint`` does not
+        stamp earlier moments with the final step."""
+        if not (self.config.load_best_model_at_end and self._best_checkpoint):
+            return
+        logger.info("loading best model (%s=%s) from %s", self.config.metric_for_best_model,
+                    self._best_metric, self._best_checkpoint)
+        step, opt_state = self.state.step, self.state.opt_state
+        self.restore_checkpoint(self._best_checkpoint, restore_opt_state=False)
+        self.state = TrainState(step, self.state.params, opt_state)
+
+    # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+
+    def _eval_loss(self, params, batch) -> torch.Tensor:
+        """Caption CE of a device batch at the compute dtype, no dropout
+        (the JAX ``_eval_step``), as a device scalar."""
+        with torch.no_grad():
+            logits, _ = self._assemble_and_forward(params, batch)
+            return caption_cross_entropy(logits, batch["input_ids"],
+                                         batch["input_ids_attention_mask"])
+
+    def _prefix_inputs(self, params, batch) -> dict:
+        """[audio | prefix text] embeds for generation, encoded with the f32
+        masters as they are (no compute-dtype cast), from whole-utterance,
+        segmented or raw-waveform device batches."""
+        model = self.model
+        with torch.no_grad():
+            if "raw_waveforms" in batch:
+                batch = self._segment_on_device(batch)
+            if "batched_segments_melspectrograms" in batch:
+                raise NotImplementedError(
+                    "EfficientNet melspec batches are not ported yet (ROADMAP Queue 1, EfficientNet)")
+            if "batched_segments" in batch:
+                seg = batch["batched_segments"]
+                b, s, f = seg.shape
+                audio_embeds, frame_mask = model.encode_audio(
+                    params, seg.reshape(b * s, f).float(),
+                    batch["segments_waveforms_mask"].reshape(b * s, f),
+                    batch["segments_boarders_attention_mask"].reshape(b * s))
+                segments_count = s
+            else:
+                audio_embeds, frame_mask = model.encode_audio(
+                    params, batch["waveforms"].float(), batch["waveforms_attention_mask"])
+                segments_count = None
+            return model.prepare_audio_inputs(
+                params, audio_embeds=audio_embeds, frame_mask=frame_mask,
+                input_ids=batch["prefix_input_ids"], attention_mask=batch["prefix_attention_mask"],
+                segments_count=segments_count)
+
+    def generate_for_batch(self, batch, max_new_tokens: Optional[int] = None,
+                           fetch: bool = True):
+        """Generation with the reference's eval settings unless
+        ``generation_config`` overrides them: beam 3, repetition penalty 2.5,
+        no-repeat-4-gram, early stopping, pad = forced eos = eos (the
+        tokenizer's, else 2), ``max_new_tokens`` the caption length rounded
+        up to 16. Returns numpy ids, or the device tensor unless ``fetch``."""
+        from aat_tpu_torch.training.generate import GenerationConfig, generate
+
+        inputs = self._prefix_inputs(self.state.params, self._to_device(batch))
+        if max_new_tokens is None:
+            max_new_tokens = int(-(-batch["input_ids"].shape[1] // 16) * 16)
+        base = self.generation_config
+        eos = self.tokenizer.eos_token_id if self.tokenizer is not None else 2
+        gcfg = GenerationConfig(
+            max_new_tokens=max_new_tokens,
+            num_beams=base.num_beams if base else 3,
+            repetition_penalty=base.repetition_penalty if base else 2.5,
+            no_repeat_ngram_size=base.no_repeat_ngram_size if base else 4,
+            eos_token_id=eos, pad_token_id=eos,
+            early_stopping=base.early_stopping if base else True,
+            forced_eos_token_id=eos)
+        out = generate(self.state.params["lm_decoder"], self.model.lm_config,
+                       inputs["inputs_embeds"], inputs["attention_mask"], gcfg)
+        return out.cpu().numpy() if fetch else out
+
+    def evaluate(self, eval_batches: Iterable[dict],
+                 with_generation: Optional[bool] = None) -> Dict[str, float]:
+        """``eval/loss`` (the mean of the batches' losses) and, with
+        generation (by default when ``compute_metrics`` is set), the
+        metrics of the generated ids against the captions. The losses and
+        ids come to the host in one transfer after the loop."""
+        if with_generation is None:
+            with_generation = self.compute_metrics is not None
+        losses, generated, references, prefixes = [], [], [], []
+        for batch in eval_batches:
+            db = self._to_device(batch)
+            losses.append(self._eval_loss(self.state.params, db))
+            if with_generation:
+                generated.append(self.generate_for_batch(db, fetch=False))
+                references.append(db["input_ids"])
+                prefixes.append(db["prefix_input_ids"])
+        host = _fetch(losses + generated + references + prefixes)
+        n, g = len(losses), len(generated)
+        losses = [float(x) for x in host[:n]]
+        generated, references, prefixes = host[n:n + g], host[n + g:n + 2 * g], host[n + 2 * g:]
+        metrics = {"eval/loss": float(np.mean(losses)) if losses else float("nan")}
+        if self.compute_metrics is not None and references:
+            def pad_cat(arrays, pad=0):
+                width = max(a.shape[1] for a in arrays)
+                return np.concatenate([
+                    np.pad(a, ((0, 0), (0, width - a.shape[1])), constant_values=pad)
+                    for a in arrays])
+
+            metrics.update(self.compute_metrics(
+                generated_ids=pad_cat(generated), inputs_ids=pad_cat(references),
+                prefix_ids=pad_cat(prefixes)))
+        return metrics
+
+    # ------------------------------------------------------------------
+    # Checkpoints
+    # ------------------------------------------------------------------
+
+    def _ckpt_dir(self, step: Optional[int] = None) -> str:
+        step = self.state.step if step is None else step
+        return os.path.join(self.config.output_dir, f"checkpoint-{step}")
+
+    def save_checkpoint(self, path: Optional[str] = None,
+                        metric: Optional[float] = None) -> str:
+        """Full-fidelity checkpoint: params, optimizer state and step (the
+        schedule is a function of the step), and ``trainer_meta.json`` with
+        the freeze flags and, when given, the eval ``metric``."""
+        path = os.path.abspath(path or self._ckpt_dir())
+        ckpt_lib.write_params(path, self.state.step, self.state.params)
+        ckpt_lib.write_optimizer(path, self.state.opt_state)
+        meta = {"step": self.state.step, "train_lm_decoder": self.config.train_lm_decoder,
+                "train_audio_encoder": self.config.train_audio_encoder}
+        if metric is not None:
+            meta[self.config.metric_for_best_model] = metric
+        ckpt_lib.write_json(path, ckpt_lib.META_FILE, meta)
+        self._prune_checkpoints()
+        logger.info("saved checkpoint %s", path)
+        return path
+
+    def save_pretrained(self, path: str) -> str:
+        """Export filtered by the train flags, as the reference's
+        ``save_pretrained``: the adapter always, the audio encoder and the
+        LM decoder only when trained; ``config.json`` describes the model
+        (:func:`~aat_tpu_torch.models.build.model_config_dict`)."""
+        from aat_tpu_torch.models.build import model_config_dict
+
+        keep = {"adapter": self.state.params["adapter"]}
+        if self.config.train_audio_encoder:
+            keep["audio_encoder"] = self.state.params["audio_encoder"]
+        if self.config.train_lm_decoder:
+            keep["lm_decoder"] = self.state.params["lm_decoder"]
+        path = os.path.abspath(path)
+        ckpt_lib.write_params(path, self.state.step, keep)
+        ckpt_lib.write_json(path, "config.json",
+                            model_config_dict(self.model, self.config, sorted(keep)))
+        logger.info("saved filtered model (%s) to %s", sorted(keep), path)
+        return path
+
+    def _prune_checkpoints(self):
+        """``save_total_limit``: keep the newest checkpoints; the best is
+        never pruned (``load_best_model_at_end`` needs it)."""
+        limit, base = self.config.save_total_limit, self.config.output_dir
+        if not limit or not os.path.isdir(base):
+            return
+        protected = os.path.basename(self._best_checkpoint) if self._best_checkpoint else None
+        ckpts = sorted((d for d in os.listdir(base)
+                        if d.startswith("checkpoint-") and d != protected),
+                       key=lambda d: int(d.split("-")[-1]))
+        for stale in ckpts[:-limit]:
+            shutil.rmtree(os.path.join(base, stale), ignore_errors=True)
+
+    def restore_checkpoint(self, path: str, partial: bool = True,
+                           restore_opt_state: bool = True):
+        """Restore params, optimizer state and step, by the first route that
+        fits: the exact one (every param and moment of this trainer's
+        trees); params only (the optimizer state re-initialised, with a
+        warning when it was asked for); an export with some subtrees
+        (``partial``: the missing ones kept from this trainer's build, the
+        reference's ``_keys_to_ignore_on_load_missing``; else raises)."""
+        path = os.path.abspath(path)
+        saved = ckpt_lib.read_params(path, self.device)
+        flat = saved["params"]
+        opt_state = None
+        try:
+            params = ckpt_lib.unflatten_like(self.state.params, flat)
+            if restore_opt_state:
+                opt_state = self._read_opt_state(path)
+        except (KeyError, ValueError):
+            params = None
+        if params is None:
+            params = self._merge_saved_subtrees(path, flat, partial)
+        if restore_opt_state and opt_state is None:
+            logger.warning("checkpoint %s: optimizer state not restorable; re-initializing "
+                           "(Adam moments reset)", path)
+        self.state = TrainState(int(saved["step"]), params,
+                                opt_state if opt_state is not None else self.tx.init(params))
+        logger.info("restored checkpoint %s at step %d", path, self.state.step)
+
+    def _read_opt_state(self, path: str):
+        """The saved optimizer state in this trainer's tree, or None where
+        the file is missing or its trainable leaves differ."""
+        raw = ckpt_lib.read_optimizer(path, self.device)
+        if raw is None:
+            return None
+        trainable = {k for k, t in ckpt_lib.flatten(self.freeze).items() if t}
+        if set(raw["mu"]) != trainable or set(raw["nu"]) != trainable:
+            return None
+        cur = self.state.opt_state
+        return optim_lib.FusedGuardedAdamWState(
+            raw["count"].to(cur.count.dtype), ckpt_lib.unflatten_like(cur.mu, raw["mu"]),
+            ckpt_lib.unflatten_like(cur.nu, raw["nu"]),
+            raw["total_notfinite"].to(cur.total_notfinite.dtype))
+
+    def _merge_saved_subtrees(self, path: str, flat: dict, partial: bool) -> dict:
+        """The saved top-level subtrees merged into this trainer's params."""
+        saved_keys = {k.split(".", 1)[0] for k in flat}
+        unknown = saved_keys - set(self.state.params)
+        if unknown:
+            raise ValueError(f"checkpoint {path} has unknown param subtree(s) {sorted(unknown)}")
+        missing = set(self.state.params) - saved_keys
+        if missing:
+            if not partial:
+                raise ValueError(f"checkpoint {path} lacks {sorted(missing)} and partial "
+                                 "restore is disabled")
+            logger.info("partial restore: %s kept from the fresh build "
+                        "(_keys_to_ignore_on_load_missing semantics)", sorted(missing))
+        merged = dict(self.state.params)
+        for key in saved_keys:
+            merged[key] = ckpt_lib.unflatten_like(self.state.params[key], flat, f"{key}.")
+        return merged
+
+
+def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Device tensors → numpy in ONE device-to-host copy: each flattened to
+    float64 (exact for f32 values and for integer ids below 2**53), then
+    split and cast back (integers to int64)."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).double() for t in tensors]).cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        x = flat[i:i + t.numel()].reshape(tuple(t.shape))
+        out.append(x if t.dtype.is_floating_point else x.astype(np.int64))
+        i += t.numel()
+    return out
+
+
+read_checkpoint_meta = ckpt_lib.read_checkpoint_meta
+
+
+class EarlyStopping:
+    """Stop after ``patience`` evals without ``threshold`` improvement of
+    ``metric`` (the reference builds HF's EarlyStoppingCallback with these
+    semantics and leaves it commented out)."""
+
+    def __init__(self, patience: int, threshold: float = 0.01, metric: str = "eval/loss"):
+        self.patience = patience
+        self.threshold = threshold
+        self.metric = metric
+        self.best = float("inf")
+        self.strikes = 0
+
+    def should_stop(self, metrics: Dict[str, float]) -> bool:
+        value = metrics.get(self.metric)
+        if value is None:
+            return False
+        if value < self.best - self.threshold:
+            self.best = value
+            self.strikes = 0
+        else:
+            self.strikes += 1
+        return self.strikes >= self.patience
 
 
 class AATTrainerSegmentation(AATTrainer):

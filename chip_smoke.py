@@ -110,12 +110,41 @@ Phases, one line each:
      the S <= 8192 backward kernels not, every flash launch through the
      tensor-core entries; then one more step under ``torch.profiler``
      (``aat_tpu_torch/build/longform_profile.txt``).
+ 12. train → evaluate → save → resume → finalize at full width, run right
+     after phase 8 on its model and weights, with cuDNN's deterministic
+     algorithms, in a temporary directory under the build directory that
+     it deletes: run A, ``projection_training_config()`` with
+     ``eval_steps = save_steps = 2``, ``max_steps = 4``, one microbatch of
+     2 utterances (8-20 s) a step, ``train(batches, eval_batches=...)``
+     over 2 eval batches with a text prefix, ``ComputeMetrics`` through a
+     decode-only word tokenizer (eos 2): ``checkpoint-2`` and
+     ``checkpoint-4`` with their ``trainer_meta.json``, two evals with a
+     finite ``eval/loss`` and every metric, beam-3 generation with the
+     reference's settings; ``finalize()`` brings back the best
+     checkpoint's weights and keeps step 4 and its moments, bit for bit;
+     ``save_pretrained`` then ``build_model(from_pretrained_adapter=...)``
+     gives the adapter back bit for bit; run B, a fresh trainer on that
+     build, ``train(batches, resume_from_checkpoint=checkpoint-2)``: the
+     restored state equals what run A saved, the fast-forward skips
+     exactly steps 1-2's microbatches, and the step-4 params, moments,
+     counts and step equal run A's bit for bit. The training steps and
+     the eval loss launch through the ``*_mma`` entries only, each
+     generation prefix (f32 masters) through ``aat_flash_fwd_tf32x3`` only,
+     rows 2-5 each at least once. The generation ids of the kernel prefix
+     route equal the plain route's, or differ first at a step where the
+     plain route's top-2 log-prob gap (teacher-forced on the shared ids)
+     is below 1e-4. It prints the eval walls, generation tokens/s, and the
+     checkpoint save and restore seconds with bytes, beside the card's
+     name and power limit.
 Launch counters are reset just before each main path (the two serving
-runs, the 3 training steps, the pipeline, the 2 long-form steps) and read
-just after; each kernel of the path must have launched there, and each
-path's flash launches must all go through the C entries of one dtype
-(serving's f32 forward through ``aat_flash_fwd_tf32x3``, training's and long-form
-training's bf16 forward and backward through the ``*_mma`` entries). Then a
+runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
+long-form steps) and read just after; each kernel of the path must have
+launched there, and each path's flash launches must all go through the C
+entries of one dtype (serving's f32 forward through
+``aat_flash_fwd_tf32x3``, training's and long-form training's bf16 forward
+and backward through the ``*_mma`` entries; phase 12's generation prefixes
+are counted apart, as the path ``train_eval_prefix``, from its bf16 part,
+``train_eval``). Then a
 JSON line of kernel results, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. In the kernel line the flash entries
 report bf16 (the tensor-core kernels, counting only launches through their
@@ -165,6 +194,7 @@ SPLIT_CASES = (((1, 8499, 16, 64), False, (0.1, 24680)),
                ((1, 8540, 16, 128), True, (0.0, 0)))
 PLAIN_HEADS = 4  # heads per call of a plain version in phase 11
 LONGFORM_SECONDS = (170.0, 180.0)
+EVAL_EOS = 2  # the eos id of phase 12's tokenizer (captions use ids >= 3)
 
 MEL_TOL = 1e-4
 # the first FFMA mel kernel at phase 3's shape, chip run 5 of PR 6 (NVIDIA
@@ -961,6 +991,317 @@ def profile_training_step(torch, trainer, micro, name="train"):
               flush=True)
 
 
+class WordIds:
+    """Decode-only tokenizer of phase 12 (the card's machine has no
+    ``transformers``): id i → the word ``w<i>``; pad (0) and eos skipped as
+    special tokens."""
+
+    eos_token_id = EVAL_EOS
+
+    def batch_decode(self, ids, skip_special_tokens=True):
+        special = (0, self.eos_token_id) if skip_special_tokens else ()
+        return [" ".join(f"w{int(i)}" for i in row if int(i) not in special)
+                for row in np.asarray(ids)]
+
+
+def trainer_state(torch, trainer, clone=False):
+    """``(step, {name: tensor})`` of every tensor of a trainer's state:
+    params, the moments and the optimizer's counts."""
+    from aat_tpu_torch.training.checkpoint import flatten
+
+    s = trainer.state
+    flat = {f"params.{k}": v for k, v in flatten(s.params).items()}
+    flat.update({f"mu.{k}": v for k, v in flatten(s.opt_state.mu).items()})
+    flat.update({f"nu.{k}": v for k, v in flatten(s.opt_state.nu).items()})
+    flat.update(count=s.opt_state.count, total_notfinite=s.opt_state.total_notfinite)
+    return s.step, ({k: v.detach().clone() for k, v in flat.items()} if clone else flat)
+
+
+def assert_state_equal(torch, label, trainer, want, prefixes=("params.", "mu.", "nu.", "count",
+                                                               "total_notfinite")):
+    """The trainer's state equals the copy ``want`` bit for bit, on the
+    names with the given prefixes; otherwise the differing names and their
+    largest differences are printed, and the check fails."""
+    step, got = trainer_state(torch, trainer)
+    names = [k for k in want[1] if k.startswith(prefixes)]
+    differ = [k for k in names if k not in got or not torch.equal(got[k], want[1][k])]
+    for k in differ[:8]:
+        d = (got[k].double() - want[1][k].double()).abs().max().item() if k in got else None
+        print(f"{label}: {k} differs (max abs {d})", flush=True)
+    check(not differ, f"{label}: {len(differ)} of {len(names)} tensors differ")
+    return step, len(names)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def eval_batches(torch, device, rng, n):
+    """``n`` batches of 2 whole utterances (phase 8's ``training_batches``)
+    with a text prefix: each caption's first two ids."""
+    out = []
+    for (b,) in training_batches(torch, device, rng, n_steps=n, accum=1):
+        ids = b["input_ids"]
+        out.append({**b, "prefix_input_ids": ids[:, :2],
+                    "prefix_attention_mask": torch.ones_like(ids[:, :2])})
+    return out
+
+
+def first_gap(torch, model, params, inputs, row, ids, p, gcfg):
+    """The plain route's gap between its two best processed log-probs at
+    generation step ``p`` of ``row``, teacher-forced on ``ids[:p]`` (what
+    the kernel and plain routes share there)."""
+    from aat_tpu_torch.models import llama
+    from aat_tpu_torch.training import generate
+
+    n = int(inputs["attention_mask"][row].sum())
+    prefix = ids[row, :p].long()
+    embeds = torch.cat([inputs["inputs_embeds"][row, :n],
+                        llama.embed_tokens(params["lm_decoder"], prefix)])[None]
+    with torch.no_grad():
+        logits, _ = llama.llama_forward(params["lm_decoder"], model.lm_config,
+                                        inputs_embeds=embeds)
+    logprobs = torch.log_softmax(logits[:, -1].float(), -1)
+    seen = torch.zeros_like(logprobs, dtype=torch.bool)
+    seen[0, prefix] = True
+    generated = torch.full((1, ids.shape[1]), -1, dtype=torch.long, device=ids.device)
+    generated[0, :p] = prefix
+    top = torch.topk(generate._process_logits(logprobs, generated, seen, p, gcfg), 2).values[0]
+    return float(top[0] - top[1])
+
+
+def phase_checkpoint(torch, model, params, rng, smi_line):
+    """12. train → evaluate → save → resume → finalize at full width (phase
+    8's model and weights), in a temporary directory under the build
+    directory, with cuDNN's deterministic algorithms (the conv backward's
+    may sum in a varying order, and the resumed run must equal the
+    uninterrupted one bit for bit). Returns the path's launches by wrapper
+    and by C entry: the bf16 part (training steps, eval loss) and the
+    generation prefix's f32 part."""
+    import shutil
+    import tempfile
+
+    from aat_tpu_torch.runtime.kernels import BUILD_DIR
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=BUILD_DIR)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return checkpoint_path(torch, model, params, rng, smi_line, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checkpoint_path(torch, model, params, rng, smi_line, tmp):
+    import shutil
+
+    from aat_tpu_torch.models.aslm import AslmModel
+    from aat_tpu_torch.models.build import build_model
+    from aat_tpu_torch.runtime.kernels import library
+    from aat_tpu_torch.training.checkpoint import flatten
+    from aat_tpu_torch.training.config import projection_training_config
+    from aat_tpu_torch.training.generate import GenerationConfig
+    from aat_tpu_torch.training.metrics import ComputeMetrics
+    from aat_tpu_torch.training.trainer import AATTrainer, read_checkpoint_meta
+
+    device = params["lm_decoder"]["embed_tokens"]["embedding"].device
+    cfg = dataclasses.replace(projection_training_config(), per_device_train_batch_size=2,
+                              gradient_accumulation_steps=1, eval_steps=2, save_steps=2,
+                              max_steps=4, logging_steps=1, output_dir=os.path.join(tmp, "a"))
+    train = [micro[0] for micro in training_batches(torch, device, rng, n_steps=4, accum=1)]
+    evals = eval_batches(torch, device, rng, 2)
+    tokenizer = WordIds()
+    logged = []
+    ta = AATTrainer(model, params, cfg, compute_metrics=ComputeMetrics(tokenizer),
+                    log_fn=logged.append, tokenizer=tokenizer)
+    wrappers = kernel_wrappers()
+    walls = {"eval": [], "generate": [], "tokens": [], "save": [], "bytes": [], "restore": []}
+    snaps = {}
+    prefix_launches = dict.fromkeys(wrappers, 0)
+    prefix_calls = dict.fromkeys(library().calls, 0)
+
+    def timed(trainer, name, after):
+        real = getattr(trainer, name)
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            after(time.perf_counter() - start, out)
+            return out
+
+        setattr(trainer, name, run)
+
+    def prefix_routed(trainer):
+        real = trainer._prefix_inputs
+
+        def run(*args, **kw):
+            calls = dict(library().calls)
+            launches = {n: w.launches for n, w in wrappers.items()}
+            out = real(*args, **kw)
+            routed(calls, "float32", "generation prefix", backward=False)
+            for n, w in wrappers.items():
+                prefix_launches[n] += w.launches - launches[n]
+            for e, c in library().calls.items():
+                prefix_calls[e] += c - calls[e]
+            return out
+
+        trainer._prefix_inputs = run
+
+    def saved(seconds, path):
+        walls["save"].append(seconds)
+        walls["bytes"].append(dir_bytes(path))
+        snaps[ta.state.step] = trainer_state(torch, ta, clone=True)
+
+    def generated(seconds, ids):
+        walls["generate"].append(seconds)
+        walls["tokens"].append(ids.shape[0] * ids.shape[1])
+
+    timed(ta, "evaluate", lambda seconds, out: walls["eval"].append(seconds))
+    timed(ta, "generate_for_batch", generated)
+    timed(ta, "save_checkpoint", saved)
+    prefix_routed(ta)
+
+    for w in wrappers.values():
+        w.launches = 0
+    calls = reset_entry_calls()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    ta.train(train, eval_batches=lambda: evals)
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - start
+    losses = [m["train/loss"] for m in logged if "train/loss" in m]
+    eval_logs = [m for m in logged if "eval/loss" in m]
+    ckpts = sorted(os.listdir(cfg.output_dir))
+    metas = {c: read_checkpoint_meta(os.path.join(cfg.output_dir, c)) for c in ckpts}
+    print(f"checkpoint path, run A: 4 steps of 2 utterances, eval and save every 2, wall "
+          f"{a_s:.3f} s; losses {[round(x, 5) for x in losses]}; evals "
+          + "; ".join(f"eval/loss {m['eval/loss']:.5f} wer {m['wer']:.4f} bleu "
+                      f"{m['evaluate_bleu']:.4f} meteor {m['evaluate_meteor']:.4f}"
+                      for m in eval_logs) + f"; checkpoints {ckpts}, metas {metas}", flush=True)
+    check(ta.state.step == 4 and len(losses) == 4 and all(np.isfinite(losses)),
+          f"run A: step {ta.state.step}, losses {losses}")
+    check(ckpts == ["checkpoint-2", "checkpoint-4"], f"run A wrote {ckpts}")
+    check(all(metas[c]["step"] == int(c.split("-")[1]) and "eval/loss" in metas[c]
+              for c in ckpts), f"trainer_meta.json {metas}")
+    metric_keys = ("wer", "evaluate_bleu", "evaluate_rouge1", "evaluate_rouge2", "evaluate_rougeL",
+                   "evaluate_rougeLsum", "evaluate_meteor")
+    check(len(eval_logs) == 2 and all(np.isfinite(m["eval/loss"])
+                                      and all(k in m for k in metric_keys) for m in eval_logs),
+          f"run A's evals {eval_logs}")
+    gcfg = GenerationConfig(max_new_tokens=int(-(-evals[0]["input_ids"].shape[1] // 16) * 16),
+                            num_beams=3, repetition_penalty=2.5, no_repeat_ngram_size=4,
+                            eos_token_id=EVAL_EOS, pad_token_id=EVAL_EOS, early_stopping=True,
+                            forced_eos_token_id=EVAL_EOS)
+
+    # finalize: the best checkpoint's weights, the step-4 step and moments
+    best = ta._best_checkpoint
+    ta.finalize()
+    best_step = int(os.path.basename(best).split("-")[1])
+    check(ta.state.step == 4, "finalize moved the step")
+    assert_state_equal(torch, "finalize weights", ta, snaps[best_step], ("params.",))
+    assert_state_equal(torch, "finalize moments", ta, snaps[4], ("mu.", "nu.", "count",
+                                                                  "total_notfinite"))
+
+    # export round trip, into run B's fresh build
+    export = ta.save_pretrained(os.path.join(tmp, "export"))
+    start = time.perf_counter()
+    model_b, params_b = build_model(cfg, pretrained=False, from_pretrained_adapter=export,
+                                    device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    adapter = flatten(ta.state.params["adapter"])
+    check(all(torch.equal(v, adapter[k]) for k, v in flatten(params_b["adapter"]).items())
+          and len(adapter) == len(flatten(params_b["adapter"])),
+          "the exported adapter did not come back bit for bit")
+
+    # run B: a fresh trainer resumes from checkpoint-2
+    tb = AATTrainer(model_b, params_b, dataclasses.replace(
+        cfg, output_dir=os.path.join(tmp, "b"), save_steps=0), log_fn=lambda m: None)
+    del params_b
+    consumed = []
+    real_step = tb.training_step
+
+    def resumed_step(micro, **kw):
+        if not consumed:  # the restored state, before the first resumed step
+            assert_state_equal(torch, "restored state", tb, snaps[2])
+            check(tb.state.step == 2, f"restored step {tb.state.step}")
+        consumed.append([id(m) for m in micro])
+        return real_step(micro, **kw)
+
+    tb.training_step = resumed_step
+    timed(tb, "restore_checkpoint", lambda s, out: walls["restore"].append(s))
+    tb.train(train, resume_from_checkpoint=os.path.join(cfg.output_dir, "checkpoint-2"))
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    calls = dict(calls)
+    check(consumed == [[id(train[2])], [id(train[3])]],
+          "the fast-forward did not skip exactly the step 1-2 microbatches")
+    step, n = assert_state_equal(torch, "resumed run", tb, snaps[4])
+    check(step == 4, f"resumed run ended at step {step}")
+    print(f"checkpoint path, run B: resumed from checkpoint-2 in a fresh trainer (fresh build "
+          f"with the exported adapter, equal bit for bit), skipped 2 microbatches; restored state "
+          f"and step-4 state equal to run A's bit for bit ({n} tensors: params, mu, nu, count, "
+          f"total_notfinite); finalize kept step 4 and the step-4 moments, weights of "
+          f"{os.path.basename(best)}; build_model with the adapter {build_s:.1f} s", flush=True)
+
+    bf16_launches = {k: launches[k] - prefix_launches[k] for k in launches}
+    bf16_calls = {e: calls[e] - prefix_calls[e] for e in calls}
+    print(f"checkpoint path launches: training and eval loss {bf16_launches}; generation prefix "
+          f"{prefix_launches}", flush=True)
+    flash_entry_calls(bf16_calls, "checkpoint path (training, eval loss)", "bfloat16")
+    flash_entry_calls(prefix_calls, "checkpoint path (generation prefix)", "float32",
+                      backward=False)
+    for name in TRAIN_KERNELS:
+        check(bf16_launches[name] > 0, f"the checkpoint path never launched {name}")
+    check(prefix_launches["flash_fwd"] > 0, "the generation prefix never launched flash_fwd")
+
+    # generation, kernel route against plain route, on A's final weights
+    for name in ("evaluate", "generate_for_batch", "save_checkpoint", "_prefix_inputs"):
+        delattr(ta, name)  # the trainer's own methods again
+    plain_model = AslmModel(
+        model.config, dataclasses.replace(model.audio_encoder_config, attention_impl="xla"),
+        dataclasses.replace(model.lm_config, attention_impl="xla"))
+    near, rows, gaps = 0, 0, []
+    for b in evals:
+        got = torch.from_numpy(ta.generate_for_batch(b))
+        ta.model = plain_model
+        try:
+            want = torch.from_numpy(ta.generate_for_batch(b))
+            inputs = ta._prefix_inputs(ta.state.params, b)
+        finally:
+            ta.model = model
+        for r in range(got.shape[0]):
+            rows += 1
+            diff = (got[r] != want[r]).nonzero()
+            if len(diff):
+                p = int(diff[0])
+                gap = first_gap(torch, plain_model, ta.state.params, inputs, r,
+                                want.to(device), p, gcfg)
+                gaps.append((p, gap))
+                near += 1
+                check(gap < 1e-4, f"generation: kernel and plain ids differ at step {p} where "
+                                  f"the plain route's top-2 gap is {gap}")
+    print(f"generation kernel vs plain route: {rows - near} of {rows} rows equal, {near} near-tie "
+          f"rows (first differing step, top-2 gap: {gaps})", flush=True)
+
+    tokens, gen_s = sum(walls["tokens"]), sum(walls["generate"])
+    print(f"checkpoint path numbers ({smi_line}): eval walls {[round(x, 3) for x in walls['eval']]} "
+          f"s (2 batches of 2 utterances, loss and beam-3 generation of "
+          f"{gcfg.max_new_tokens} tokens); generation {tokens} tokens in {gen_s:.3f} s, "
+          f"{tokens / gen_s:.1f} tokens/s (3 beams a row); checkpoint save "
+          f"{[round(x, 3) for x in walls['save']]} s for {walls['bytes']} bytes; restore "
+          f"{[round(x, 3) for x in walls['restore']]} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; free disk "
+          f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB", flush=True)
+    del ta, tb, snaps
+    return bf16_launches, bf16_calls, prefix_launches, prefix_calls
+
+
 def assert_ids_near(torch, label, got, x, codebook):
     """Ids ``got`` against the plain route's assignment of x to the
     codebook: equal where the plain best-to-second distance gap exceeds
@@ -1635,6 +1976,9 @@ def main():
 
     # 8. training at full width (the serving weights, trained in place)
     train_launches, train_calls = phase_training(torch, model, params, rng)
+    # 12. train → evaluate → save → resume → finalize on those weights
+    eval_launches, eval_calls, prefix_launches, prefix_calls = phase_checkpoint(
+        torch, model, params, rng, smi_line)
     del model, params  # SmolLM and its encoder leave the card before Qwen comes
     gc.collect()
     torch.cuda.empty_cache()
@@ -1649,11 +1993,15 @@ def main():
     torch.cuda.empty_cache()
     longform_launches, longform_calls = phase_longform(torch, device, rng)
 
+    # phase 12's path in two parts: training and eval loss (bf16), and the
+    # generation prefix (f32)
     paths = {"serve": launches, "train": train_launches, "pipeline": pipeline_launches,
-             "longform": longform_launches}
+             "longform": longform_launches, "train_eval": eval_launches,
+             "train_eval_prefix": prefix_launches}
     # the flash launches by C entry (the pipeline launches no flash kernel)
     path_calls = {"serve": serve_calls, "train": train_calls, "pipeline": {},
-                  "longform": longform_calls}
+                  "longform": longform_calls, "train_eval": eval_calls,
+                  "train_eval_prefix": prefix_calls}
 
     def entry(name, source, replaces, path, result, counter=None, c_entry=None):
         """``launches`` counts the run of ``path``, the path whose shapes the

@@ -210,7 +210,7 @@ def test_builder_refusals_come_before_the_device(monkeypatch, tiny_models):
     """Asking for what is not ported (pretrained weights) is refused as
     such, on a machine without a GPU too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tbuild.build_model(TrainingConfig(), pretrained=True)
     assert tiny_models == []
 

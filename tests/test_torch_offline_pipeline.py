@@ -146,5 +146,5 @@ def test_segment_embeddings_needs_a_gpu_by_default(monkeypatch, tiny_encoders):
 
 def test_pretrained_encoder_is_not_ported_yet(monkeypatch, tmp_path):
     monkeypatch.setattr(tsegemb, "load_hf_dataset", lambda name, split=None: corpus())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tsegemb.main(["--dataset", "corpus", "--out", str(tmp_path)], device="cpu")

@@ -149,7 +149,7 @@ def test_build_model_equals_jax(monkeypatch, lm):
 
 def test_build_refuses_pretrained_and_full_configs_match_jax():
     for build in (tbuild.build_audio_encoder, tbuild.build_lm_decoder):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             build(TConfig(), pretrained=True)
     assert_same_fields(tllm.qwen15_18b_config(), jllm.qwen15_18b_config())
     q = tllm.qwen15_18b_config()
@@ -166,7 +166,9 @@ def test_port_imports_no_jax():
         "aat_tpu_torch.utils.port", "aat_tpu_torch.runtime.kernels",
         "aat_tpu_torch.ops.dropout", "aat_tpu_torch.training.config",
         "aat_tpu_torch.training.lr_schedule", "aat_tpu_torch.training.optim",
-        "aat_tpu_torch.training.trainer", "aat_tpu_torch.audio", "aat_tpu_torch.tokenizer",
+        "aat_tpu_torch.training.trainer", "aat_tpu_torch.training.checkpoint",
+        "aat_tpu_torch.training.generate", "aat_tpu_torch.training.metrics",
+        "aat_tpu_torch.audio", "aat_tpu_torch.tokenizer",
         "aat_tpu_torch.runtime.host_ops", "aat_tpu_torch.ops.vq", "aat_tpu_torch.models.build",
         "aat_tpu_torch.runtime.device",
         "aat_tpu_torch.scripts", "aat_tpu_torch.scripts.segment_embeddings",
@@ -176,7 +178,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in modules)
-        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aat_tpu'))\n"
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aat_tpu', "
+        "'orbax', 'transformers', 'safetensors', 'nltk'))\n"
         + "built = aat_tpu_torch.runtime.kernels._library is not None\n"
         + "print(bad, 'kernel library built' if built else '')\n"
         + "sys.exit(1 if bad or built else 0)\n"

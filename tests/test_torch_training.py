@@ -10,6 +10,7 @@ determinism. The segmented and bf16 runs are in their own files, so the
 test workers take them in parallel."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -30,7 +31,7 @@ from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.models import llama as tllm
 from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.training.trainer import AATTrainer as TTrainer
-from aat_tpu_torch.training.trainer import AATTrainerSegmentation
+from aat_tpu_torch.training.trainer import AATTrainerSegmentation, read_checkpoint_meta
 from aat_tpu_torch.utils.port import from_jax_params, to_jax_params
 
 ASLM = dict(projection_type="linear", audio_encoder_hidden=32, lm_hidden=32,
@@ -165,8 +166,6 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TTrainer(tm, params, TConfig(**TRAIN, **kw))
     t = TTrainer(tm, params, TConfig(**TRAIN))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.train([], eval_batches=lambda: [])
     batch = {"batched_segments_melspectrograms": torch.zeros(1, 1, 64, 8),
              **{k: torch.as_tensor(v) for k, v in captions(np.random.default_rng(0), 1).items()}}
     with pytest.raises(NotImplementedError, match="EfficientNet"):
@@ -215,22 +214,24 @@ def test_train_epoch_logs_and_stops_at_max_steps():
     assert all(np.isfinite(m["train/loss"]) and m["train/step_time"] > 0 for m in logged)
 
 
-@pytest.mark.parametrize("save_steps, max_steps, raises", [
-    (2, 2, True), (5, None, True), (1000, 3, False), (0, 2, False)])
-def test_train_refuses_a_run_that_would_reach_save_steps(save_steps, max_steps, raises):
-    """Checkpoints are not ported: a run that could reach a multiple of
-    ``save_steps`` raises before its first step (the JAX trainer would
-    write ``checkpoint-{step}`` there); one that cannot, or with
-    ``save_steps=0``, trains to ``max_steps``."""
+@pytest.mark.parametrize("save_steps, max_steps", [(2, 2), (5, None), (1000, 3), (0, 2)])
+def test_train_writes_checkpoints_at_save_steps(tmp_path, save_steps, max_steps):
+    """``train`` writes ``checkpoint-{step}``, with ``trainer_meta.json``
+    beside it, exactly at the multiples of ``save_steps`` reached before
+    ``max_steps`` or the end of the batches (3 here); ``save_steps=0``
+    writes none."""
     jm, tm = models()
     params = from_jax_params(jax.device_get(jax_params(jm)))
-    t = TTrainer(tm, params, TConfig(**dict(TRAIN, save_steps=save_steps, max_steps=max_steps),
+    t = TTrainer(tm, params, TConfig(**dict(TRAIN, save_steps=save_steps, max_steps=max_steps,
+                                            output_dir=str(tmp_path)),
                                      gradient_accumulation_steps=1))
     rng = np.random.default_rng(7)
-    batches = [whole_batch(rng) for _ in range(3)]
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-            t.train(batches)
-        assert t.state.step == 0
-    else:
-        assert t.train(batches).step == max_steps
+    state = t.train([whole_batch(rng) for _ in range(3)])
+    last = max_steps or 3
+    assert state.step == last
+    want = [f"checkpoint-{s}" for s in range(1, last + 1) if save_steps and s % save_steps == 0]
+    assert sorted(os.listdir(tmp_path)) == want
+    for name in want:
+        assert sorted(os.listdir(tmp_path / name)) == ["optimizer.pt", "params.pt",
+                                                         "trainer_meta.json"]
+        assert read_checkpoint_meta(str(tmp_path / name))["step"] == int(name.split("-")[1])
