@@ -473,8 +473,9 @@ class AATTrainer:
                  with_generation: Optional[bool] = None) -> Dict[str, float]:
         """``eval/loss`` (the mean of the batches' losses) and, with
         generation (by default when ``compute_metrics`` is set), the
-        metrics of the generated ids against the captions. The losses and
-        ids come to the host in one transfer after the loop."""
+        metrics of the generated ids against the captions (taken from the
+        batches as given). The losses and ids come to the host after the
+        loop, with one sync."""
         if with_generation is None:
             with_generation = self.compute_metrics is not None
         losses, generated, references, prefixes = [], [], [], []
@@ -483,13 +484,20 @@ class AATTrainer:
             losses.append(self._eval_loss(self.state.params, db))
             if with_generation:
                 generated.append(self.generate_for_batch(db, fetch=False))
-                references.append(db["input_ids"])
-                prefixes.append(db["prefix_input_ids"])
-        host = _fetch(losses + generated + references + prefixes)
-        n, g = len(losses), len(generated)
-        losses = [float(x) for x in host[:n]]
-        generated, references, prefixes = host[n:n + g], host[n + g:n + 2 * g], host[n + 2 * g:]
-        metrics = {"eval/loss": float(np.mean(losses)) if losses else float("nan")}
+                references.append(_host(batch["input_ids"]))
+                prefixes.append(_host(batch["prefix_input_ids"]))
+        metrics = {"eval/loss": float("nan")}
+        if not losses:
+            return metrics
+        # one sync for the pass: both copies queue on the stream, then wait
+        losses = torch.stack(losses).to("cpu", non_blocking=True)
+        if generated:
+            width = max(g.shape[1] for g in generated)
+            generated = torch.cat([F.pad(g, (0, width - g.shape[1])) for g in generated]).to(
+                "cpu", non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        metrics["eval/loss"] = float(np.mean(losses.tolist()))
         if self.compute_metrics is not None and references:
             def pad_cat(arrays, pad=0):
                 width = max(a.shape[1] for a in arrays)
@@ -498,7 +506,7 @@ class AATTrainer:
                     for a in arrays])
 
             metrics.update(self.compute_metrics(
-                generated_ids=pad_cat(generated), inputs_ids=pad_cat(references),
+                generated_ids=generated.numpy(), inputs_ids=pad_cat(references),
                 prefix_ids=pad_cat(prefixes)))
         return metrics
 
@@ -620,19 +628,9 @@ class AATTrainer:
         return merged
 
 
-def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
-    """Device tensors → numpy in ONE device-to-host copy: each flattened to
-    float64 (exact for f32 values and for integer ids below 2**53), then
-    split and cast back (integers to int64)."""
-    if not tensors:
-        return []
-    flat = torch.cat([t.reshape(-1).double() for t in tensors]).cpu().numpy()
-    out, i = [], 0
-    for t in tensors:
-        x = flat[i:i + t.numel()].reshape(tuple(t.shape))
-        out.append(x if t.dtype.is_floating_point else x.astype(np.int64))
-        i += t.numel()
-    return out
+def _host(x) -> np.ndarray:
+    """A batch field as numpy (a tensor on the card copied once)."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 read_checkpoint_meta = ckpt_lib.read_checkpoint_meta

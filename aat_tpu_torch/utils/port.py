@@ -32,6 +32,8 @@ def to_tensors(tree, device=None):
 
 
 def _to_numpy(tree):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -63,10 +65,12 @@ def from_jax_params(tree: dict, device=None) -> dict:
 
 
 def to_jax_params(params: dict) -> dict:
-    """The port's ASLM parameters → the JAX layout, as numpy."""
+    """The port's ASLM parameters (or a moment tree of them, ``None`` on
+    frozen leaves) → the JAX layout, as numpy."""
     out = _to_numpy(params)
     for holder in _conv_kernels(out["audio_encoder"]):
-        holder["kernel"] = np.ascontiguousarray(holder["kernel"].transpose(2, 1, 0))
+        if holder["kernel"] is not None:
+            holder["kernel"] = np.ascontiguousarray(holder["kernel"].transpose(2, 1, 0))
     return out
 
 
@@ -82,8 +86,7 @@ def _unmask(tree):
     return tree
 
 
-def checkpoint_from_jax(state: dict, path: str, meta: Optional[dict] = None,
-                        device="cpu") -> str:
+def checkpoint_from_jax(state: dict, path: str, meta: Optional[dict] = None) -> str:
     """A JAX trainer's state as numpy trees, ``{"params", "opt_state",
     "step"}`` (what ``AATTrainer.save_checkpoint`` writes with orbax,
     restored and fetched), → a port checkpoint at ``path`` that
@@ -100,10 +103,10 @@ def checkpoint_from_jax(state: dict, path: str, meta: Optional[dict] = None,
         opt = tuple(opt[k] for k in FusedGuardedAdamWState._fields)
     count, mu, nu, total_notfinite = opt
     ckpt_lib.write_params(path, int(np.asarray(state["step"])),
-                          from_jax_params(state["params"], device))
+                          from_jax_params(state["params"]))
     ckpt_lib.write_optimizer(path, FusedGuardedAdamWState(
         torch.as_tensor(np.asarray(count, np.int32)),
-        from_jax_params(_unmask(mu), device), from_jax_params(_unmask(nu), device),
+        from_jax_params(_unmask(mu)), from_jax_params(_unmask(nu)),
         torch.as_tensor(np.asarray(total_notfinite, np.float32))))
     if meta is not None:
         ckpt_lib.write_json(path, ckpt_lib.META_FILE, meta)

@@ -120,8 +120,9 @@ Phases, one line each:
      decode-only word tokenizer (eos 2): ``checkpoint-2`` and
      ``checkpoint-4`` with their ``trainer_meta.json``, two evals with a
      finite ``eval/loss`` and every metric, beam-3 generation with the
-     reference's settings; ``finalize()`` brings back the best
-     checkpoint's weights and keeps step 4 and its moments, bit for bit;
+     reference's settings; with the larger eval loss counted as best,
+     ``finalize()`` brings back ``checkpoint-2``'s weights (which differ
+     from step 4's) and keeps step 4 and its moments, bit for bit;
      ``save_pretrained`` then ``build_model(from_pretrained_adapter=...)``
      gives the adapter back bit for bit; run B, a fresh trainer on that
      build, ``train(batches, resume_from_checkpoint=checkpoint-2)``: the
@@ -131,11 +132,12 @@ Phases, one line each:
      the eval loss launch through the ``*_mma`` entries only, each
      generation prefix (f32 masters) through ``aat_flash_fwd_tf32x3`` only,
      rows 2-5 each at least once. The generation ids of the kernel prefix
-     route equal the plain route's, or differ first at a step where the
-     plain route's top-2 log-prob gap (teacher-forced on the shared ids)
-     is below 1e-4. It prints the eval walls, generation tokens/s, and the
-     checkpoint save and restore seconds with bytes, beside the card's
-     name and power limit.
+     route equal the plain route's, or the routes' first differing beam
+     selection (2K candidates, pool merge or running beams) is a near tie
+     in the plain route's own scores: its pick beats the kernel route's by
+     less than 1e-4 * max(1, |score|), phase 9's rule. It prints the eval
+     walls, generation tokens/s, and the checkpoint save and restore
+     seconds with bytes, beside the card's name and power limit.
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
 long-form steps) and read just after; each kernel of the path must have
@@ -1047,27 +1049,40 @@ def eval_batches(torch, device, rng, n):
     return out
 
 
-def first_gap(torch, model, params, inputs, row, ids, p, gcfg):
-    """The plain route's gap between its two best processed log-probs at
-    generation step ``p`` of ``row``, teacher-forced on ``ids[:p]`` (what
-    the kernel and plain routes share there)."""
-    from aat_tpu_torch.models import llama
+def beam_choices(run):
+    """``run()``'s result, and each of its beam search's top-k selections in
+    call order (per step: the 2K candidates, the pool merge, the running
+    beams): the scores ranked and the indices picked."""
     from aat_tpu_torch.training import generate
 
-    n = int(inputs["attention_mask"][row].sum())
-    prefix = ids[row, :p].long()
-    embeds = torch.cat([inputs["inputs_embeds"][row, :n],
-                        llama.embed_tokens(params["lm_decoder"], prefix)])[None]
-    with torch.no_grad():
-        logits, _ = llama.llama_forward(params["lm_decoder"], model.lm_config,
-                                        inputs_embeds=embeds)
-    logprobs = torch.log_softmax(logits[:, -1].float(), -1)
-    seen = torch.zeros_like(logprobs, dtype=torch.bool)
-    seen[0, prefix] = True
-    generated = torch.full((1, ids.shape[1]), -1, dtype=torch.long, device=ids.device)
-    generated[0, :p] = prefix
-    top = torch.topk(generate._process_logits(logprobs, generated, seen, p, gcfg), 2).values[0]
-    return float(top[0] - top[1])
+    real, calls = generate.top_k_lowest_first, []
+
+    def record(x, k):
+        values, idx = real(x, k)
+        calls.append((x.clone(), idx.clone()))
+        return values, idx
+
+    generate.top_k_lowest_first = record
+    try:
+        return run(), calls
+    finally:
+        generate.top_k_lowest_first = real
+
+
+def first_split(kernel_calls, plain_calls, row):
+    """The first beam selection where the two routes pick differently for
+    ``row``: (step, which selection, the plain route's score of its own pick
+    minus its score of the kernel route's pick, the phase-9 near-tie margin
+    1e-4 * max(1, |score|)), or None where every selection agrees."""
+    which = ("candidates", "pool merge", "running beams")
+    for i, ((_, got), (scores, want)) in enumerate(zip(kernel_calls, plain_calls)):
+        differ = (got[row] != want[row]).nonzero()
+        if len(differ):
+            j = int(differ[0])
+            best = float(scores[row, want[row, j]])
+            gap = best - float(scores[row, got[row, j]])
+            return i // 3, which[i % 3], gap, 1e-4 * max(1.0, abs(best))
+    return None
 
 
 def phase_checkpoint(torch, model, params, rng, smi_line):
@@ -1102,14 +1117,16 @@ def checkpoint_path(torch, model, params, rng, smi_line, tmp):
     from aat_tpu_torch.runtime.kernels import library
     from aat_tpu_torch.training.checkpoint import flatten
     from aat_tpu_torch.training.config import projection_training_config
-    from aat_tpu_torch.training.generate import GenerationConfig
     from aat_tpu_torch.training.metrics import ComputeMetrics
     from aat_tpu_torch.training.trainer import AATTrainer, read_checkpoint_meta
 
     device = params["lm_decoder"]["embed_tokens"]["embedding"].device
+    # the larger eval loss counts as best, so that finalize rolls back for
+    # real: on these seeds the loss falls and the best is checkpoint-2
     cfg = dataclasses.replace(projection_training_config(), per_device_train_batch_size=2,
                               gradient_accumulation_steps=1, eval_steps=2, save_steps=2,
-                              max_steps=4, logging_steps=1, output_dir=os.path.join(tmp, "a"))
+                              max_steps=4, logging_steps=1, greater_is_better=True,
+                              output_dir=os.path.join(tmp, "a"))
     train = [micro[0] for micro in training_batches(torch, device, rng, n_steps=4, accum=1)]
     evals = eval_batches(torch, device, rng, 2)
     tokenizer = WordIds()
@@ -1193,17 +1210,18 @@ def checkpoint_path(torch, model, params, rng, smi_line, tmp):
     check(len(eval_logs) == 2 and all(np.isfinite(m["eval/loss"])
                                       and all(k in m for k in metric_keys) for m in eval_logs),
           f"run A's evals {eval_logs}")
-    gcfg = GenerationConfig(max_new_tokens=int(-(-evals[0]["input_ids"].shape[1] // 16) * 16),
-                            num_beams=3, repetition_penalty=2.5, no_repeat_ngram_size=4,
-                            eos_token_id=EVAL_EOS, pad_token_id=EVAL_EOS, early_stopping=True,
-                            forced_eos_token_id=EVAL_EOS)
+    max_new = int(-(-evals[0]["input_ids"].shape[1] // 16) * 16)
 
-    # finalize: the best checkpoint's weights, the step-4 step and moments
+    # finalize: checkpoint-2's weights, the step-4 step and moments
     best = ta._best_checkpoint
+    check(os.path.basename(best) == "checkpoint-2",
+          f"the best checkpoint is {best}: finalize would not roll back")
     ta.finalize()
-    best_step = int(os.path.basename(best).split("-")[1])
     check(ta.state.step == 4, "finalize moved the step")
-    assert_state_equal(torch, "finalize weights", ta, snaps[best_step], ("params.",))
+    assert_state_equal(torch, "finalize weights", ta, snaps[2], ("params.",))
+    _, now = trainer_state(torch, ta)
+    check(any(not torch.equal(now[k], v) for k, v in snaps[4][1].items()
+              if k.startswith("params.")), "checkpoint-2's weights equal step 4's")
     assert_state_equal(torch, "finalize moments", ta, snaps[4], ("mu.", "nu.", "count",
                                                                   "total_notfinite"))
 
@@ -1260,39 +1278,42 @@ def checkpoint_path(torch, model, params, rng, smi_line, tmp):
         check(bf16_launches[name] > 0, f"the checkpoint path never launched {name}")
     check(prefix_launches["flash_fwd"] > 0, "the generation prefix never launched flash_fwd")
 
-    # generation, kernel route against plain route, on A's final weights
+    # generation, kernel route against plain route, on A's weights after
+    # finalize; where the ids differ, the routes' first differing beam
+    # selection must be a near tie in the plain route's own scores
     for name in ("evaluate", "generate_for_batch", "save_checkpoint", "_prefix_inputs"):
         delattr(ta, name)  # the trainer's own methods again
     plain_model = AslmModel(
         model.config, dataclasses.replace(model.audio_encoder_config, attention_impl="xla"),
         dataclasses.replace(model.lm_config, attention_impl="xla"))
-    near, rows, gaps = 0, 0, []
+    near, rows, splits = 0, 0, []
     for b in evals:
-        got = torch.from_numpy(ta.generate_for_batch(b))
+        got, kernel_calls = beam_choices(lambda: ta.generate_for_batch(b))
         ta.model = plain_model
         try:
-            want = torch.from_numpy(ta.generate_for_batch(b))
-            inputs = ta._prefix_inputs(ta.state.params, b)
+            want, plain_calls = beam_choices(lambda: ta.generate_for_batch(b))
         finally:
             ta.model = model
         for r in range(got.shape[0]):
             rows += 1
-            diff = (got[r] != want[r]).nonzero()
-            if len(diff):
-                p = int(diff[0])
-                gap = first_gap(torch, plain_model, ta.state.params, inputs, r,
-                                want.to(device), p, gcfg)
-                gaps.append((p, gap))
-                near += 1
-                check(gap < 1e-4, f"generation: kernel and plain ids differ at step {p} where "
-                                  f"the plain route's top-2 gap is {gap}")
+            if np.array_equal(got[r], want[r]):
+                continue
+            split = first_split(kernel_calls, plain_calls, r)
+            check(split is not None, "generation: the ids differ but no beam selection does")
+            splits.append(split)
+            near += 1
+            step, which, gap, margin = split
+            check(gap < margin, f"generation: kernel and plain ids differ; the routes first "
+                                f"part at step {step}'s {which}, where the plain route's gap "
+                                f"is {gap}, above {margin}")
     print(f"generation kernel vs plain route: {rows - near} of {rows} rows equal, {near} near-tie "
-          f"rows (first differing step, top-2 gap: {gaps})", flush=True)
+          f"rows (first differing beam selection: step, selection, gap, margin: {splits})",
+          flush=True)
 
     tokens, gen_s = sum(walls["tokens"]), sum(walls["generate"])
     print(f"checkpoint path numbers ({smi_line}): eval walls {[round(x, 3) for x in walls['eval']]} "
           f"s (2 batches of 2 utterances, loss and beam-3 generation of "
-          f"{gcfg.max_new_tokens} tokens); generation {tokens} tokens in {gen_s:.3f} s, "
+          f"{max_new} tokens); generation {tokens} tokens in {gen_s:.3f} s, "
           f"{tokens / gen_s:.1f} tokens/s (3 beams a row); checkpoint save "
           f"{[round(x, 3) for x in walls['save']]} s for {walls['bytes']} bytes; restore "
           f"{[round(x, 3) for x in walls['restore']]} s; peak memory "
