@@ -11,40 +11,27 @@ Usage:
     python -m aat_tpu_torch.scripts.segment_embeddings --dataset <hub-name-or-dir> \\
         --out data/audio_segments_embeddings [--encoder facebook/hubert-large-ls960-ft]
 
-The port reads no checkpoints yet: ``--pretrained`` (the default, as in the
-JAX script) raises, and ``--random-init`` encodes with the JAX package's
-seeded random weights.
+``--pretrained`` (the default, as in the JAX script) reads the encoder from
+the local checkpoint directory that ``--encoder`` names (a hub name with no
+local directory raises ``FileNotFoundError``); ``--random-init`` encodes
+with the JAX package's seeded random weights.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from aat_tpu_torch.audio import AudioWaveform
+from aat_tpu_torch.data.dataloaders import load_hf_dataset
 from aat_tpu_torch.models import hubert as hub
 from aat_tpu_torch.ops.mel import normalize_waveform
 from aat_tpu_torch.runtime.device import resolve_device
 from aat_tpu_torch.tokenizer import AdaptiveAudioTokenizer
-
-
-def load_hf_dataset(path_or_name: str, split: Optional[str] = None):
-    """A HF dataset by hub name or from disk (arrow), as the JAX package's
-    ``data/dataloaders.load_hf_dataset`` loads it. Needs the ``datasets``
-    package and, for hub names, network access."""
-    try:
-        import datasets
-    except ImportError as exc:
-        raise RuntimeError("--dataset needs the `datasets` package, which is not "
-                           "installed") from exc
-    if path_or_name.endswith(".dataset") or path_or_name.endswith("/"):
-        return datasets.load_from_disk(path_or_name)
-    ds = datasets.load_dataset(path_or_name, "libris")
-    return ds[split] if split else ds
 
 
 def segment_batch(segments: List[AudioWaveform], max_frames: int
@@ -87,7 +74,8 @@ def main(argv=None, device=None):
     parser.add_argument("--dataset", required=True)
     parser.add_argument("--split", default="train")
     parser.add_argument("--out", default="data/audio_segments_embeddings")
-    parser.add_argument("--encoder", default="facebook/hubert-large-ls960-ft")
+    parser.add_argument("--encoder", default="facebook/hubert-large-ls960-ft",
+                        help="local HF checkpoint directory of the encoder")
     parser.add_argument("--limit", type=int, default=None)
     parser.add_argument("--pretrained", action="store_true", default=True,
                         help="accepted for the JAX command line; pretrained weights "

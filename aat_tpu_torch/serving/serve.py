@@ -3,8 +3,9 @@
 prefix on the device (segmentation → encoder → projection), admit requests
 while slots are free, decode in chunks of ``run_steps``, collect results.
 
-Loading a ``save_pretrained`` export is not ported yet; callers pass a
-model and its parameters (for example made from the configs and a seed).
+Callers pass a model and its parameters; the command line
+``python -m aat_tpu_torch.scripts.serve --model-dir <export>`` loads them
+from a ``save_pretrained`` export (``models/build.load_pretrained``).
 """
 
 from __future__ import annotations

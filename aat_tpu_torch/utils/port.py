@@ -9,11 +9,24 @@ numpy arrays (``jax.device_get`` of the JAX tree); :func:`to_jax_params` is
 its inverse, as numpy. :func:`checkpoint_from_jax` does the same for a
 whole training state (params, fused AdamW state, step) and writes it as a
 port checkpoint.
+
+It also reads Hugging Face checkpoints from a local directory into the
+port's trees (the counterparts of the JAX package's ``port_hubert``,
+``port_llama`` and ``port_pooling_encoder``). The JAX readers go through a
+live ``transformers`` module; these parse the files themselves
+(``config.json``, ``model.safetensors`` or its sharded index, or
+``pytorch_model.bin``), apply the ``transformers`` class defaults for the
+keys a ``config.json`` leaves out, and give the trees that the JAX readers
+give after :func:`from_jax_params`, in float32 whatever the stored dtype
+(``from_pretrained`` without ``torch_dtype`` loads float32).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import os
+import struct
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -124,3 +137,335 @@ def vq_state_to_jax(state) -> tuple:
     """The port's ``VQState`` → ``(codebook, ema_counts, ema_sums)`` as
     numpy, the JAX ``VQState`` field order."""
     return tuple(x.detach().cpu().numpy() for x in state)
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face checkpoints
+# ---------------------------------------------------------------------------
+
+# safetensors dtype → (numpy dtype of the stored bits, torch dtype to view
+# them as, or None for numpy's own)
+_SAFETENSORS_DTYPES = {"F32": (np.dtype("<f4"), None), "F16": (np.dtype("<f2"), None),
+                       "BF16": (np.dtype("<i2"), torch.bfloat16)}
+
+HfCheckpoint = Union[str, Tuple[dict, Dict[str, torch.Tensor]]]
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a ``.safetensors`` file: an 8-byte little-endian
+    header length, a JSON header of ``{name: {dtype, shape, data_offsets}}``
+    (``__metadata__`` skipped), then the data, offsets counted from the end
+    of the header. Each tensor is a copy that owns its memory."""
+    with open(path, "rb") as f:
+        (header_len,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(header_len))
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + header_len)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name} has dtype {info['dtype']}, which the "
+                             "reader does not know")
+        np_dtype, view = _SAFETENSORS_DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        array = np.array(data[begin:end]).view(np_dtype).reshape(info["shape"])
+        tensor = torch.from_numpy(array)
+        out[name] = tensor.view(view) if view is not None else tensor
+    del data
+    return out
+
+
+def _read_torch_bin(path: str) -> Dict[str, torch.Tensor]:
+    state = torch.load(path, weights_only=True, map_location="cpu")
+    return {k: v.clone() for k, v in state.items()}
+
+
+def require_local_dir(path: str, what: str = "checkpoint") -> str:
+    """``path`` if it is a local directory; a hub name raises
+    ``FileNotFoundError`` (the port downloads nothing)."""
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"{what} {path!r}: no such directory. Reading a pretrained {what} needs a local "
+            "checkpoint directory (config.json with model.safetensors, its sharded index, "
+            "or pytorch_model.bin); the port does not download from the hub")
+    return path
+
+
+def read_hf_checkpoint(path: str) -> Tuple[dict, Dict[str, torch.Tensor]]:
+    """``(config.json as a dict, {name: tensor})`` of a local HF checkpoint
+    directory: ``model.safetensors``, a sharded ``model.safetensors.index.json``,
+    ``pytorch_model.bin`` or a sharded ``pytorch_model.bin.index.json``, in
+    that order of preference. Tensors keep their stored dtype."""
+    require_local_dir(path)
+    with open(os.path.join(path, "config.json")) as f:
+        config = json.load(f)
+    readers = (("model.safetensors", read_safetensors), ("pytorch_model.bin", _read_torch_bin))
+    for name, read in readers:
+        file = os.path.join(path, name)
+        if os.path.exists(file):
+            return config, read(file)
+        index = file + ".index.json"
+        if os.path.exists(index):
+            with open(index) as f:
+                shards = sorted(set(json.load(f)["weight_map"].values()))
+            state: Dict[str, torch.Tensor] = {}
+            for shard in shards:
+                state.update(read(os.path.join(path, shard)))
+            return config, state
+    raise FileNotFoundError(f"{path}: no model.safetensors, pytorch_model.bin or sharded "
+                            "index of either")
+
+
+def _weights(checkpoint: HfCheckpoint, base: str, probe: str):
+    """``(config dict, base model's weights, all weights)`` of a checkpoint
+    directory or a ``(config, state)`` pair: the base model's are read under
+    ``base + "."`` when the file's keys carry that prefix (a ``*ForCTC`` or
+    ``*ForCausalLM`` file; ``probe`` is a key of the bare model)."""
+    if isinstance(checkpoint, str):
+        config, state = read_hf_checkpoint(checkpoint)
+        where, copy = checkpoint, False
+    else:
+        (config, state), where, copy = checkpoint, base, True
+    prefix = f"{base}." if f"{base}.{probe}" in state else ""
+    return config, _Weights(state, prefix, where, copy), _Weights(state, "", where, copy)
+
+
+# transformers' HubertConfig / Wav2Vec2Config defaults (the two agree on
+# every key read here)
+HF_HUBERT_DEFAULTS = {
+    "conv_dim": (512, 512, 512, 512, 512, 512, 512),
+    "conv_kernel": (10, 3, 3, 3, 3, 2, 2),
+    "conv_stride": (5, 2, 2, 2, 2, 2, 2),
+    "conv_bias": False,
+    "feat_extract_norm": "group",
+    "hidden_size": 768,
+    "num_hidden_layers": 12,
+    "num_attention_heads": 12,
+    "intermediate_size": 3072,
+    "layer_norm_eps": 1e-5,
+    "do_stable_layer_norm": False,
+    "num_conv_pos_embeddings": 128,
+    "num_conv_pos_embedding_groups": 16,
+    "feat_proj_dropout": 0.0,
+    "hidden_dropout": 0.1,
+    "attention_dropout": 0.1,
+    "activation_dropout": 0.1,
+    "layerdrop": 0.1,
+}
+
+# transformers' LlamaConfig defaults (num_key_value_heads: the attention
+# head count)
+HF_LLAMA_DEFAULTS = {
+    "vocab_size": 32000,
+    "hidden_size": 4096,
+    "intermediate_size": 11008,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": None,
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 10000.0,
+    "max_position_embeddings": 2048,
+    "tie_word_embeddings": False,
+    "attention_bias": False,
+}
+
+
+def _with_defaults(config: dict, defaults: dict) -> dict:
+    out = dict(defaults)
+    out.update({k: v for k, v in config.items() if k in defaults and v is not None})
+    return out
+
+
+def hubert_config_from_hf(config: dict):
+    """HubertConfig of a HuBERT / wav2vec2 ``config.json`` dict (the JAX
+    ``hubert_config_from_torch``); the dropout and LayerDrop rates act only
+    in train mode."""
+    from aat_tpu_torch.models.hubert import HubertConfig
+
+    if config.get("conv_pos_batch_norm"):
+        raise NotImplementedError("conv_pos_batch_norm=True (a batch-normed positional conv) "
+                                  "is not supported")
+    c = _with_defaults(config, HF_HUBERT_DEFAULTS)
+    return HubertConfig(
+        conv_dim=tuple(c["conv_dim"]), conv_kernel=tuple(c["conv_kernel"]),
+        conv_stride=tuple(c["conv_stride"]), conv_bias=c["conv_bias"],
+        feat_extract_norm=c["feat_extract_norm"], hidden_size=c["hidden_size"],
+        num_hidden_layers=c["num_hidden_layers"], num_attention_heads=c["num_attention_heads"],
+        intermediate_size=c["intermediate_size"], layer_norm_eps=c["layer_norm_eps"],
+        do_stable_layer_norm=c["do_stable_layer_norm"],
+        num_conv_pos_embeddings=c["num_conv_pos_embeddings"],
+        num_conv_pos_embedding_groups=c["num_conv_pos_embedding_groups"],
+        feature_projection_dropout=c["feat_proj_dropout"], hidden_dropout=c["hidden_dropout"],
+        attention_dropout=c["attention_dropout"], activation_dropout=c["activation_dropout"],
+        layerdrop=c["layerdrop"])
+
+
+def llama_config_from_hf(config: dict):
+    """LlamaConfig of a Llama-family ``config.json`` dict read as
+    ``LlamaForCausalLM`` reads it (the JAX ``llama_config_from_torch``): a
+    Qwen2 file has no ``attention_bias``, so the Llama default, False,
+    holds, and its q/k/v biases are not read."""
+    from aat_tpu_torch.models.llama import LlamaConfig
+
+    c = _with_defaults(config, HF_LLAMA_DEFAULTS)
+    if c["num_key_value_heads"] is None:
+        c["num_key_value_heads"] = c["num_attention_heads"]
+    head_dim = config.get("head_dim")
+    if head_dim is not None and head_dim != c["hidden_size"] // c["num_attention_heads"]:
+        raise NotImplementedError(f"head_dim {head_dim} other than hidden_size / "
+                                  "num_attention_heads is not supported")
+    return LlamaConfig(
+        vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+        intermediate_size=c["intermediate_size"], num_hidden_layers=c["num_hidden_layers"],
+        num_attention_heads=c["num_attention_heads"],
+        num_key_value_heads=c["num_key_value_heads"], rms_norm_eps=c["rms_norm_eps"],
+        rope_theta=c["rope_theta"], max_position_embeddings=c["max_position_embeddings"],
+        tie_word_embeddings=c["tie_word_embeddings"], attention_bias=c["attention_bias"])
+
+
+class _Weights:
+    """Named tensors of a state dict under a prefix, read as float32 tensors
+    of their own (copies, unless ``read_hf_checkpoint`` already made them);
+    a name the file lacks raises, naming it."""
+
+    def __init__(self, state: Dict[str, torch.Tensor], prefix: str, where: str,
+                 copy: bool = True):
+        self.state, self.prefix, self.where, self.copy = state, prefix, where, copy
+
+    def has(self, name: str) -> bool:
+        return self.prefix + name in self.state
+
+    def __call__(self, name: str) -> torch.Tensor:
+        key = self.prefix + name
+        if key not in self.state:
+            raise KeyError(f"{self.where}: the checkpoint has no tensor {key}")
+        return self.state[key].to(torch.float32, copy=self.copy)
+
+    def dense(self, name: str, bias: bool = True) -> dict:
+        """A torch Linear ``[out, in]`` → ``{"kernel": [in, out]}`` (and its bias)."""
+        p = {"kernel": self(f"{name}.weight").t().contiguous()}
+        if bias:
+            p["bias"] = self(f"{name}.bias")
+        return p
+
+    def norm(self, name: str) -> dict:
+        return {"scale": self(f"{name}.weight"), "bias": self(f"{name}.bias")}
+
+
+def _weight_normed_conv(w: _Weights, name: str) -> torch.Tensor:
+    """HuBERT's positional conv under ``weight_norm(dim=2)``: w = g · v / ‖v‖,
+    the norm over dims 0 and 1 for each tap, folded in float64 and rounded
+    once to float32 (``transformers`` folds in float32; the two agree to
+    within f32 rounding of the norm). Stored as ``weight_g`` /
+    ``weight_v``, as ``parametrizations.weight.original0`` / ``original1``
+    (recent ``transformers``), or already folded as ``weight``."""
+    if w.has(f"{name}.weight_g"):
+        g, v = w(f"{name}.weight_g"), w(f"{name}.weight_v")
+    elif w.has(f"{name}.parametrizations.weight.original0"):
+        g = w(f"{name}.parametrizations.weight.original0")
+        v = w(f"{name}.parametrizations.weight.original1")
+    else:
+        return w(f"{name}.weight").contiguous()
+    # in float64: an f32 sum over the C_out * C_in/groups weights of a tap
+    # (65,536 in hubert-large) is off by about 5e-6 relative
+    v64 = v.double()
+    return (v64 * (g.double() / torch.linalg.vector_norm(v64, dim=(0, 1), keepdim=True))).float()
+
+
+def port_hubert(checkpoint: HfCheckpoint, encoder_type: str = "hubert"):
+    """A HuBERT or wav2vec2 checkpoint (a local directory, or ``(config
+    dict, state dict)``) → ``(params, HubertConfig)`` in the port's layout
+    (conv kernels ``[C_out, C_in/groups, K]``, dense kernels ``[in, out]``).
+    The ``hubert.`` / ``wav2vec2.`` prefix of a ``*ForCTC`` file is
+    stripped and keys the model does not have (``lm_head.*``,
+    ``masked_spec_embed``) are not read, as ``HubertModel.from_pretrained``
+    does."""
+    config_dict, w, _ = _weights(checkpoint, encoder_type, "feature_projection.projection.weight")
+    config = hubert_config_from_hf(config_dict)
+
+    params: dict = {"feature_extractor": []}
+    for i in range(len(config.conv_dim)):
+        base = f"feature_extractor.conv_layers.{i}"
+        layer = {"conv": {"kernel": w(f"{base}.conv.weight").contiguous()}}
+        if config.conv_bias:
+            layer["conv"]["bias"] = w(f"{base}.conv.bias")
+        if config.feat_extract_norm == "layer":
+            layer["layer_norm"] = w.norm(f"{base}.layer_norm")
+        elif i == 0:
+            layer["group_norm"] = w.norm(f"{base}.layer_norm")
+        params["feature_extractor"].append(layer)
+
+    params["feature_projection"] = {"layer_norm": w.norm("feature_projection.layer_norm"),
+                                    "projection": w.dense("feature_projection.projection")}
+    params["pos_conv"] = {"kernel": _weight_normed_conv(w, "encoder.pos_conv_embed.conv"),
+                          "bias": w("encoder.pos_conv_embed.conv.bias")}
+    params["layers"] = []
+    for i in range(config.num_hidden_layers):
+        base = f"encoder.layers.{i}"
+        params["layers"].append({
+            "attention": {"q": w.dense(f"{base}.attention.q_proj"),
+                          "k": w.dense(f"{base}.attention.k_proj"),
+                          "v": w.dense(f"{base}.attention.v_proj"),
+                          "out": w.dense(f"{base}.attention.out_proj")},
+            "layer_norm": w.norm(f"{base}.layer_norm"),
+            "feed_forward": {"intermediate": w.dense(f"{base}.feed_forward.intermediate_dense"),
+                             "output": w.dense(f"{base}.feed_forward.output_dense")},
+            "final_layer_norm": w.norm(f"{base}.final_layer_norm"),
+        })
+    params["encoder_layer_norm"] = w.norm("encoder.layer_norm")
+    return params, config
+
+
+def port_llama(checkpoint: HfCheckpoint):
+    """A ``LlamaForCausalLM`` checkpoint (SmolLM; Qwen1.5 read through the
+    Llama architecture, as the JAX package reads it) → ``(params,
+    LlamaConfig)``. q/k/v biases are read only when the config says
+    ``attention_bias``; ``lm_head`` only when the embeddings are untied."""
+    config_dict, w, top = _weights(checkpoint, "model", "embed_tokens.weight")
+    config = llama_config_from_hf(config_dict)
+    bias = config.attention_bias
+    params: dict = {"embed_tokens": {"embedding": w("embed_tokens.weight")},
+                    "layers": [], "final_norm": {"scale": w("norm.weight")}}
+    for i in range(config.num_hidden_layers):
+        base = f"layers.{i}"
+        params["layers"].append({
+            "input_norm": {"scale": w(f"{base}.input_layernorm.weight")},
+            "attention": {"q": w.dense(f"{base}.self_attn.q_proj", bias),
+                          "k": w.dense(f"{base}.self_attn.k_proj", bias),
+                          "v": w.dense(f"{base}.self_attn.v_proj", bias),
+                          "out": w.dense(f"{base}.self_attn.o_proj", False)},
+            "post_attention_norm": {"scale": w(f"{base}.post_attention_layernorm.weight")},
+            "mlp": {"gate": w.dense(f"{base}.mlp.gate_proj", False),
+                    "up": w.dense(f"{base}.mlp.up_proj", False),
+                    "down": w.dense(f"{base}.mlp.down_proj", False)},
+        })
+    if not config.tie_word_embeddings:
+        params["lm_head"] = top.dense("lm_head", False)
+    return params, config
+
+
+def port_pooling_encoder(state: Dict[str, torch.Tensor], prefix: str = "") -> dict:
+    """The reference's ``AudioEmbeddingsEncoderPooling`` weights (``l_in``,
+    ``positional_embeddings``, a pre-LN ``nn.TransformerEncoder``,
+    ``l_out``) from a state dict under ``prefix`` → the ``transformer_encoder``
+    projection's tree (the JAX ``port_pooling_encoder``)."""
+    w = _Weights(state, prefix, "pooling encoder")
+    n_layers = len({k[len(prefix):].split(".")[2] for k in state
+                    if k.startswith(prefix + "transformer_encoder.layers.")})
+    params = {"l_in": w.dense("l_in"),
+              "positional_embeddings": {"embedding": w("positional_embeddings.weight")},
+              "l_out": w.dense("l_out"), "layers": []}
+    for i in range(n_layers):
+        base = f"transformer_encoder.layers.{i}"
+        params["layers"].append({
+            "attention": {"in_proj": {"kernel": w(f"{base}.self_attn.in_proj_weight").t()
+                                      .contiguous(),
+                                      "bias": w(f"{base}.self_attn.in_proj_bias")},
+                          "out_proj": w.dense(f"{base}.self_attn.out_proj")},
+            "norm1": w.norm(f"{base}.norm1"),
+            "norm2": w.norm(f"{base}.norm2"),
+            "linear1": w.dense(f"{base}.linear1"),
+            "linear2": w.dense(f"{base}.linear2"),
+        })
+    return params

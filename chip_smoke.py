@@ -138,15 +138,46 @@ Phases, one line each:
      less than 1e-4 * max(1, |score|), phase 9's rule. It prints the eval
      walls, generation tokens/s, and the checkpoint save and restore
      seconds with bytes, beside the card's name and power limit.
+ 13. the command lines at full width, right after phase 12, in a temporary
+     directory under the build directory (deleted at the end), with cuDNN's
+     deterministic algorithms and wandb disabled: hubert-large written as an
+     HF ``HubertForCTC`` directory (the ``hubert.`` prefix, the positional
+     conv as ``weight_g``/``weight_v``, ``lm_head.*`` and
+     ``masked_spec_embed`` as keys the model lacks; f32) and SmolLM-135M as
+     a tied ``LlamaForCausalLM`` in bf16, from seeded weights, through a
+     small safetensors writer here; ``build_model(pretrained=True)`` must
+     read every tensor bit for bit (the LM after its bf16 upcast) and the
+     positional conv within 1e-6 (norm ratio) of g v / ||v|| in f64. Then
+     ``scripts.train.main`` with the dataset and tokenizer replaced at
+     their seams (8 train and 4 validation utterances of 8-20 s with words
+     and their times; a word-level tokenizer): run A, the default preset
+     with ``--pretrained`` on those directories, 2 epochs of 4 steps of 2
+     utterances, evals and saves at steps 3 and 6, ``--no-load-best-
+     model-at-end`` (neither trainer restores the best-metric record):
+     train and eval lines in ``metrics.jsonl``, the steps' and eval losses'
+     flash launches through the ``*_mma`` entries only, the generation
+     prefixes' through ``aat_flash_fwd_tf32x3`` only; run B resumes from
+     ``checkpoint-6`` (epoch 1, 2 batches fast-forwarded, the collators'
+     generators restored from the checkpoint) and must write a
+     ``checkpoint-8`` equal to run A's on every tensor of ``params.pt`` and
+     ``optimizer.pt``; a 2-step ``--segmentation adaptive`` run (the
+     ``n_words`` 50 crop) with finite losses; ``scripts.validate`` on run
+     A's export (``--no-pretrained``) with its metrics printed; and
+     ``scripts.serve --model-dir`` on that export, whose ids must equal
+     ``serving.serve`` on the model it loaded, with mel kernel launches. It
+     prints the read seconds and bytes, and the walls of steps, evals and
+     saves, beside the card's name and power limit.
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
-long-form steps) and read just after; each kernel of the path must have
+long-form steps, phase 13's run A and its serve command) and read just
+after; each kernel of the path must have
 launched there, and each path's flash launches must all go through the C
 entries of one dtype (serving's f32 forward through
 ``aat_flash_fwd_tf32x3``, training's and long-form training's bf16 forward
 and backward through the ``*_mma`` entries; phase 12's generation prefixes
 are counted apart, as the path ``train_eval_prefix``, from its bf16 part,
-``train_eval``). Then a
+``train_eval``; phase 13's likewise, as ``train_cli_prefix`` and
+``train_cli``, and its serve command as ``serve_cli``). Then a
 JSON line of kernel results, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. In the kernel line the flash entries
 report bf16 (the tensor-core kernels, counting only launches through their
@@ -232,6 +263,20 @@ HASH_OPS = 10  # integer operations of the dropout position hash per score
 # products of D-long rows per allowed (q, k) pair: the forward's q.k and p.v;
 # the backward's q.k, dout.v, then dq (ds.k), dk (ds.q) and dv (p.dout)
 PRODUCTS = {"fwd": 2, "bwd": 5, "dq": 3, "dkv": 4}
+
+
+def optional_packages():
+    """The installed version of each package the port reaches only through
+    a lazy import (or only its tests use), by name, read without importing."""
+    from importlib import metadata
+
+    out = {}
+    for name in ("transformers", "tokenizers", "safetensors", "datasets", "wandb", "triton"):
+        try:
+            out[name] = metadata.version(name)
+        except metadata.PackageNotFoundError:
+            out[name] = None
+    return out
 
 
 def check(cond, msg):
@@ -995,7 +1040,7 @@ def profile_training_step(torch, trainer, micro, name="train"):
 
 class WordIds:
     """Decode-only tokenizer of phase 12 (the card's machine has no
-    ``transformers``): id i → the word ``w<i>``; pad (0) and eos skipped as
+    tokenizer files): id i → the word ``w<i>``; pad (0) and eos skipped as
     special tokens."""
 
     eos_token_id = EVAL_EOS
@@ -1321,6 +1366,528 @@ def checkpoint_path(torch, model, params, rng, smi_line, tmp):
           f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB", flush=True)
     del ta, tb, snaps
     return bf16_launches, bf16_calls, prefix_launches, prefix_calls
+
+
+
+# ---------------------------------------------------------------------------
+# 13. the command lines at full width
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN_SECONDS = (8.0, 10.0, 12.0, 14.0, 16.0, 18.0, 20.0, 9.0)
+CLI_VALID_SECONDS = (8.0, 12.0, 16.0, 20.0)
+WORDS_PER_SECOND = 3.5
+POS_CONV_TOL = 1e-6  # ||pos conv - g v / ||v|| (f64)||_F / ||.||_F
+SAFETENSORS_DTYPES = {"float32": "F32", "bfloat16": "BF16"}
+
+
+def write_safetensors(torch, path, tensors):
+    """A ``model.safetensors`` file (scaffolding for phase 13): an 8-byte
+    little-endian header length, the JSON header, the tensors' bytes."""
+    import struct
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[str(t.dtype).split(".")[1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + size]}
+        offset += size
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            t = t.contiguous()
+            f.write((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return os.path.getsize(path)
+
+
+def write_hf_dir(torch, path, config, tensors):
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return write_safetensors(torch, os.path.join(path, "model.safetensors"), tensors)
+
+
+def hf_hubert_dir(torch, path, rng):
+    """hubert-large in the ``HubertForCTC`` layout from seeded weights (the
+    port's numpy init): the ``hubert.`` prefix, the positional conv as
+    ``weight_g`` / ``weight_v``, and ``lm_head.*`` and ``masked_spec_embed``
+    as keys the model does not have; f32. Returns (bytes, the tree the
+    reader must give apart from the positional conv, g, v)."""
+    from aat_tpu_torch.models import hubert
+
+    cfg = hubert.hubert_large_config()
+    tree = hubert.init_hubert_numpy(7, cfg)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    sd = {}
+
+    def dense(name, p):
+        sd[f"hubert.{name}.weight"], sd[f"hubert.{name}.bias"] = t(p["kernel"].T), t(p["bias"])
+
+    def norm(name, p):
+        sd[f"hubert.{name}.weight"], sd[f"hubert.{name}.bias"] = t(p["scale"]), t(p["bias"])
+
+    for i, layer in enumerate(tree["feature_extractor"]):
+        base = f"feature_extractor.conv_layers.{i}"
+        sd[f"hubert.{base}.conv.weight"] = t(layer["conv"]["kernel"].transpose(2, 1, 0))
+        sd[f"hubert.{base}.conv.bias"] = t(layer["conv"]["bias"])
+        norm(f"{base}.layer_norm", layer["layer_norm"])
+    norm("feature_projection.layer_norm", tree["feature_projection"]["layer_norm"])
+    dense("feature_projection.projection", tree["feature_projection"]["projection"])
+    v = t(tree["pos_conv"]["kernel"].transpose(2, 1, 0))
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, (1, 1, cfg.num_conv_pos_embeddings))
+                         .astype(np.float32))
+    sd["hubert.encoder.pos_conv_embed.conv.weight_g"] = g
+    sd["hubert.encoder.pos_conv_embed.conv.weight_v"] = v
+    sd["hubert.encoder.pos_conv_embed.conv.bias"] = t(tree["pos_conv"]["bias"])
+    for i, layer in enumerate(tree["layers"]):
+        base = f"encoder.layers.{i}"
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                             ("out", "out_proj")):
+            dense(f"{base}.attention.{theirs}", layer["attention"][ours])
+        norm(f"{base}.layer_norm", layer["layer_norm"])
+        dense(f"{base}.feed_forward.intermediate_dense", layer["feed_forward"]["intermediate"])
+        dense(f"{base}.feed_forward.output_dense", layer["feed_forward"]["output"])
+        norm(f"{base}.final_layer_norm", layer["final_layer_norm"])
+    norm("encoder.layer_norm", tree["encoder_layer_norm"])
+    sd["hubert.masked_spec_embed"] = torch.from_numpy(rng.uniform(0, 1, cfg.hidden_size)
+                                                      .astype(np.float32))
+    sd["lm_head.weight"] = torch.zeros(32, cfg.hidden_size)
+    sd["lm_head.bias"] = torch.zeros(32)
+    config = {"architectures": ["HubertForCTC"], "model_type": "hubert",
+              "conv_dim": list(cfg.conv_dim), "conv_kernel": list(cfg.conv_kernel),
+              "conv_stride": list(cfg.conv_stride), "conv_bias": cfg.conv_bias,
+              "feat_extract_norm": cfg.feat_extract_norm, "hidden_size": cfg.hidden_size,
+              "num_hidden_layers": cfg.num_hidden_layers,
+              "num_attention_heads": cfg.num_attention_heads,
+              "intermediate_size": cfg.intermediate_size, "layer_norm_eps": cfg.layer_norm_eps,
+              "do_stable_layer_norm": cfg.do_stable_layer_norm,
+              "num_conv_pos_embeddings": cfg.num_conv_pos_embeddings,
+              "num_conv_pos_embedding_groups": cfg.num_conv_pos_embedding_groups,
+              "feat_proj_dropout": cfg.feature_projection_dropout,
+              "hidden_dropout": cfg.hidden_dropout, "attention_dropout": cfg.attention_dropout,
+              "activation_dropout": cfg.activation_dropout, "layerdrop": cfg.layerdrop,
+              "vocab_size": 32, "torch_dtype": "float32"}
+    size = write_hf_dir(torch, path, config, sd)
+    tree["pos_conv"]["kernel"] = None  # checked apart, against g v / ||v||
+    return size, tree, g, v
+
+
+def hf_smollm_dir(torch, path):
+    """SmolLM-135M (``LlamaForCausalLM``, tied embeddings, so no
+    ``lm_head``) from seeded weights, stored in bf16. Returns (bytes, the
+    written tensors by name)."""
+    from aat_tpu_torch.models import llama
+
+    cfg = llama.smollm_135m_config()
+    tree = llama.init_llama_numpy(8, cfg)
+    bf = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)  # noqa: E731
+    sd = {"model.embed_tokens.weight": bf(tree["embed_tokens"]["embedding"]),
+          "model.norm.weight": bf(tree["final_norm"]["scale"])}
+    for i, layer in enumerate(tree["layers"]):
+        base = f"model.layers.{i}"
+        sd[f"{base}.input_layernorm.weight"] = bf(layer["input_norm"]["scale"])
+        sd[f"{base}.post_attention_layernorm.weight"] = bf(layer["post_attention_norm"]["scale"])
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "o_proj")):
+            sd[f"{base}.self_attn.{theirs}.weight"] = bf(layer["attention"][ours]["kernel"].T)
+        for name in ("gate", "up", "down"):
+            sd[f"{base}.mlp.{name}_proj.weight"] = bf(layer["mlp"][name]["kernel"].T)
+    config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+              "intermediate_size": cfg.intermediate_size,
+              "num_hidden_layers": cfg.num_hidden_layers,
+              "num_attention_heads": cfg.num_attention_heads,
+              "num_key_value_heads": cfg.num_key_value_heads, "rms_norm_eps": cfg.rms_norm_eps,
+              "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_position_embeddings,
+              "tie_word_embeddings": True, "torch_dtype": "bfloat16"}
+    return write_hf_dir(torch, path, config, sd), sd
+
+
+def check_read_weights(torch, params, hubert_tree, g, v, smollm):
+    """The trees ``build_model(pretrained=True)`` read equal what was
+    written: bitwise, the bf16 LM after its upcast, and the positional conv
+    within ``POS_CONV_TOL`` of g v / ||v|| in f64. Returns (tensors checked,
+    the conv's norm ratio)."""
+    from aat_tpu_torch.training.checkpoint import flatten
+    from aat_tpu_torch.utils.port import hubert_from_jax
+
+    want = flatten(hubert_from_jax(hubert_tree))
+    got = flatten(params["audio_encoder"])
+    check(set(got) == set(want) | {"pos_conv.kernel"}, "the encoder tree's paths differ")
+    differ = [k for k, w in want.items() if not torch.equal(got[k].cpu(), w)]
+    check(not differ, f"encoder tensors differ from the file: {differ[:5]}")
+    w64 = (g.double() * v.double() / v.double().norm(dim=(0, 1), keepdim=True))
+    conv = got["pos_conv.kernel"].cpu().double()
+    ratio = float((conv - w64).norm() / w64.norm())
+    check(ratio <= POS_CONV_TOL, f"positional conv norm ratio {ratio:.3e} > {POS_CONV_TOL}")
+
+    lm = flatten(params["lm_decoder"])
+    names = {"embed_tokens.embedding": "model.embed_tokens.weight",
+             "final_norm.scale": "model.norm.weight"}
+    for i in range(len(params["lm_decoder"]["layers"])):
+        names[f"layers.{i}.input_norm.scale"] = f"model.layers.{i}.input_layernorm.weight"
+        names[f"layers.{i}.post_attention_norm.scale"] = (
+            f"model.layers.{i}.post_attention_layernorm.weight")
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "o_proj")):
+            names[f"layers.{i}.attention.{ours}.kernel"] = f"model.layers.{i}.self_attn.{theirs}.weight"
+        for name in ("gate", "up", "down"):
+            names[f"layers.{i}.mlp.{name}.kernel"] = f"model.layers.{i}.mlp.{name}_proj.weight"
+    check(set(lm) == set(names), f"the LM tree's paths differ: {sorted(set(lm) ^ set(names))[:5]}")
+    differ = []
+    for ours, theirs in names.items():
+        w = smollm[theirs].float()
+        w = w.t() if ours.endswith("kernel") else w
+        if lm[ours].dtype != torch.float32 or not torch.equal(lm[ours].cpu(), w):
+            differ.append(ours)
+    check(not differ, f"LM tensors differ from the file: {differ[:5]}")
+    return len(want) + 1 + len(names), ratio
+
+
+class CliWords(WordIds):
+    """Word-level tokenizer of phase 13 (the card's machine has no
+    tokenizer files): a fixed vocabulary of ``<pad>`` 0, ``<s>`` 1,
+    ``</s>`` 2, the prompt prefixes' words and the captions' words, with
+    ``__call__(texts, padding=True)``, ``decode`` and ``batch_decode``; it
+    reads its own bos and eos strings inside a text."""
+
+    bos_token_id = 1
+
+    def __init__(self, words):
+        from aat_tpu_torch.data.collate import PREFIXES
+
+        self.vocab = {"<pad>": 0, "<s>": 1, "</s>": 2}
+        for w in " ".join(PREFIXES).split() + sorted(words):
+            self.vocab.setdefault(w, len(self.vocab))
+        self.words = {i: w for w, i in self.vocab.items()}
+
+    def __call__(self, texts, padding=True):
+        seqs = [[self.vocab[w] for w in t.replace("<s>", " <s> ").replace("</s>", " </s> ").split()]
+                for t in texts]
+        ids = np.zeros((len(seqs), max(map(len, seqs))), np.int64)
+        for i, s in enumerate(seqs):
+            ids[i, :len(s)] = s
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
+
+    def decode(self, ids, skip_special_tokens=False):
+        special = (0, 1, 2) if skip_special_tokens else ()
+        # a generated id outside the vocabulary reads as id<i>
+        return " ".join(self.words.get(int(i), f"id{int(i)}") for i in ids
+                        if int(i) not in special)
+
+    def batch_decode(self, ids, skip_special_tokens=True):
+        return [self.decode(row, skip_special_tokens) for row in np.asarray(ids)]
+
+
+class Split(list):
+    """A dataset stand-in for ``load_hf_dataset``: ``select``,
+    ``shuffle(seed)`` and ``len``."""
+
+    def select(self, indices):
+        return Split(self[int(i)] for i in indices)
+
+    def shuffle(self, seed):
+        return self.select(np.random.default_rng(seed).permutation(len(self)))
+
+
+def cli_items(rng, durations, tag):
+    """Speech-like utterances with ``words`` (3.5 a second), their start
+    and end times, and an ``id``."""
+    items = Split()
+    for i, d in enumerate(durations):
+        n = int(d * WORDS_PER_SECOND)
+        start = np.linspace(0.0, 0.9 * d, n)
+        items.append({"id": f"{tag}{i}", "audio": {"array": speechlike_waveform(rng, d),
+                                                   "sampling_rate": 16000},
+                      "words": [f"w{int(k)}" for k in rng.integers(3, 3000, n)],
+                      "word_start": start.tolist(), "word_end": (start + 0.2).tolist()})
+    return items
+
+
+def phase_cli(torch, device, rng, smi_line):
+    """13. the command lines at full width, in a temporary directory under
+    the build directory, with cuDNN's deterministic algorithms (the resumed
+    run must equal the uninterrupted one bit for bit) and wandb disabled.
+    Returns the train CLI's launches by wrapper and by C entry (its bf16
+    part and its generation prefixes') and serve's."""
+    import shutil
+    import tempfile
+
+    from aat_tpu_torch.runtime.kernels import BUILD_DIR
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_", dir=BUILD_DIR)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    wandb_mode = os.environ.get("WANDB_MODE")
+    os.environ["WANDB_MODE"] = "disabled"
+    try:
+        return cli_path(torch, device, rng, smi_line, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if wandb_mode is None:
+            os.environ.pop("WANDB_MODE", None)
+        else:
+            os.environ["WANDB_MODE"] = wandb_mode
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checkpoint_tensors(torch, path):
+    """Every tensor of a checkpoint's ``params.pt`` and ``optimizer.pt``."""
+    out = {}
+    for name in ("params", "optimizer"):
+        saved = torch.load(os.path.join(path, f"{name}.pt"), weights_only=True)
+        for key, value in saved.items():
+            if isinstance(value, dict):
+                out.update({f"{name}.{key}.{k}": v for k, v in value.items()})
+            else:
+                out[f"{name}.{key}"] = value if torch.is_tensor(value) else torch.tensor(value)
+    return out
+
+
+def cli_path(torch, device, rng, smi_line, tmp):
+    import contextlib
+    import io
+    import shutil
+
+    from aat_tpu_torch.models.build import build_model
+    from aat_tpu_torch.ops import mel
+    from aat_tpu_torch.runtime.kernels import library
+    from aat_tpu_torch.scripts import serve as serve_cli
+    from aat_tpu_torch.scripts import train, validate
+    from aat_tpu_torch.serving import serve
+    from aat_tpu_torch.training.config import projection_training_config
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    phase_start = time.perf_counter()
+    print(f"cli phase: free disk {shutil.disk_usage(tmp).free / 2**30:.1f} GiB", flush=True)
+    # 1. the readers at full width
+    enc_dir, lm_dir = os.path.join(tmp, "hubert-large"), os.path.join(tmp, "smollm-135m")
+    start = time.perf_counter()
+    enc_bytes, hubert_tree, g, v = hf_hubert_dir(torch, enc_dir, rng)
+    lm_bytes, smollm = hf_smollm_dir(torch, lm_dir)
+    write_s = time.perf_counter() - start
+    cfg = dataclasses.replace(projection_training_config(), audio_encoder_checkpoint=enc_dir,
+                              lm_pretrained_model=lm_dir)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    model, params = build_model(cfg, pretrained=True, device=device)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - start
+    n_checked, ratio = check_read_weights(torch, params, hubert_tree, g, v, smollm)
+    check(model.audio_encoder_config.attention_impl == "pallas"
+          and model.lm_config.attention_impl == "pallas", "the read models are not on flash")
+    print(f"cli readers: hubert-large (HubertForCTC layout, weight_g/weight_v, lm_head and "
+          f"masked_spec_embed skipped) {enc_bytes} bytes f32, SmolLM-135M (tied, bf16) "
+          f"{lm_bytes} bytes, written in {write_s:.2f} s; build_model(pretrained=True) "
+          f"{read_s:.2f} s ({(enc_bytes + lm_bytes) / read_s / 1e9:.2f} GB/s); {n_checked} "
+          f"tensors equal to the file bit for bit (the LM after its bf16 upcast), the "
+          f"positional conv's norm ratio to g v / ||v|| (f64) {ratio:.3e}", flush=True)
+    del model, params, hubert_tree, smollm
+
+    # the seams a run on this machine replaces: the dataset and the tokenizer
+    train_items = cli_items(rng, CLI_TRAIN_SECONDS, "train")
+    valid_items = cli_items(rng, CLI_VALID_SECONDS, "valid")
+    tokenizer = CliWords({w for it in train_items + valid_items for w in it["words"]})
+    splits = {"train": train_items, "valid": valid_items}
+    seams = {(mod, "load_hf_dataset"): lambda name, split=None: splits[split]
+             for mod in (train, validate)}
+    seams.update({(mod, "build_tokenizer"): lambda config: tokenizer for mod in (train, validate)})
+    real = {key: getattr(*key) for key in seams}
+
+    wrappers = kernel_wrappers()
+    walls = {"training_step": [], "evaluate": [], "save_checkpoint": []}
+    prefix_launches = dict.fromkeys(wrappers, 0)
+    prefix_calls = dict.fromkeys(library().calls, 0)
+    methods = {name: getattr(AATTrainer, name) for name in list(walls) + ["_prefix_inputs"]}
+
+    def timed(name):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = methods[name](self, *args, **kw)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - start)
+            return out
+        return run
+
+    def prefix_routed(self, *args, **kw):
+        calls = dict(library().calls)
+        launches = {n: w.launches for n, w in wrappers.items()}
+        out = methods["_prefix_inputs"](self, *args, **kw)
+        routed(calls, "float32", "cli generation prefix", backward=False)
+        for n, w in wrappers.items():
+            prefix_launches[n] += w.launches - launches[n]
+        for e, c in library().calls.items():
+            prefix_calls[e] += c - calls[e]
+        return out
+
+    argv = ["--pretrained", "--audio-encoder-checkpoint", enc_dir, "--lm-pretrained-model",
+            lm_dir, "--per-device-train-batch-size", "2", "--gradient-accumulation-steps", "1",
+            "--num-train-epochs", "2", "--eval-steps", "3", "--save-steps", "3",
+            "--logging-steps", "1", "--no-load-best-model-at-end"]
+    out_a = os.path.join(tmp, "a_1_linear_none")
+    try:
+        for (mod, name), fn in seams.items():
+            setattr(mod, name, fn)
+        for name in walls:
+            setattr(AATTrainer, name, timed(name))
+        AATTrainer._prefix_inputs = prefix_routed
+
+        # 2. run A: the default preset for 2 epochs of 4 steps
+        for w in wrappers.values():
+            w.launches = 0
+        calls = reset_entry_calls()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        trainer = train.main(argv + ["--output-dir", os.path.join(tmp, "a")], device=device)
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - start
+        launches = {n: w.launches for n, w in wrappers.items()}
+        calls = dict(calls)
+        a_walls = {k: list(x) for k, x in walls.items()}
+        with open(os.path.join(out_a, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        losses = [m["train/loss"] for m in lines if "train/loss" in m]
+        evals = [m for m in lines if "eval/loss" in m]
+        ckpts = sorted(d for d in os.listdir(out_a) if d.startswith("checkpoint-"))
+        print(f"cli train, run A (python -m aat_tpu_torch.scripts.train, default preset, "
+              f"--pretrained): wall {a_s:.3f} s; steps {[round(x, 3) for x in a_walls['training_step']]} "
+              f"s; evals {[round(x, 3) for x in a_walls['evaluate']]} s; saves "
+              f"{[round(x, 3) for x in a_walls['save_checkpoint']]} s; losses "
+              f"{[round(x, 5) for x in losses]}; evals "
+              + "; ".join(f"eval/loss {m['eval/loss']:.5f} wer {m['wer']:.4f}" for m in evals)
+              + f"; checkpoints {ckpts}", flush=True)
+        check(trainer.state.step == 8 and len(losses) == 8 and all(np.isfinite(losses)),
+              f"run A: step {trainer.state.step}, losses {losses}")
+        check(len(evals) == 2 and all(np.isfinite(m["eval/loss"]) for m in evals),
+              f"run A's metrics.jsonl evals {evals}")
+        check({"checkpoint-6", "checkpoint-8"} <= set(ckpts), f"run A wrote {ckpts}")
+        for stale in set(ckpts) - {"checkpoint-6", "checkpoint-8"}:
+            shutil.rmtree(os.path.join(out_a, stale))  # disk: run B needs only these two
+        bf16_launches = {k: launches[k] - prefix_launches[k] for k in launches}
+        bf16_calls = {e: calls[e] - prefix_calls[e] for e in calls}
+        print(f"cli train launches: steps and eval losses {bf16_launches}; generation prefixes "
+              f"{prefix_launches}", flush=True)
+        flash_entry_calls(bf16_calls, "cli train (steps, eval losses)", "bfloat16")
+        flash_entry_calls(prefix_calls, "cli train (generation prefixes)", "float32",
+                          backward=False)
+        for name in TRAIN_KERNELS:
+            check(bf16_launches[name] > 0, f"the train CLI never launched {name}")
+
+        # 3. run B: resume from checkpoint-6 into epoch 1, 2 batches skipped
+        start = time.perf_counter()
+        train.main(argv + ["--output-dir", os.path.join(tmp, "b"), "--resume-from-checkpoint",
+                           os.path.join(out_a, "checkpoint-6")], device=device)
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - start
+        want = checkpoint_tensors(torch, os.path.join(out_a, "checkpoint-8"))
+        got = checkpoint_tensors(torch, os.path.join(tmp, "b_1_linear_none", "checkpoint-8"))
+        differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        check(set(got) == set(want) and not differ,
+              f"run B's checkpoint-8 differs from run A's on {len(differ)} tensors: {differ[:5]}")
+        with open(os.path.join(tmp, "b_1_linear_none", "metrics.jsonl")) as f:
+            b_losses = [m["train/loss"] for m in map(json.loads, f) if "train/loss" in m]
+        check(b_losses == losses[6:], f"run B's losses {b_losses}, run A's {losses[6:]}")
+        print(f"cli train, run B (--resume-from-checkpoint checkpoint-6: epoch 1, 2 batches "
+              f"fast-forwarded): wall {b_s:.3f} s; checkpoint-8 equal to run A's on all "
+              f"{len(want)} tensors of params.pt and optimizer.pt, bit for bit; losses of steps "
+              f"7-8 equal", flush=True)
+        shutil.rmtree(os.path.join(tmp, "b_1_linear_none"))
+
+        # 4. segmented training: adaptive boundaries and the n_words crop
+        for w in wrappers.values():
+            w.launches = 0
+        seg_calls = reset_entry_calls()
+        start = time.perf_counter()
+        seg = train.main(["--pretrained", "--audio-encoder-checkpoint", enc_dir,
+                          "--lm-pretrained-model", lm_dir, "--segmentation", "adaptive",
+                          "--few-train-samples", "4", "--per-device-train-batch-size", "2",
+                          "--gradient-accumulation-steps", "1", "--num-train-epochs", "1",
+                          "--eval-steps", "0", "--save-steps", "0", "--logging-steps", "1",
+                          "--output-dir", os.path.join(tmp, "seg")], device=device)
+        torch.cuda.synchronize()
+        seg_s = time.perf_counter() - start
+        with open(os.path.join(tmp, "seg_1_linear_adaptive", "metrics.jsonl")) as f:
+            seg_lines = [json.loads(line) for line in f]
+        seg_losses = [m["train/loss"] for m in seg_lines if "train/loss" in m]
+        seg_len = [m["debug/seq_len"] for m in seg_lines if "debug/seq_len" in m]
+        print(f"cli train --segmentation adaptive (n_words 50 crop): wall {seg_s:.3f} s, losses "
+              f"{[round(x, 5) for x in seg_losses]}, LM sequence lengths {seg_len}; launches "
+              f"{ {n: w.launches for n, w in wrappers.items()} }; flash by C entry "
+              f"{ {e: c for e, c in seg_calls.items() if c} }", flush=True)
+        check(seg.state.step == 2 and len(seg_losses) == 2 and all(np.isfinite(seg_losses)),
+              f"segmented run: step {seg.state.step}, losses {seg_losses}")
+        del seg
+        shutil.rmtree(os.path.join(tmp, "seg_1_linear_adaptive"))
+
+        # 5. validate and serve on run A's export, with the trainer's own
+        # methods (validate's segmented prefixes launch no flash kernel)
+        for name, fn in methods.items():
+            setattr(AATTrainer, name, fn)
+        export = trainer.save_pretrained(os.path.join(tmp, "export"))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics = validate.main(["--checkpoint", export, "--items", "4", "--batch", "2",
+                                     "--no-pretrained"], device=device)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - start
+        print(f"cli validate (--no-pretrained, adaptive, 4 items): wall {val_s:.3f} s; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())), flush=True)
+        check(np.isfinite(metrics["eval/loss"]) and "wer" in metrics, f"validate: {metrics}")
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+        for name, fn in methods.items():
+            setattr(AATTrainer, name, fn)
+
+    loaded = {}
+    real_load = serve_cli.load_pretrained
+
+    def keep(*args, **kw):
+        loaded["model"], loaded["params"] = real_load(*args, **kw)
+        return loaded["model"], loaded["params"]
+
+    serve_argv = ["--model-dir", export, "--random-demo", "4"]
+    serve_cli.load_pretrained = keep
+    # the ids are what is compared: no tokenizer decodes them (the export's
+    # LM directory has none)
+    real_tokenizer = serve_cli.local_tokenizer
+    serve_cli.local_tokenizer = lambda name: None
+    for w in wrappers.values():
+        w.launches = 0
+    serve_calls = reset_entry_calls()
+    out = io.StringIO()
+    try:
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = serve_cli.main(serve_argv, device=device)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - start
+    finally:
+        serve_cli.load_pretrained = real_load
+        serve_cli.local_tokenizer = real_tokenizer
+    serve_launches = {n: w.launches for n, w in wrappers.items()}
+    serve_calls = dict(serve_calls)
+    lines = [json.loads(line) for line in out.getvalue().strip().splitlines()]
+    want_ids = serve.serve(loaded["model"], loaded["params"], serve_cli.demo_waves(4),
+                           serve_cli.serve_config(serve_cli.parse_args(serve_argv), EVAL_EOS))
+    check(code == 0 and [line["audio"] for line in lines] == [f"demo-{i}" for i in range(4)],
+          f"serve --model-dir printed {lines}")
+    check(all(line["ids"] == ids.tolist() for line, ids in zip(lines, want_ids)),
+          "serve --model-dir ids differ from serving.serve on the model it loaded")
+    check(serve_launches["mel"] > 0, "serve --model-dir never launched the mel kernel")
+    print(f"cli serve --model-dir (4 demo requests): wall {serve_s:.3f} s (load_pretrained "
+          f"included); ids equal to serving.serve on the loaded model on 4 of 4 requests; "
+          f"launches {serve_launches}; first ids {lines[0]['ids'][:8]}", flush=True)
+    del loaded
+    print(f"cli phase numbers ({smi_line}): wall {time.perf_counter() - phase_start:.1f} s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; free disk "
+          f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB", flush=True)
+    return bf16_launches, bf16_calls, prefix_launches, prefix_calls, serve_launches, serve_calls
 
 
 def assert_ids_near(torch, label, got, x, codebook):
@@ -1925,6 +2492,8 @@ def main():
     smi_line = smi[0] if smi else "nvidia-smi: no output"
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"optional packages (the port imports them only where the JAX package does): "
+          f"{optional_packages()}", flush=True)
 
     # 2. build
     start = time.perf_counter()
@@ -2003,6 +2572,12 @@ def main():
     del model, params  # SmolLM and its encoder leave the card before Qwen comes
     gc.collect()
     torch.cuda.empty_cache()
+    # 13. the command lines at full width: the readers, train (and resume),
+    # validate and serve
+    (cli_launches, cli_calls, cli_prefix_launches, cli_prefix_calls, serve_cli_launches,
+     serve_cli_calls) = phase_cli(torch, device, rng, smi_line)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 9. the offline discrete-token pipeline at full width
     pipeline_launches = phase_pipeline(torch, device, rng)
@@ -2014,15 +2589,17 @@ def main():
     torch.cuda.empty_cache()
     longform_launches, longform_calls = phase_longform(torch, device, rng)
 
-    # phase 12's path in two parts: training and eval loss (bf16), and the
-    # generation prefix (f32)
+    # phases 12 and 13's training paths in two parts: training and eval loss
+    # (bf16), and the generation prefix (f32)
     paths = {"serve": launches, "train": train_launches, "pipeline": pipeline_launches,
              "longform": longform_launches, "train_eval": eval_launches,
-             "train_eval_prefix": prefix_launches}
+             "train_eval_prefix": prefix_launches, "train_cli": cli_launches,
+             "train_cli_prefix": cli_prefix_launches, "serve_cli": serve_cli_launches}
     # the flash launches by C entry (the pipeline launches no flash kernel)
     path_calls = {"serve": serve_calls, "train": train_calls, "pipeline": {},
                   "longform": longform_calls, "train_eval": eval_calls,
-                  "train_eval_prefix": prefix_calls}
+                  "train_eval_prefix": prefix_calls, "train_cli": cli_calls,
+                  "train_cli_prefix": cli_prefix_calls, "serve_cli": serve_cli_calls}
 
     def entry(name, source, replaces, path, result, counter=None, c_entry=None):
         """``launches`` counts the run of ``path``, the path whose shapes the

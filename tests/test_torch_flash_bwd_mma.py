@@ -207,10 +207,11 @@ def test_builders_default_to_the_card_and_raise_without_one(monkeypatch, tiny_mo
 
 
 def test_builder_refusals_come_before_the_device(monkeypatch, tiny_models):
-    """Asking for what is not ported (pretrained weights) is refused as
-    such, on a machine without a GPU too."""
+    """Pretrained weights named by a hub name with no local directory are
+    refused as such (``FileNotFoundError``), on a machine without a GPU too:
+    the directory is checked before the device is resolved."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(FileNotFoundError, match="local checkpoint directory"):
         tbuild.build_model(TrainingConfig(), pretrained=True)
     assert tiny_models == []
 

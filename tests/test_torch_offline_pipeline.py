@@ -48,10 +48,15 @@ def corpus():
         np.random.default_rng(20 + i), d)}} for i, d in enumerate(DURATIONS))
 
 
-def jax_segment_embeddings(items, out_dir):
+def jax_segment_embeddings(items, out_dir, encoder=None):
     """The JAX script's per-utterance body (scripts/segment_embeddings.py)
-    with ``build_audio_encoder(pretrained=False)``."""
-    params, cfg = jbuild.build_audio_encoder(JConfig(), pretrained=False)
+    with ``build_audio_encoder(pretrained=False)``, or reading the local
+    checkpoint directory ``encoder``."""
+    if encoder is None:
+        params, cfg = jbuild.build_audio_encoder(JConfig(), pretrained=False)
+    else:
+        params, cfg = jbuild.build_audio_encoder(JConfig(audio_encoder_checkpoint=encoder),
+                                                 pretrained=True)
     tok = JTok()
     os.makedirs(out_dir)
     for item in items:
@@ -145,6 +150,24 @@ def test_segment_embeddings_needs_a_gpu_by_default(monkeypatch, tiny_encoders):
 
 
 def test_pretrained_encoder_is_not_ported_yet(monkeypatch, tmp_path):
-    monkeypatch.setattr(tsegemb, "load_hf_dataset", lambda name, split=None: corpus())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tsegemb.main(["--dataset", "corpus", "--out", str(tmp_path)], device="cpu")
+    """``--pretrained`` (the default) reads the encoder from the local HF
+    directory ``--encoder``: the embeddings equal the JAX script body's on
+    the same directory within 2e-4; a hub name with no local directory
+    raises ``FileNotFoundError``."""
+    from tests.test_torch_hf_readers import hubert_model, save
+
+    items = corpus()
+    monkeypatch.setattr(tsegemb, "load_hf_dataset", lambda name, split=None: items)
+    with pytest.raises(FileNotFoundError, match="local checkpoint directory"):
+        tsegemb.main(["--dataset", "corpus", "--out", str(tmp_path / "none")], device="cpu")
+    encoder = save(hubert_model("HubertForCTC"), tmp_path / "hubert", "safetensors")
+    tsegemb.main(["--dataset", "corpus", "--out", str(tmp_path / "port"), "--encoder", encoder],
+                 device="cpu")
+    jax_segment_embeddings(items, str(tmp_path / "jax"), encoder=encoder)
+    for item in items:
+        got = np.load(tmp_path / "port" / (item["id"] + ".npz"))
+        want = np.load(tmp_path / "jax" / (item["id"] + ".npz"))
+        assert sorted(got.files) == sorted(want.files) and len(want.files) > 1
+        for key in want.files:
+            assert got[key].shape == want[key].shape, key
+            np.testing.assert_allclose(got[key], want[key], atol=2e-4, rtol=0, err_msg=key)

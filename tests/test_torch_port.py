@@ -148,9 +148,12 @@ def test_build_model_equals_jax(monkeypatch, lm):
 
 
 def test_build_refuses_pretrained_and_full_configs_match_jax():
+    """``pretrained=True`` with a hub name and no local directory is refused
+    (nothing is downloaded; reading a local directory is held against JAX
+    in ``tests/test_torch_hf_readers.py``)."""
     for build in (tbuild.build_audio_encoder, tbuild.build_lm_decoder):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            build(TConfig(), pretrained=True)
+        with pytest.raises(FileNotFoundError, match="local checkpoint directory"):
+            build(TConfig(), pretrained=True, device="cpu")
     assert_same_fields(tllm.qwen15_18b_config(), jllm.qwen15_18b_config())
     q = tllm.qwen15_18b_config()
     assert (q.hidden_size // q.num_attention_heads, q.num_key_value_heads) == (128, 16)
@@ -174,12 +177,16 @@ def test_port_imports_no_jax():
         "aat_tpu_torch.scripts", "aat_tpu_torch.scripts.segment_embeddings",
         "aat_tpu_torch.scripts.mean_segment_embeddings",
         "aat_tpu_torch.scripts.quantize_embeddings",
+        "aat_tpu_torch.data.collate", "aat_tpu_torch.data.dataloaders",
+        "aat_tpu_torch.data.datasets", "aat_tpu_torch.utils.tracking",
+        "aat_tpu_torch.utils.timing", "aat_tpu_torch.scripts.train",
+        "aat_tpu_torch.scripts.validate", "aat_tpu_torch.scripts.serve",
     ]
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in modules)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aat_tpu', "
-        "'orbax', 'transformers', 'safetensors', 'nltk'))\n"
+        "'orbax', 'transformers', 'safetensors', 'nltk', 'datasets', 'regex', 'wandb'))\n"
         + "built = aat_tpu_torch.runtime.kernels._library is not None\n"
         + "print(bad, 'kernel library built' if built else '')\n"
         + "sys.exit(1 if bad or built else 0)\n"
