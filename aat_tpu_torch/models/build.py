@@ -59,16 +59,19 @@ def build_audio_encoder(config: TrainingConfig, pretrained: bool = True, device=
         raise NotImplementedError("EfficientNet is not ported yet (ROADMAP Queue 1 item 7)")
     if config.audio_encoder_type not in ("hubert", "wav2vec2"):
         raise ValueError(f"unknown audio_encoder_type: {config.audio_encoder_type}")
-    if config.encoder_remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP Queue 1, trainer pieces)")
+
+    def apply_remat(cfg):
+        return dataclasses.replace(cfg, remat=config.encoder_remat,
+                                   remat_policy=config.encoder_remat_policy)
+
     if pretrained:
         path = port.require_local_dir(config.audio_encoder_checkpoint, "audio encoder checkpoint")
         device = resolve_device(device)
         params, cfg = port.port_hubert(path, config.audio_encoder_type)
-        return _on(params, device), dataclasses.replace(cfg, attention_impl="pallas")
+        return _on(params, device), apply_remat(dataclasses.replace(cfg, attention_impl="pallas"))
     cfg = (hub.hubert_large_config() if config.audio_encoder_type == "hubert"
            else hub.wav2vec2_large_config())
-    return hub.init_hubert_params(ENCODER_KEY, cfg, resolve_device(device)), cfg
+    return hub.init_hubert_params(ENCODER_KEY, cfg, resolve_device(device)), apply_remat(cfg)
 
 
 def build_lm_decoder(config: TrainingConfig, pretrained: bool = True, device=None):

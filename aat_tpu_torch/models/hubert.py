@@ -21,20 +21,33 @@ skipped, where JAX computes it and selects the input: the result is the
 same, and its parameters get no gradient (``None``), which the optimizer
 reads as zero.
 
-Left out (TPU layout devices and multi-device): remat,
-pipeline/sequence/tensor parallelism, the chunked and im2col/space-to-depth
-conv forms, and the pre-pad to the flash block multiple (with dropout on,
-the pre-pad changes the flat positions the JAX masks are keyed on).
+Remat (``HubertConfig.remat``) trades FLOPs for memory per encoder layer
+under autograd, as the JAX ``jax.checkpoint`` does: ``"full"`` keeps only
+each layer's input and recomputes the layer in the backward
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps the matrix
+products' outputs (``aten.mm`` / ``addmm`` / ``bmm``) and recomputes the
+rest, the flash kernel among it (its ctypes launch is no aten op, as the
+Pallas call is no dot for JAX's ``dots_with_no_batch_dims_saveable``).
+Dropout masks come from seeds, so the recompute redraws them exactly, and
+LayerDrop is decided outside the checkpointed layer. Without autograd
+(evaluation, serving) a layer runs once.
+
+Left out (TPU layout devices and multi-device): pipeline/sequence/tensor
+parallelism, the chunked and im2col/space-to-depth conv forms, and the
+pre-pad to the flash block multiple (with dropout on, the pre-pad changes
+the flat positions the JAX masks are keyed on).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as torch_checkpoint
 
 from aat_tpu_torch.ops.attention import attention_bthd
 from aat_tpu_torch.ops.dropout import dropout, fold_seed, uniform_from_seed
@@ -62,6 +75,8 @@ class HubertConfig:
     activation_dropout: float = 0.0
     layerdrop: float = 0.0  # torch train-mode LayerDrop (whole-layer skip)
     attention_impl: str = "xla"  # 'xla' (plain) | 'pallas' (flash kernel)
+    remat: bool = False  # recompute encoder layers in the backward (memory for FLOPs)
+    remat_policy: str = "full"  # 'full' | 'dots' (matrix-product outputs kept)
 
     @property
     def head_dim(self) -> int:
@@ -278,6 +293,32 @@ def _layer(layer, config: HubertConfig, hidden, frame_mask, seed):
     return _layer_norm(hidden, layer["final_layer_norm"], eps)
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                  torch.ops.aten.bmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy: keep matrix-product outputs."""
+    if op in _SAVED_BY_DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_layer(layer, config: HubertConfig, hidden, frame_mask, seed):
+    """One encoder layer, checkpointed when ``config.remat`` and autograd
+    is recording."""
+    if not (config.remat and torch.is_grad_enabled()):
+        return _layer(layer, config, hidden, frame_mask, seed)
+    kw = {}
+    if config.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+    # the layer draws no torch RNG (dropout hashes its seed), so the RNG
+    # state need not be saved for the recompute
+    return torch_checkpoint.checkpoint(_layer, layer, config, hidden, frame_mask, seed,
+                                       use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 def encoder(params, config: HubertConfig, hidden: torch.Tensor,
             frame_mask: Optional[torch.Tensor],
             dropout_seed: Optional[int] = None) -> torch.Tensor:
@@ -297,7 +338,7 @@ def encoder(params, config: HubertConfig, hidden: torch.Tensor,
         if (seed is not None and config.layerdrop > 0.0
                 and uniform_from_seed(fold_seed(seed, _LAYERDROP_SITE)) < config.layerdrop):
             continue
-        hidden = _layer(layer, config, hidden, frame_mask, seed)
+        hidden = _run_layer(layer, config, hidden, frame_mask, seed)
     if config.do_stable_layer_norm:
         hidden = _layer_norm(hidden, params["encoder_layer_norm"], eps)
     return hidden

@@ -26,8 +26,10 @@ depend on timing, so here validation has a collator of its own). Neither
 this port nor the JAX package restores the best-metric record, so with
 ``load_best_model_at_end`` a resumed run's ``finalize`` may pick another
 checkpoint than an uninterrupted run's.
-Unfreezing the LM mid-run (``unfreeze_lm_at_epoch``, or resuming a run
-that had) is not ported yet (ROADMAP Queue 1 item 5).
+``unfreeze_lm_at_epoch`` unfreezes the LM at the start of that epoch
+(``AATTrainer.unfreeze_lm_decoder``); a run resumed from a checkpoint whose
+``trainer_meta.json`` says the LM trained unfreezes it before restoring,
+so the LM's moments restore too.
 """
 
 from __future__ import annotations
@@ -65,11 +67,6 @@ logger = logging.getLogger(__name__)
 
 VALIDATION_ITEMS = 30
 DATA_STATE_FILE = "data_state.json"
-
-
-def _no_unfreeze(why: str):
-    raise NotImplementedError(f"{why} needs unfreeze_lm_decoder, which is not ported yet "
-                              "(ROADMAP Queue 1 item 5)")
 
 
 def parse_args(argv=None):
@@ -186,7 +183,9 @@ def run(trainer, config: TrainingConfig, train_iter, val_iter, val_collate, resu
     start_epoch = 0
     if resume:
         if read_checkpoint_meta(resume).get("train_lm_decoder") and not config.train_lm_decoder:
-            _no_unfreeze("resuming a run that had unfrozen the LM")
+            # the interrupted run had unfrozen the LM: rebuild the optimizer
+            # before restoring, so the LM's moments restore too
+            trainer.unfreeze_lm_decoder()
         trainer.restore_checkpoint(resume)
         if steps_per_epoch > 0:
             start_epoch = trainer.state.step // steps_per_epoch
@@ -194,7 +193,7 @@ def run(trainer, config: TrainingConfig, train_iter, val_iter, val_collate, resu
     for epoch in range(int(config.num_train_epochs)):
         if (config.unfreeze_lm_at_epoch is not None and epoch == config.unfreeze_lm_at_epoch
                 and not config.train_lm_decoder):
-            _no_unfreeze("unfreeze_lm_at_epoch")
+            trainer.unfreeze_lm_decoder()
         if epoch < start_epoch:
             continue
         train_iter.set_epoch(epoch)

@@ -8,9 +8,8 @@
 - :meth:`AdaptiveAudioTokenizer.tokenize_batch`: the fixed-shape batched
   device path (:func:`~aat_tpu_torch.ops.segmentation.segment_waveforms`)
   on a padded ``[B, L]`` tensor.
-
-``tokenize_dense`` (the table plus the dense segment batch in one call) is
-not ported yet (ROADMAP Queue 1).
+- :func:`tokenize_dense`: the device path's table plus the dense segment
+  batch, over chunks of the batch.
 """
 
 from __future__ import annotations
@@ -18,9 +17,11 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from aat_tpu_torch.audio import AudioWaveform
 from aat_tpu_torch.ops import mel as mel_ops
+from aat_tpu_torch.ops.ragged import materialize_segments
 from aat_tpu_torch.ops import segmentation as seg_ops
 from aat_tpu_torch.ops.segmentation import TokenizerConfig
 
@@ -129,3 +130,40 @@ class AdaptiveAudioTokenizer:
         """Fixed-shape batch segmentation of a padded ``[B, L]`` tensor; see
         :func:`aat_tpu_torch.ops.segmentation.segment_waveforms`."""
         return seg_ops.segment_waveforms(waveforms, lengths, self.config)
+
+
+def tokenize_dense(waveforms: torch.Tensor, lengths: torch.Tensor,
+                   config: TokenizerConfig = TokenizerConfig(), batch_chunk: int = 8):
+    """The device tokenizer and the dense segment batch of a padded
+    ``[B, L]`` batch: :func:`~aat_tpu_torch.ops.segmentation.segment_waveforms`
+    then :func:`~aat_tpu_torch.ops.ragged.materialize_segments`, over chunks
+    of the batch of the largest size up to ``batch_chunk`` that divides it
+    (one chunk when ``B <= batch_chunk``). On CUDA tensors the mel step is
+    the ``csrc/mel.cu`` kernel.
+
+    Returns ``(table, segments, frame_mask)``: ``table`` is the
+    :func:`segment_waveforms` dict (leaves ``[B, ...]``), without ``melspec``
+    when chunked (call :meth:`AdaptiveAudioTokenizer.tokenize_batch` for
+    it); ``segments`` is ``[B, S_max, max_frames]`` float32 and
+    ``frame_mask`` its bool validity mask. Chunked and flat results are
+    equal."""
+    b = waveforms.shape[0]
+    max_frames = config.max_segment_frames
+
+    def one_chunk(wv, ln):
+        table = seg_ops.segment_waveforms(wv, ln, config)
+        segments, frame_mask = materialize_segments(
+            wv, table["starts"], table["ends"], table["out_lens"], table["segment_mask"],
+            max_frames)
+        return table, segments, frame_mask
+
+    if b <= batch_chunk:
+        return one_chunk(waveforms, lengths)
+    chunk = max(d for d in range(1, batch_chunk + 1) if b % d == 0)
+    parts = []
+    for i in range(0, b, chunk):
+        table, segments, frame_mask = one_chunk(waveforms[i:i + chunk], lengths[i:i + chunk])
+        table.pop("melspec")
+        parts.append((table, segments, frame_mask))
+    table = {k: torch.cat([p[0][k] for p in parts]) for k in parts[0][0]}
+    return (table, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts]))

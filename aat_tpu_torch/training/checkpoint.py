@@ -7,10 +7,14 @@ A checkpoint directory (``output_dir/checkpoint-{step}``, or an export of
 - ``params.pt``: ``{"step": int, "params": {dotted path: tensor}}``, the
   path being the tree's keys and list indices joined by "." (for example
   ``audio_encoder.layers.0.attention.q.kernel``);
-- ``optimizer.pt`` (checkpoints only): ``{"count": int32 tensor,
-  "total_notfinite": f32 tensor, "mu": {path: tensor}, "nu": {path:
-  tensor}}`` of the fused guarded AdamW, frozen leaves (state ``None``)
-  omitted;
+- ``optimizer.pt`` (checkpoints only): the optimizer state as one flat
+  ``{dotted path: tensor}`` map, whatever the optimizer: the path takes the
+  state's NamedTuple field names (``count``, ``mu.adapter.projection.in.
+  kernel``, ``inner_state.v_row.…`` of a guarded Adafactor), and leaves
+  without state (``None``: frozen leaves, Adafactor's unused slots) are
+  omitted. Files of the fused AdamW's earlier nested form (``{"count",
+  "total_notfinite", "mu": {path: tensor}, "nu": …}``) flatten to the same
+  keys;
 - ``trainer_meta.json`` (checkpoints) or ``config.json`` (exports).
 
 Tensors are written from host copies and read with
@@ -33,10 +37,13 @@ META_FILE = "trainer_meta.json"
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Nested dicts and lists of tensors → ``{dotted path: tensor}``;
-    ``None`` leaves (frozen optimizer state) are left out."""
+    """Nested dicts, lists and NamedTuples (by field name) of tensors →
+    ``{dotted path: tensor}``; ``None`` leaves (frozen optimizer state) are
+    left out."""
     if isinstance(tree, dict):
         items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
     else:
@@ -54,6 +61,9 @@ def unflatten_like(template, flat: Dict[str, torch.Tensor], prefix: str = ""):
     that differs."""
     if isinstance(template, dict):
         return {k: unflatten_like(v, flat, f"{prefix}{k}.") for k, v in template.items()}
+    if hasattr(template, "_fields"):
+        return type(template)(*(unflatten_like(v, flat, f"{prefix}{k}.")
+                                for k, v in zip(template._fields, template)))
     if isinstance(template, (list, tuple)):
         return [unflatten_like(v, flat, f"{prefix}{i}.") for i, v in enumerate(template)]
     if template is None:
@@ -77,13 +87,10 @@ def write_params(path: str, step: int, params) -> None:
 
 
 def write_optimizer(path: str, opt_state) -> None:
-    """``opt_state``: ``(count, mu, nu, total_notfinite)`` of the fused
-    guarded AdamW."""
+    """Any optimizer state of :mod:`~aat_tpu_torch.training.optim`, as its
+    flat dotted-path map."""
     os.makedirs(path, exist_ok=True)
-    torch.save({"count": opt_state.count.detach().cpu(),
-                "total_notfinite": opt_state.total_notfinite.detach().cpu(),
-                "mu": _host(flatten(opt_state.mu)), "nu": _host(flatten(opt_state.nu))},
-               os.path.join(path, OPTIMIZER_FILE))
+    torch.save(_host(flatten(opt_state)), os.path.join(path, OPTIMIZER_FILE))
 
 
 def write_json(path: str, name: str, obj: Dict[str, Any]) -> None:
@@ -97,12 +104,13 @@ def read_params(path: str, device) -> Dict[str, Any]:
     return torch.load(os.path.join(path, PARAMS_FILE), weights_only=True, map_location=device)
 
 
-def read_optimizer(path: str, device) -> Optional[Dict[str, Any]]:
-    """``optimizer.pt`` of ``path``, or None where there is none."""
+def read_optimizer(path: str, device) -> Optional[Dict[str, torch.Tensor]]:
+    """``optimizer.pt`` of ``path`` as its flat dotted-path map, or None
+    where there is none."""
     file = os.path.join(path, OPTIMIZER_FILE)
     if not os.path.exists(file):
         return None
-    return torch.load(file, weights_only=True, map_location=device)
+    return flatten(torch.load(file, weights_only=True, map_location=device))
 
 
 def read_checkpoint_meta(path: str) -> Dict[str, Any]:

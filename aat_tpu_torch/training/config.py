@@ -81,8 +81,9 @@ class TrainingConfig:
     # into each decoder row (block-diagonal attention, per-utterance rotary
     # positions — models/aslm.py:forward). Loss-equivalent to unpacked.
     lm_pack: int = 1
-    # encoder-layer rematerialization: validated for field parity, not
-    # ported yet (the port stores every activation)
+    # encoder-layer rematerialization (models/build puts it on the
+    # HubertConfig): 'full' recomputes each layer in the backward, 'dots'
+    # keeps the matrix-product outputs
     encoder_remat: bool = False
     encoder_remat_policy: str = "full"  # 'full' | 'dots'
     mesh_dp: int = 1

@@ -26,6 +26,8 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict, List, Sequence
 
+import numpy as np
+
 
 # ---------------------------------------------------------------------------
 # Normalization (reference compute_metrics.py:43-70)
@@ -63,13 +65,21 @@ def _edit_distance(a: Sequence[str], b: Sequence[str]) -> int:
 def wer(predictions: List[str], references: List[str]) -> float:
     """Corpus WER: sum of word edit distances / total reference words.
 
-    The JAX package may route the distance through its native library; the
-    integer distance is the same."""
+    Words become ids of one vocabulary, and the distance of two id
+    sequences is :func:`~aat_tpu_torch.runtime.host_ops.edit_distance`
+    (the native library's where it is built, as in JAX)."""
+    from aat_tpu_torch.runtime.host_ops import edit_distance
+
+    vocab: dict = {}
+
+    def ids(words):
+        return np.array([vocab.setdefault(w, len(vocab)) for w in words], dtype=np.int64)
+
     total_dist = 0
     total_words = 0
     for pred, ref in zip(predictions, references):
         pred_words, ref_words = pred.split(), ref.split()
-        total_dist += _edit_distance(pred_words, ref_words)
+        total_dist += edit_distance(ids(pred_words), ids(ref_words))
         total_words += len(ref_words)
     return total_dist / max(total_words, 1)
 

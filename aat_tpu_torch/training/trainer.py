@@ -27,8 +27,14 @@ checkpoint`) in JAX's ``checkpoint-{step}`` layout; a JAX run's orbax
 state converts into them through :func:`aat_tpu_torch.utils.port.
 checkpoint_from_jax`.
 
-Not ported yet (ROADMAP Queue 1): adafactor and the unfused optimizer
-chain, ``unfreeze_lm_decoder``, remat, EfficientNet melspec batches,
+The optimizer is the JAX trainer's (``_build_tx``): the fused guarded
+AdamW by default, the unfused ``adamw_grouped`` chain, or ``adafactor``
+(``learning_rate=None``: its relative step), under ``guard_nonfinite``
+when ``skip_nonfinite_updates``. :meth:`AATTrainer.unfreeze_lm_decoder`
+starts training the LM mid-run. Encoder remat is the encoder config's
+(``HubertConfig.remat``, set from ``encoder_remat`` by ``models/build``).
+
+Not ported yet (ROADMAP Queue 1): EfficientNet melspec batches and
 multi-device meshes.
 """
 
@@ -87,20 +93,16 @@ class AATTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "device meshes are not ported yet (ROADMAP Queue 1, multi-device)")
-        if config.encoder_remat:
-            raise NotImplementedError("remat is not ported yet (ROADMAP Queue 1, trainer pieces)")
         self.model = model
         self.config = config
         self.tokenizer = tokenizer
         self.generation_config = generation_config
         self.compute_metrics = compute_metrics
         self.log_fn = log_fn or (lambda metrics: logger.info("metrics %s", metrics))
-        if config.learning_rate is None:
-            raise NotImplementedError(
-                "relative-step Adafactor is not ported yet (ROADMAP Queue 1, trainer pieces)")
-        self.schedule = warmup_linear_schedule(config.learning_rate, config.warmup_steps,
-                                               config.max_steps or 100000,
-                                               config.start_lr_from)
+        # learning_rate=None: Adafactor's relative step, no external schedule
+        self.schedule = None if config.learning_rate is None else warmup_linear_schedule(
+            config.learning_rate, config.warmup_steps, config.max_steps or 100000,
+            config.start_lr_from)
         self.freeze = optim_lib.trainable_mask(
             params, train_audio_encoder=config.train_audio_encoder,
             train_lm_decoder=config.train_lm_decoder)
@@ -112,16 +114,22 @@ class AATTrainer:
         self._best_checkpoint: Optional[str] = None
 
     def _build_tx(self, params):
+        """The JAX trainer's choice: the fused guarded AdamW when the guard
+        is on; else the unfused chain (the clip in the chain); Adafactor
+        under the guard (no clip) or alone."""
         cfg = self.config
         if cfg.optimizer == "adamw" and cfg.skip_nonfinite_updates:
             return optim_lib.fused_guarded_adamw(
                 self.schedule, params, weight_decay=cfg.weight_decay,
                 clip_norm=cfg.grad_clip_norm, freeze=self.freeze)
         if cfg.optimizer == "adamw":
-            return optim_lib.adamw_grouped(self.schedule, params)
-        if cfg.optimizer == "adafactor":
-            return optim_lib.adafactor(self.schedule)
-        raise ValueError(f"unknown optimizer {cfg.optimizer}")
+            tx = optim_lib.adamw_grouped(self.schedule, params, weight_decay=cfg.weight_decay,
+                                         grad_clip_norm=cfg.grad_clip_norm, freeze=self.freeze)
+        elif cfg.optimizer == "adafactor":
+            tx = optim_lib.adafactor(self.schedule, freeze=self.freeze)
+        else:
+            raise ValueError(f"unknown optimizer {cfg.optimizer}")
+        return optim_lib.guard_nonfinite(tx) if cfg.skip_nonfinite_updates else tx
 
     # ------------------------------------------------------------------
     # Forward assembly (segmented + whole-utterance)
@@ -273,7 +281,7 @@ class AATTrainer:
                       fetch_metrics: bool = True) -> Dict[str, float]:
         """One optimizer step over the microbatches: gradients summed, then
         divided by their count (metrics averaged the same way), then the
-        fused guarded AdamW update in place. Returns host metrics when
+        optimizer's update in place. Returns host metrics when
         ``fetch_metrics`` (one device sync)."""
         acc_grads = acc_metrics = None
         for idx, mb in enumerate(microbatches):
@@ -301,14 +309,37 @@ class AATTrainer:
         if not fetch_metrics:
             return {}
         names = list(acc_metrics)
-        values = torch.stack([acc_metrics[k].float() for k in names]
-                             + [self.state.opt_state.total_notfinite.float()]).cpu().tolist()
+        values = [acc_metrics[k].float() for k in names]
+        guarded = self.config.skip_nonfinite_updates
+        if guarded:
+            values.append(self.state.opt_state.total_notfinite.float())
+        values = torch.stack(values).cpu().tolist()
         host = dict(zip(names, values))
-        host["train/skipped_nonfinite_total"] = values[-1]
-        if not np.isfinite(host["train/loss"]):
-            logger.warning("non-finite loss %s at step %d (update dropped)",
-                           host["train/loss"], self.state.step)
+        if guarded:
+            host["train/skipped_nonfinite_total"] = values[-1]
+            if not np.isfinite(host["train/loss"]):
+                logger.warning("non-finite loss %s at step %d (update dropped)",
+                               host["train/loss"], self.state.step)
         return host
+
+    def unfreeze_lm_decoder(self):
+        """Train the LM decoder from here on (the reference's
+        ``unfreeze_lm_at_epoch``): the freeze mask and the optimizer are
+        rebuilt, every optimizer-state leaf whose path, shape and dtype
+        match is carried over (the moments of what already trained, and the
+        step count), and the LM's moments start fresh
+        (:func:`~aat_tpu_torch.training.optim.merge_matching_state`).
+        ``config.train_lm_decoder`` becomes True, so the forward stops
+        detaching the LM and its parameters get gradients."""
+        self.config.train_lm_decoder = True
+        self.freeze = optim_lib.trainable_mask(
+            self.state.params, train_audio_encoder=self.config.train_audio_encoder,
+            train_lm_decoder=True)
+        self.tx = self._build_tx(self.state.params)
+        merged = optim_lib.merge_matching_state(self.state.opt_state,
+                                                self.tx.init(self.state.params))
+        self.state = TrainState(self.state.step, self.state.params, merged)
+        logger.info("lm decoder unfrozen at step %d", self.state.step)
 
     def train(self, train_batches: Iterable[dict],
               eval_batches: Optional[Callable[[], Iterable[dict]]] = None,
@@ -358,7 +389,8 @@ class AATTrainer:
             step = self.state.step
             if step % cfg.logging_steps == 0:
                 metrics["train/step_time"] = (time.time() - t_start) / cfg.logging_steps
-                metrics["train/lr"] = float(self.schedule(step))
+                if self.schedule is not None:
+                    metrics["train/lr"] = float(self.schedule(step))
                 self.log_fn(metrics)
                 t_start = time.time()
             if cfg.eval_steps and step % cfg.eval_steps == 0 and eval_batches is not None:
@@ -595,19 +627,14 @@ class AATTrainer:
         logger.info("restored checkpoint %s at step %d", path, self.state.step)
 
     def _read_opt_state(self, path: str):
-        """The saved optimizer state in this trainer's tree, or None where
-        the file is missing or its trainable leaves differ."""
-        raw = ckpt_lib.read_optimizer(path, self.device)
-        if raw is None:
+        """The saved optimizer state in this trainer's state tree, or None
+        where the file is missing or its leaves are not this optimizer's
+        (another optimizer, or other trainable leaves)."""
+        flat = ckpt_lib.read_optimizer(path, self.device)
+        template = self.state.opt_state
+        if flat is None or set(flat) != set(ckpt_lib.flatten(template)):
             return None
-        trainable = {k for k, t in ckpt_lib.flatten(self.freeze).items() if t}
-        if set(raw["mu"]) != trainable or set(raw["nu"]) != trainable:
-            return None
-        cur = self.state.opt_state
-        return optim_lib.FusedGuardedAdamWState(
-            raw["count"].to(cur.count.dtype), ckpt_lib.unflatten_like(cur.mu, raw["mu"]),
-            ckpt_lib.unflatten_like(cur.nu, raw["nu"]),
-            raw["total_notfinite"].to(cur.total_notfinite.dtype))
+        return ckpt_lib.unflatten_like(template, flat)
 
     def _merge_saved_subtrees(self, path: str, flat: dict, partial: bool) -> dict:
         """The saved top-level subtrees merged into this trainer's params."""

@@ -7,8 +7,8 @@ module is the one place that knows that layout. :func:`from_jax_params`
 takes a full ASLM tree (``audio_encoder``, ``adapter``, ``lm_decoder``) as
 numpy arrays (``jax.device_get`` of the JAX tree); :func:`to_jax_params` is
 its inverse, as numpy. :func:`checkpoint_from_jax` does the same for a
-whole training state (params, fused AdamW state, step) and writes it as a
-port checkpoint.
+whole training state (params, the optimizer's state, step) and writes it
+as a port checkpoint.
 
 It also reads Hugging Face checkpoints from a local directory into the
 port's trees (the counterparts of the JAX package's ``port_hubert``,
@@ -99,31 +99,148 @@ def _unmask(tree):
     return tree
 
 
+def _field(node, name):
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def _has_fields(node, names) -> bool:
+    if isinstance(node, dict):
+        return all(n in node for n in names)
+    return isinstance(node, tuple) and all(n in getattr(node, "_fields", ()) for n in names)
+
+
+def _find_state(tree, names):
+    """The first node of a JAX optimizer state (NamedTuples, or the dicts
+    and lists of a target-free orbax restore) that has the fields
+    ``names``, depth first; None where there is none."""
+    if _has_fields(tree, names):
+        return tree
+    children = (tree.values() if isinstance(tree, dict)
+                else tree if isinstance(tree, (list, tuple)) else ())
+    for child in children:
+        found = _find_state(child, names)
+        if found is not None:
+            return found
+    return None
+
+
+def _conv_kernel_paths(params: dict) -> set:
+    """Paths (tuples of keys) of the conv kernels, whose layout differs."""
+    enc = params["audio_encoder"]
+    paths = {("audio_encoder", "feature_extractor", i, "conv", "kernel")
+             for i in range(len(enc["feature_extractor"]))}
+    return paths | {("audio_encoder", "pos_conv", "kernel")}
+
+
+def _factored_from_jax(v_row, v_col, params: dict):
+    """Adafactor's factored moments of the JAX layout → the port's
+    ``(v_row, v_col)`` trees (numpy; None on 1-D and frozen leaves). A
+    statistic is a mean over one axis of the squared gradient; in the
+    port's layout a conv kernel's axes are reversed, so its factored axes
+    may swap roles: each port statistic is the JAX one over the same axis,
+    transposed to the port's axis order."""
+    from aat_tpu_torch.training.optim import factored_dims
+
+    conv = _conv_kernel_paths(params)
+
+    def walk(p, vr, vc, path):
+        if isinstance(p, dict):
+            parts = {k: walk(p[k], _sub(vr, k), _sub(vc, k), path + (k,)) for k in p}
+            return ({k: v[0] for k, v in parts.items()}, {k: v[1] for k, v in parts.items()})
+        if isinstance(p, (list, tuple)):
+            parts = [walk(x, _sub(vr, i), _sub(vc, i), path + (i,)) for i, x in enumerate(p)]
+            return [v[0] for v in parts], [v[1] for v in parts]
+        shape = np.shape(p)
+        if _unmask(vr) is None or len(shape) < 2:
+            return None, None
+        n = len(shape)
+        perm = tuple(range(n))[::-1] if path in conv else tuple(range(n))  # port axis -> JAX
+        d1j, d0j = factored_dims(shape)
+        by_axis = {d0j: np.asarray(vr), d1j: np.asarray(vc)}  # JAX stat by reduced axis
+        d1p, d0p = factored_dims(tuple(shape[perm[i]] for i in range(n)))
+
+        def port_stat(axis_p):
+            axis_j = perm[axis_p]
+            rest_j = [a for a in range(n) if a != axis_j]
+            rest_p = [perm[i] for i in range(n) if i != axis_p]
+            return np.ascontiguousarray(
+                np.transpose(by_axis[axis_j], [rest_j.index(a) for a in rest_p]))
+
+        return port_stat(d0p), port_stat(d1p)
+
+    return walk(params, v_row, v_col, ())
+
+
+def _sub(node, key):
+    if node is None or (isinstance(node, (tuple, list, dict)) and len(node) == 0):
+        return None
+    return node[key]
+
+
 def checkpoint_from_jax(state: dict, path: str, meta: Optional[dict] = None) -> str:
     """A JAX trainer's state as numpy trees, ``{"params", "opt_state",
     "step"}`` (what ``AATTrainer.save_checkpoint`` writes with orbax,
     restored and fetched), → a port checkpoint at ``path`` that
-    ``AATTrainer.restore_checkpoint`` reads. ``opt_state`` is the fused
-    guarded AdamW state, ``(count, mu, nu, total_notfinite)`` as a
-    NamedTuple, tuple or dict, with ``MaskedNode`` on frozen leaves; the
-    moments take the params' layout change (:func:`from_jax_params`).
-    ``meta``: the checkpoint's ``trainer_meta.json``, copied when given."""
-    from aat_tpu_torch.training import checkpoint as ckpt_lib
-    from aat_tpu_torch.training.optim import FusedGuardedAdamWState
+    ``AATTrainer.restore_checkpoint`` reads. ``opt_state`` is any of the
+    JAX trainer's optimizer states, as its NamedTuples or as the dicts of
+    a target-free restore, with ``MaskedNode`` on frozen leaves:
 
-    opt = state["opt_state"]
-    if isinstance(opt, dict):
-        opt = tuple(opt[k] for k in FusedGuardedAdamWState._fields)
-    count, mu, nu, total_notfinite = opt
-    ckpt_lib.write_params(path, int(np.asarray(state["step"])),
-                          from_jax_params(state["params"]))
-    ckpt_lib.write_optimizer(path, FusedGuardedAdamWState(
-        torch.as_tensor(np.asarray(count, np.int32)),
-        from_jax_params(_unmask(mu)), from_jax_params(_unmask(nu)),
-        torch.as_tensor(np.asarray(total_notfinite, np.float32))))
+    - the fused guarded AdamW, ``(count, mu, nu, total_notfinite)``;
+    - the unfused chain, ``adamw_grouped`` (its ``scale_by_adam`` count and
+      moments), under ``guard_nonfinite`` or not;
+    - ``adafactor`` (its ``scale_by_factored_rms`` count and moments),
+      under ``guard_nonfinite`` or not.
+
+    Moments take the params' layout change (:func:`from_jax_params`;
+    Adafactor's factored moments :func:`_factored_from_jax`). ``meta``: the
+    checkpoint's ``trainer_meta.json``, copied when given."""
+    from aat_tpu_torch.training import checkpoint as ckpt_lib
+    from aat_tpu_torch.training import optim
+
+    opt, params = state["opt_state"], state["params"]
+    ckpt_lib.write_params(path, int(np.asarray(state["step"])), from_jax_params(params))
+
+    def count_of(node):
+        return torch.as_tensor(np.asarray(_field(node, "count"), np.int32))
+
+    adam_fields = ("count", "mu", "nu")
+    if _has_fields(opt, adam_fields + ("total_notfinite",)):
+        inner = None
+        port_state = optim.FusedGuardedAdamWState(
+            count_of(opt), from_jax_params(_unmask(_field(opt, "mu"))),
+            from_jax_params(_unmask(_field(opt, "nu"))),
+            torch.as_tensor(np.asarray(_field(opt, "total_notfinite"), np.float32)))
+    elif (adam := _find_state(opt, adam_fields)) is not None:
+        inner = optim.ScaleByAdamState(count_of(adam), from_jax_params(_unmask(_field(adam, "mu"))),
+                                       from_jax_params(_unmask(_field(adam, "nu"))))
+    else:
+        fac = _find_state(opt, ("count", "v_row", "v_col", "v"))
+        if fac is None:
+            raise ValueError("unknown JAX optimizer state: no AdamW or Adafactor moments")
+        v_row, v_col = _factored_from_jax(_field(fac, "v_row"), _field(fac, "v_col"), params)
+        v = optim.tree_map(lambda p, x: x if x is not None and np.ndim(p) < 2 else None,
+                           params, _masked_like(params, _field(fac, "v")))
+        inner = optim.FactoredState(count_of(fac), to_tensors(v_row), to_tensors(v_col),
+                                    to_tensors(v))
+    if inner is not None:
+        port_state = inner
+        if _has_fields(opt, ("total_notfinite", "inner_state")):
+            port_state = optim.GuardNonfiniteState(
+                torch.as_tensor(np.asarray(_field(opt, "total_notfinite"), np.float32)), inner)
+    ckpt_lib.write_optimizer(path, port_state)
     if meta is not None:
         ckpt_lib.write_json(path, ckpt_lib.META_FILE, meta)
     return path
+
+
+def _masked_like(params, tree):
+    """``tree`` with ``None`` where it is masked, in the structure of
+    ``params`` (a masked subtree is None at its root)."""
+    if isinstance(params, dict):
+        return {k: _masked_like(v, _sub(tree, k)) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_masked_like(v, _sub(tree, i)) for i, v in enumerate(params)]
+    return _unmask(tree)
 
 
 def vq_state_from_jax(state, device=None):

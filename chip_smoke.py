@@ -167,17 +167,58 @@ Phases, one line each:
      ``serving.serve`` on the model it loaded, with mel kernel launches. It
      prints the read seconds and bytes, and the walls of steps, evals and
      saves, beside the card's name and power limit.
+ 14. the dataset utilities at full width, in phase 13's directory: a
+     ``datasets`` dataset of 16 seeded speech-like utterances of 4-30 s
+     (``Dataset.from_dict``, saved to disk), then ``scripts.
+     melspec_precompute``, ``scripts.audio_tokenization`` on the host
+     route and with ``--device-batch 8`` (every utterance's
+     ``segment_frames`` equal, the mel kernel launched; on a mismatch each
+     differing utterance is printed with its boundary frame and the plain
+     mel route's result on the card), ``tokenizer.tokenize_dense`` in
+     chunks of 8 against one flat call (tables and segments equal, and the
+     table equal to the device route's), ``scripts.reduce_seq_len``
+     against a local alignment dataset, ``merge_datasets``,
+     ``dataset_info``, ``inspect_embeddings``, ``parity_check --clips 8``
+     and ``parity_check --weights`` / ``--lm-weights`` on phase 13's
+     hubert-large and SmolLM directories (frames within 2e-4 of
+     ``transformers``' HubertModel on the CPU, bf16 segment means within
+     1e-3 relative MSE, the eval wiring); the native host library
+     (``csrc/aat_host.cpp``) built, the route the host tokenizer and the
+     adaptive collator took, and one collated batch bitwise equal to the
+     numpy route's. Each command's wall is printed.
+ 15. the trainer's pieces at full width: on phase 8's model after phase
+     12, the whole-utterance step (2 microbatches of 2 utterances) and on
+     phase 11's model the 170 s long-form step, each without remat and
+     with encoder remat "full" and "dots" from the same state (fresh
+     trainers, cuDNN deterministic): losses and updated parameters equal
+     bit for bit, the encoder's flash forwards twice as many under remat
+     (the recompute), peak memory and walls printed; 3 whole-utterance
+     steps with Adafactor (``learning_rate=None``, guarded), a save, a
+     step, and a fresh trainer restored from the save taking the same step
+     bit for bit, then 3 steps of the unfused AdamW chain
+     (``skip_nonfinite_updates=False``), finite, the frozen LM unchanged;
+     in phase 13's directory the train command line with
+     ``--unfreeze-lm-at-epoch 1`` (SmolLM bit for bit the read weights
+     through epoch 0, moved in epoch 1) and a run resumed from
+     ``checkpoint-6``, after the unfreeze, ending on run A's
+     ``checkpoint-8`` bit for bit; and the MFU of phases 8 and 11's warm
+     steps from ``utils/flops`` (model FLOPs over the step wall over 989
+     TFLOP/s).
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
-long-form steps, phase 13's run A and its serve command) and read just
-after; each kernel of the path must have
+long-form steps, phase 13's run A and its serve command, phase 14, each
+remat step of phase 15, its optimizer steps and its unfreeze run A) and
+read just after; each kernel of the path must have
 launched there, and each path's flash launches must all go through the C
 entries of one dtype (serving's f32 forward through
 ``aat_flash_fwd_tf32x3``, training's and long-form training's bf16 forward
 and backward through the ``*_mma`` entries; phase 12's generation prefixes
 are counted apart, as the path ``train_eval_prefix``, from its bf16 part,
 ``train_eval``; phase 13's likewise, as ``train_cli_prefix`` and
-``train_cli``, and its serve command as ``serve_cli``). Then a
+``train_cli``, and its serve command as ``serve_cli``; phase 14 as
+``dataset``, phase 15's remat steps as ``train_remat`` and
+``longform_remat``, its optimizer steps as ``train_optimizers`` and its
+unfreeze run as ``train_unfreeze_cli``). Then a
 JSON line of kernel results, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. In the kernel line the flash entries
 report bf16 (the tensor-core kernels, counting only launches through their
@@ -912,7 +953,7 @@ def training_batches(torch, device, rng, n_steps, accum, per_batch=2):
     return steps
 
 
-def phase_training(torch, model, params, rng):
+def phase_training(torch, model, params, rng, smi_line):
     """3 optimizer steps at full width through the kernels, then one f32
     gradient step through the kernel and plain routes. Returns the launch
     counts of the 3 steps by wrapper and by C entry."""
@@ -961,6 +1002,8 @@ def phase_training(torch, model, params, rng):
         check(launches[name] > 0, f"training never launched the {name} kernel")
     entry_calls = flash_entry_calls(calls, "training", "bfloat16")
     del lm_before, before
+    print_mfu("phase 8 (whole-utterance, SmolLM-135M)", model, cfg, batches[-1], walls[-1],
+              smi_line)
 
     profile_training_step(torch, trainer, batches[-1])
 
@@ -1609,7 +1652,8 @@ def phase_cli(torch, device, rng, smi_line):
     the build directory, with cuDNN's deterministic algorithms (the resumed
     run must equal the uninterrupted one bit for bit) and wandb disabled.
     Returns the train CLI's launches by wrapper and by C entry (its bf16
-    part and its generation prefixes') and serve's."""
+    part and its generation prefixes') and serve's, then phase 14's and
+    phase 15's unfreeze command line's (run in the same directory)."""
     import shutil
     import tempfile
 
@@ -1622,7 +1666,12 @@ def phase_cli(torch, device, rng, smi_line):
     wandb_mode = os.environ.get("WANDB_MODE")
     os.environ["WANDB_MODE"] = "disabled"
     try:
-        return cli_path(torch, device, rng, smi_line, tmp)
+        result = cli_path(torch, device, rng, smi_line, tmp)
+        # 14. the dataset utilities, and 15's LM unfreeze through the train
+        # command line, on the directories written here
+        dataset = phase_dataset(torch, device, rng, smi_line, tmp)
+        unfreeze = phase_unfreeze_cli(torch, device, rng, smi_line, tmp)
+        return result + (dataset, unfreeze)
     finally:
         torch.backends.cudnn.deterministic = deterministic
         if wandb_mode is None:
@@ -1884,6 +1933,8 @@ def cli_path(torch, device, rng, smi_line, tmp):
           f"included); ids equal to serving.serve on the loaded model on 4 of 4 requests; "
           f"launches {serve_launches}; first ids {lines[0]['ids'][:8]}", flush=True)
     del loaded
+    for done in (out_a, export):  # disk for phases 14 and 15 in this directory
+        shutil.rmtree(done, ignore_errors=True)
     print(f"cli phase numbers ({smi_line}): wall {time.perf_counter() - phase_start:.1f} s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; free disk "
           f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB", flush=True)
@@ -2402,12 +2453,14 @@ def longform_batch(torch, device, rng, seconds, vocab):
         ("attention_mask", ones), ("input_ids_attention_mask", ones))}
 
 
-def phase_longform(torch, device, rng):
+def phase_longform(torch, device, rng, smi_line):
     """2 optimizer steps of ``projection_training_config()`` with the
     Qwen-1.5-1.8B LM at full width (random weights through ``build_model``),
     one utterance of 170 s and one of 180 s: every attention's key length
-    exceeds 8192, so the backward takes the split route. Returns the launch
-    counts of the 2 steps by wrapper and by C entry."""
+    exceeds 8192, so the backward takes the split route; the warm step's
+    MFU; then (phase 15) the 170 s step without remat and with encoder
+    remat "full" and "dots". Returns the launch counts of the 2 steps, and
+    of the remat steps, by wrapper and by C entry."""
     from aat_tpu_torch.models.build import build_model
     from aat_tpu_torch.models.hubert import feature_lengths
     from aat_tpu_torch.training import optim
@@ -2463,8 +2516,568 @@ def phase_longform(torch, device, rng):
         check(launches[name] == 0, f"long-form training launched {name} (S <= 8192 route)")
     entry_calls = flash_entry_calls(calls, "long-form training", "bfloat16")
     del lm_before
+    print_mfu("phase 11 (long-form, Qwen-1.5-1.8B)", model, cfg, [batches[-1]], walls[-1],
+              smi_line)
     profile_training_step(torch, trainer, [batches[-1]], name="longform")
-    return launches, entry_calls
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = remat_compare(torch, model, params, cfg, [batches[0]], "long-form", smi_line)
+    return launches, entry_calls, remat
+
+
+# ---------------------------------------------------------------------------
+# 14. the dataset utilities at full width
+# ---------------------------------------------------------------------------
+
+DATASET_SECONDS = tuple(float(s) for s in np.linspace(4.0, 30.0, 16).round(2))
+
+
+def run_quietly(torch, fn):
+    """``(fn()'s result, what it printed, its wall in seconds)``, the wall
+    ending in a device sync."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    torch.cuda.synchronize()
+    return result, out.getvalue(), time.perf_counter() - start
+
+
+def segment_frames_of(torch, table):
+    """Each row's segment lengths from a device segment table."""
+    counts = table["num_segments"].cpu().tolist()
+    lens = table["out_lens"].cpu().numpy()
+    return [lens[i, :n].tolist() for i, n in enumerate(counts)]
+
+
+def explain_route_mismatch(torch, device, waves, host_frames, dev_frames):
+    """For each utterance whose device segment lengths differ from the host
+    route's: print the first differing segment, its boundary frame and
+    whether the plain mel route on the card gives the kernel route's
+    lengths. Returns the utterances where it does: there the device route's
+    float32 mel and the host's float64 mel fall on two sides of a near tie
+    (tests/test_torch_dataset_scripts.py has one, in JAX too), which no
+    kernel fault explains."""
+    from aat_tpu_torch.ops import mel, segmentation
+    from aat_tpu_torch.ops.mel import normalize_waveform
+
+    shared = []
+    for i, (h, d) in enumerate(zip(host_frames, dev_frames)):
+        if h == d:
+            continue
+        j = next((k for k, (a, b) in enumerate(zip(h, d)) if a != b), min(len(h), len(d)))
+        w = normalize_waveform(np.asarray(waves[i])).astype(np.float32)
+        x = torch.from_numpy(w[None]).to(device)
+        lengths = torch.tensor([w.size], device=device)
+        plain_mel = mel.melspec_frames_reference(
+            mel.frame_waveform_ragged(x, lengths)).transpose(-1, -2)
+        plain = segment_frames_of(torch, segmentation.segment_table_from_melspec(
+            plain_mel, lengths, segmentation.TokenizerConfig()))[0]
+        print(f"dataset: utterance {i} ({w.size / 16000:.2f} s): first differing segment {j}, "
+              f"boundary frame {sum(h[:j + 1]) // 160} (host) / {sum(d[:j + 1]) // 160} "
+              f"(device), lengths host {h[j:j + 2]} device {d[j:j + 2]}; the plain mel route "
+              f"on the card {'agrees with the kernel route' if plain == d else 'differs'}",
+              flush=True)
+        if plain == d:
+            shared.append(i)
+    return shared
+
+
+def phase_dataset(torch, device, rng, smi_line, tmp):
+    """14. the dataset utilities at full width, in phase 13's temporary
+    directory (its hubert-large and SmolLM-135M directories): a
+    ``datasets`` dataset of 16 seeded speech-like utterances of 4-30 s,
+    then ``melspec_precompute``, ``audio_tokenization`` on the host route
+    and with ``--device-batch 8`` (segment lengths equal on every
+    utterance, mel kernel launched), ``tokenize_dense`` chunked (8) against
+    flat, ``reduce_seq_len`` against a local alignment dataset,
+    ``merge_datasets``, ``dataset_info``, ``inspect_embeddings``,
+    ``parity_check --clips 8`` and ``parity_check --weights`` /
+    ``--lm-weights`` on phase 13's directories; and the native host
+    library: built, the route the tokenizer and the collator took, and one
+    collated batch bitwise equal to the numpy route's. Returns the phase's
+    launches by wrapper and by C entry."""
+    import shutil
+
+    import datasets
+
+    from aat_tpu_torch.data.collate import TokenizedAudioWaveformCollator
+    from aat_tpu_torch.ops.mel import normalize_waveform
+    from aat_tpu_torch.runtime import host_ops, native
+    from aat_tpu_torch.scripts import (audio_tokenization, dataset_info, inspect_embeddings,
+                                       melspec_precompute, merge_datasets, parity_check,
+                                       reduce_seq_len)
+    from aat_tpu_torch.tokenizer import AdaptiveAudioTokenizer, tokenize_dense
+
+    phase_start = time.perf_counter()
+    datasets.disable_progress_bars()
+    ids = [f"utt{i:02d}" for i in range(len(DATASET_SECONDS))]
+    waves = [speechlike_waveform(rng, d) for d in DATASET_SECONDS]
+    corpus = os.path.join(tmp, "corpus.dataset")
+    datasets.Dataset.from_dict({"id": ids, "audio": [
+        {"array": w, "sampling_rate": 16000} for w in waves]}).save_to_disk(corpus)
+    walls = {}
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    calls = reset_entry_calls()
+    host_ops.reset_calls()
+
+    # melspec_precompute: the host float64 mel, one .npy per id
+    mel_dir = os.path.join(tmp, "melspec")
+    _, _, walls["melspec_precompute"] = run_quietly(
+        torch, lambda: melspec_precompute.main(["--dataset", corpus, "--out", mel_dir]))
+    check(sorted(os.listdir(mel_dir)) == [f"{i}.npy" for i in ids], "melspec_precompute files")
+    first = np.load(os.path.join(mel_dir, f"{ids[0]}.npy"))
+    check(first.shape == (64, waves[0].size // 160 + 1) and np.isfinite(first).all(),
+          f"melspec {first.shape}")
+
+    # audio_tokenization: host route, then the device route
+    host_out, dev_out = os.path.join(tmp, "host.dataset"), os.path.join(tmp, "device.dataset")
+    _, _, walls["audio_tokenization"] = run_quietly(
+        torch, lambda: audio_tokenization.main(["--dataset", corpus, "--out", host_out]))
+    tokenizer_calls = {r: dict(c) for r, c in host_ops.calls.items()}
+    mel_before = wrappers["mel"].launches
+    _, _, walls["audio_tokenization --device-batch 8"] = run_quietly(
+        torch, lambda: audio_tokenization.main(
+            ["--dataset", corpus, "--out", dev_out, "--device-batch", "8"], device=device))
+    mel_tokenize = wrappers["mel"].launches - mel_before
+    host_frames = datasets.load_from_disk(host_out)["segment_frames"]
+    dev_frames = datasets.load_from_disk(dev_out)["segment_frames"]
+    differ = [i for i, (h, d) in enumerate(zip(host_frames, dev_frames)) if h != d]
+    print(f"dataset audio_tokenization: {len(ids)} utterances of {DATASET_SECONDS[0]}-"
+          f"{DATASET_SECONDS[-1]} s, segments per utterance {[len(f) for f in dev_frames]}; "
+          f"the device route's segment_frames equal the host route's on "
+          f"{len(ids) - len(differ)} of {len(ids)}; mel kernel launches of --device-batch 8: "
+          f"{mel_tokenize}", flush=True)
+    # a difference passes only where the plain mel route on the card gives
+    # the kernel route's lengths too (a float32-vs-float64 near tie)
+    shared = explain_route_mismatch(torch, device, waves, host_frames, dev_frames)
+    check(shared == differ, f"the device tokenizer's segment lengths differ from the host's on "
+          f"utterances {differ}, and the plain mel route on the card does not share "
+          f"{sorted(set(differ) - set(shared))}")
+    check(mel_tokenize > 0, "audio_tokenization --device-batch never launched the mel kernel")
+
+    # tokenize_dense on the card: chunks of 8 against one flat call
+    normed = [normalize_waveform(np.asarray(w)).astype(np.float32) for w in waves]
+    x = np.zeros((len(normed), max(w.size for w in normed)), np.float32)
+    for i, w in enumerate(normed):
+        x[i, : w.size] = w
+    xs = torch.from_numpy(x).to(device)
+    lengths = torch.tensor([w.size for w in normed], device=device)
+    mel_before = wrappers["mel"].launches
+    (chunked, flat), _, walls["tokenize_dense"] = run_quietly(torch, lambda: (
+        tokenize_dense(xs, lengths, batch_chunk=8), tokenize_dense(xs, lengths, batch_chunk=16)))
+    for key in ("starts", "ends", "out_lens", "segment_mask", "num_segments"):
+        check(torch.equal(chunked[0][key], flat[0][key]), f"tokenize_dense chunked {key} differs")
+    check(torch.equal(chunked[1], flat[1]) and torch.equal(chunked[2], flat[2]),
+          "tokenize_dense chunked segments differ from flat")
+    check(segment_frames_of(torch, flat[0]) == dev_frames,
+          "tokenize_dense's table differs from audio_tokenization's device route")
+    print(f"dataset tokenize_dense: [{x.shape[0]}, {x.shape[1]}] -> segments "
+          f"{list(flat[1].shape)}, chunked (8) equal to flat (16) on the table and the segments; "
+          f"mel launches {wrappers['mel'].launches - mel_before}", flush=True)
+    del xs, chunked, flat
+
+    # reduce_seq_len against a local alignment dataset, then merge and info
+    words = [[f"w{int(k)}" for k in rng.integers(3, 3000, int(d * WORDS_PER_SECOND))]
+             for d in DATASET_SECONDS]
+    starts = [np.linspace(0.0, 0.9 * d, len(wd)).tolist() for d, wd in zip(DATASET_SECONDS, words)]
+    align_dir = os.path.join(tmp, "alignments")
+    datasets.DatasetDict({"train": datasets.Dataset.from_dict({
+        "id": ids, "words": words, "word_start": starts,
+        "word_end": [[s + 0.2 for s in st] for st in starts]})}).save_to_disk(align_dir)
+    aligned = os.path.join(tmp, "aligned.dataset")
+    _, _, walls["reduce_seq_len"] = run_quietly(torch, lambda: reduce_seq_len.main(
+        ["--segments", host_out, "--alignments", align_dir, "--out", aligned]))
+    aligned_ds = datasets.load_from_disk(aligned)
+    check(aligned_ds["words"] == words and aligned_ds["segment_frames"] == host_frames,
+          "reduce_seq_len's columns")
+    merged = os.path.join(tmp, "merged.dataset")
+    _, _, walls["merge_datasets"] = run_quietly(torch, lambda: merge_datasets.main(
+        ["--shards", host_out, dev_out, "--out", merged]))
+    check(len(datasets.load_from_disk(merged)) == 2 * len(ids), "merge_datasets' length")
+    _, info, walls["dataset_info"] = run_quietly(
+        torch, lambda: dataset_info.main(["--dataset", merged]))
+    check(info.startswith(f"items: {2 * len(ids)}"), f"dataset_info printed {info!r}")
+    _, shown, walls["inspect_embeddings"] = run_quietly(torch, lambda: inspect_embeddings.main(
+        ["--embeddings", mel_dir, "--limit", "4"]))
+    check(shown.count("shape (64,") == 4, f"inspect_embeddings printed {shown!r}")
+    print("dataset dataset_info: " + " | ".join(info.strip().splitlines()), flush=True)
+
+    # the native host library: built, and the route the tokenizer and the
+    # collator took; one collated batch equal to the numpy route's
+    lib = native.library()
+    check(lib is not None, "the native host library did not build")
+    items = [{**aligned_ds[i], "audio": {"array": waves[i], "sampling_rate": 16000}}
+             for i in range(4)]
+    text = CliWords({w for it in items for w in it["words"]})
+
+    def collated():  # the train command line's adaptive collator
+        return TokenizedAudioWaveformCollator(
+            "hubert", "adaptive", AdaptiveAudioTokenizer.create(
+                min_segment_duration_milliseconds=500, max_segment_duration_milliseconds=250),
+            text, n_words=50, uniform_segmentation_frames_per_segment=4000, seed=3)(items)
+
+    host_ops.reset_calls()
+    native_batch = collated()
+    collator_calls = {r: dict(c) for r, c in host_ops.calls.items()}
+    real_library = native.library
+    native.library = lambda: None
+    try:
+        numpy_batch = collated()
+    finally:
+        native.library = real_library
+    differ = [k for k, v in native_batch.items() if isinstance(v, np.ndarray)
+              and not np.array_equal(v, numpy_batch[k])]
+    print(f"dataset native host route: {os.path.relpath(lib.path, REPO)} (built in this run: "
+          f"{lib.built}); the host tokenizer's calls {tokenizer_calls}; one adaptive collator "
+          f"batch {collator_calls['native']}, every field bitwise equal to the numpy route's: "
+          f"{not differ}", flush=True)
+    for entry in ("smoothed_amplitude", "find_minima"):
+        check(tokenizer_calls["native"][entry] > 0 and tokenizer_calls["numpy"][entry] == 0,
+              f"the host tokenizer did not take the native {entry}")
+    for entry in ("normalize_pad", "assemble_segments"):
+        check(collator_calls["native"][entry] > 0 and sum(collator_calls["numpy"].values()) == 0,
+              f"the collator did not take the native {entry}")
+    check(not differ, f"the native and numpy collator routes differ on {differ}")
+
+    # parity_check: the boundary checks, then the read checkpoints
+    enc_dir, lm_dir = os.path.join(tmp, "hubert-large"), os.path.join(tmp, "smollm-135m")
+    for label, argv in (("--clips 8", ["--clips", "8"]),
+                        ("--weights --lm-weights", ["--clips", "0", "--weights", enc_dir,
+                                                    "--lm-weights", lm_dir])):
+        code, out, walls[f"parity_check {label}"] = run_quietly(
+            torch, lambda: parity_check.main(argv, device=device))
+        for line in out.strip().splitlines():
+            if not line.startswith("ported"):
+                print(f"dataset parity_check {label}: {line}", flush=True)
+        check(code == 0 and "PARITY: PASS" in out, f"parity_check {label} failed")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    calls = dict(calls)
+    print(f"dataset walls ({smi_line}): " + "; ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; phase {time.perf_counter() - phase_start:.1f} s; launches {launches}", flush=True)
+    for path in (corpus, mel_dir, host_out, dev_out, align_dir, aligned, merged):
+        shutil.rmtree(path, ignore_errors=True)
+    return launches, calls
+
+
+# ---------------------------------------------------------------------------
+# 15. the trainer's pieces at full width: remat, unfreeze, Adafactor, the
+#     unfused AdamW chain, MFU
+# ---------------------------------------------------------------------------
+
+
+def step_flops(model, cfg, micro):
+    """Model FLOPs of one optimizer step over the microbatches ``micro``
+    (``utils/flops``: padded samples, whole utterances)."""
+    from aat_tpu_torch.utils import flops
+
+    return sum(flops.aslm_train_step_flops(
+        model.audio_encoder_config, model.lm_config, model.config, int(b["waveforms"].shape[0]),
+        None, int(b["waveforms"].shape[1]), int(b["input_ids"].shape[1]),
+        cfg.train_audio_encoder, cfg.train_lm_decoder)["total"] for b in micro)
+
+
+def print_mfu(label, model, cfg, micro, wall, smi_line):
+    from aat_tpu_torch.utils import flops
+
+    total = step_flops(model, cfg, micro)
+    print(f"mfu: {label} warm step {total / 1e12:.3f} TFLOP (utils/flops, model FLOPs) in "
+          f"{wall:.3f} s: MFU {flops.mfu(total, wall):.4f} of {flops.H100_BF16_PEAK / 1e12:.0f} "
+          f"TFLOP/s ({smi_line})", flush=True)
+
+
+class DeterministicCudnn:
+    """cuDNN's deterministic algorithms inside a ``with`` block (the runs
+    compared bit for bit)."""
+
+    def __init__(self, torch):
+        self.backends = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = self.backends.deterministic
+        self.backends.deterministic = True
+
+    def __exit__(self, *exc):
+        self.backends.deterministic = self.saved
+        return False
+
+
+def remat_compare(torch, model, params, cfg, micro, label, smi_line):
+    """One optimizer step from the same state without remat and with
+    encoder remat "full" and "dots" (fresh trainers; the LM frozen): the
+    losses and the updated parameters must be equal bit for bit, and the
+    encoder's flash forwards twice as many under remat (the recompute).
+    Prints the peak memory and wall of each. Returns the remat steps'
+    launches by wrapper and by C entry."""
+    from aat_tpu_torch.models.aslm import AslmModel
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.checkpoint import flatten
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    trained = {k: params[k] for k in ("audio_encoder", "adapter")}
+    initial = optim.tree_map(lambda x: x.detach().clone(), trained)
+    wrappers = kernel_wrappers()
+    remat_launches = dict.fromkeys(wrappers, 0)
+    remat_calls = None
+    runs, want = {}, None
+    with DeterministicCudnn(torch):
+        for policy in ("none", "full", "dots"):
+            with torch.no_grad():
+                optim.tree_map(lambda p, x: p.copy_(x), trained, initial)
+            enc_cfg = dataclasses.replace(model.audio_encoder_config, remat=policy != "none",
+                                          remat_policy="full" if policy == "none" else policy)
+            trainer = AATTrainer(AslmModel(model.config, enc_cfg, model.lm_config), params, cfg)
+            for w in wrappers.values():
+                w.launches = 0
+            calls = reset_entry_calls()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            loss = trainer.training_step(micro)["train/loss"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = {n: w.launches for n, w in wrappers.items()}
+            if policy != "none":
+                flash_entry_calls(calls, f"{label} remat {policy}", "bfloat16")
+                for n in remat_launches:
+                    remat_launches[n] += launches[n]
+                remat_calls = {e: (remat_calls or {}).get(e, 0) + c for e, c in calls.items()}
+            state = flatten(trained)
+            if want is None:
+                want = {k: v.clone() for k, v in state.items()}
+                differ, worst = [], 0.0
+            else:
+                differ = [k for k, v in state.items() if not torch.equal(v, want[k])]
+                worst = max((float((state[k] - want[k]).abs().max()) for k in differ), default=0.0)
+            runs[policy] = (loss, peak, wall, launches["flash_fwd"], len(differ), worst)
+            del trainer
+    with torch.no_grad():
+        optim.tree_map(lambda p, x: p.copy_(x), trained, initial)
+    del initial, want
+    base = runs["none"]
+    print(f"remat {label} ({smi_line}): " + "; ".join(
+        f"{p}: loss {r[0]:.6f}, peak {r[1]:.2f} GiB, wall {r[2]:.3f} s, encoder flash forwards "
+        f"{r[3]}, params differing from no remat {r[4]} (max abs {r[5]:.3e})"
+        for p, r in runs.items()), flush=True)
+    for policy in ("full", "dots"):
+        loss, peak, wall, fwd, n_differ, _ = runs[policy]
+        check(loss == base[0] and n_differ == 0,
+              f"{label} remat {policy}: the step differs from no remat")
+        check(fwd == 2 * base[3], f"{label} remat {policy}: {fwd} flash forwards, not twice "
+              f"{base[3]}")
+    return remat_launches, remat_calls
+
+
+def optimizer_steps(torch, model, params, cfg, steps, tmp, smi_line):
+    """3 whole-utterance steps with Adafactor (relative step, under the
+    guard), a save, one more step, and a fresh trainer restored from the
+    save taking the same step bit for bit; then 3 steps of the unfused
+    AdamW chain. Finite losses, the frozen LM unchanged. Returns the
+    launches by wrapper and by C entry."""
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.checkpoint import flatten
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    trained = {k: params[k] for k in ("audio_encoder", "adapter")}
+    initial = optim.tree_map(lambda x: x.detach().clone(), trained)
+    lm_before = [x.clone() for x in optim.tree_leaves(params["lm_decoder"])]
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    calls = reset_entry_calls()
+
+    def state_of(trainer):
+        return {**{f"params.{k}": v for k, v in flatten(trainer.state.params).items()},
+                **{f"opt.{k}": v for k, v in flatten(trainer.state.opt_state).items()}}
+
+    with DeterministicCudnn(torch):
+        # Adafactor, learning_rate=None
+        ada_cfg = dataclasses.replace(cfg, optimizer="adafactor", learning_rate=None,
+                                      output_dir=os.path.join(tmp, "adafactor"))
+        a = AATTrainer(model, params, ada_cfg)
+        start = time.perf_counter()
+        losses = [a.training_step(micro)["train/loss"] for micro in steps]
+        torch.cuda.synchronize()
+        ada_s = time.perf_counter() - start
+        path = a.save_checkpoint()
+        a.training_step(steps[0])
+        want = {k: v.clone() for k, v in state_of(a).items()}
+        b = AATTrainer(model, params, ada_cfg)
+        b.restore_checkpoint(path)
+        b.training_step(steps[0])
+        got = state_of(b)
+        differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        print(f"adafactor ({smi_line}): 3 steps (relative step, guarded), losses "
+              f"{[round(x, 5) for x in losses]}, {ada_s:.3f} s; state "
+              f"{sorted({'.'.join(k.split('.')[1:3]) for k in want if k.startswith('opt.')})}; "
+              f"save, restore "
+              f"in a fresh trainer and one more step: {len(want) - len(differ)} of {len(want)} "
+              f"tensors equal bit for bit", flush=True)
+        check(all(np.isfinite(losses)), f"non-finite Adafactor losses {losses}")
+        check(not differ and set(got) == set(want), f"Adafactor resume differs on {differ[:5]}")
+        del a, b, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            optim.tree_map(lambda p, x: p.copy_(x), trained, initial)
+
+        # the unfused AdamW chain
+        c = AATTrainer(model, params, dataclasses.replace(cfg, skip_nonfinite_updates=False))
+        start = time.perf_counter()
+        losses = [c.training_step(micro)["train/loss"] for micro in steps]
+        torch.cuda.synchronize()
+        unfused_s = time.perf_counter() - start
+        check(isinstance(c.state.opt_state, optim.ScaleByAdamState), "not the unfused chain")
+        print(f"adamw unfused (skip_nonfinite_updates=False): 3 steps, losses "
+              f"{[round(x, 5) for x in losses]}, {unfused_s:.3f} s", flush=True)
+        check(all(np.isfinite(losses)), f"non-finite unfused AdamW losses {losses}")
+        del c
+    launches = {n: w.launches for n, w in wrappers.items()}
+    calls = flash_entry_calls(calls, "optimizer steps", "bfloat16")
+    check(all(torch.equal(a, b) for a, b in zip(lm_before, optim.tree_leaves(params["lm_decoder"]))),
+          "a frozen LM weight changed under Adafactor or the unfused chain")
+    with torch.no_grad():
+        optim.tree_map(lambda p, x: p.copy_(x), trained, initial)
+    import shutil
+
+    shutil.rmtree(os.path.join(tmp, "adafactor"), ignore_errors=True)
+    return launches, calls
+
+
+def phase_trainer_pieces(torch, model, params, rng, smi_line):
+    """15, on phase 8's model and weights: remat of the whole-utterance step
+    (2 microbatches of 2 utterances), then Adafactor and the unfused chain.
+    Returns {path: (launches, calls)}."""
+    import shutil
+    import tempfile
+
+    from aat_tpu_torch.runtime.kernels import BUILD_DIR
+    from aat_tpu_torch.training.config import projection_training_config
+
+    device = params["lm_decoder"]["embed_tokens"]["embedding"].device
+    cfg = dataclasses.replace(projection_training_config(), per_device_train_batch_size=2,
+                              gradient_accumulation_steps=2)
+    steps = training_batches(torch, device, rng, n_steps=3, accum=2)
+    out = {"train_remat": remat_compare(torch, model, params, cfg, steps[0], "whole-utterance",
+                                        smi_line)}
+    tmp = tempfile.mkdtemp(prefix="optim_", dir=BUILD_DIR)
+    try:
+        out["train_optimizers"] = optimizer_steps(torch, model, params, cfg, steps, tmp, smi_line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_unfreeze_cli(torch, device, rng, smi_line, tmp):
+    """15, the LM unfreeze through the train command line on phase 13's
+    directories: ``--unfreeze-lm-at-epoch 1``, 2 epochs of 4 steps of 2
+    utterances, saves every 3 steps. SmolLM's weights must stay bit for bit
+    the read ones through epoch 0 and move in epoch 1; a run resumed from
+    ``checkpoint-6`` (after the unfreeze: it unfreezes before restoring)
+    must end on run A's ``checkpoint-8`` bit for bit. Returns run A's
+    launches by wrapper and by C entry."""
+    import shutil
+
+    from aat_tpu_torch.scripts import train
+    from aat_tpu_torch.training.checkpoint import flatten
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    enc_dir, lm_dir = os.path.join(tmp, "hubert-large"), os.path.join(tmp, "smollm-135m")
+    items = cli_items(rng, CLI_TRAIN_SECONDS, "unfreeze")
+    valid = cli_items(rng, CLI_VALID_SECONDS[:2], "unfreeze-valid")
+    tokenizer = CliWords({w for it in items + valid for w in it["words"]})
+    splits = {"train": items, "valid": valid}
+    real = {name: getattr(train, name) for name in ("load_hf_dataset", "build_tokenizer")}
+    methods = {name: getattr(AATTrainer, name) for name in ("training_step", "unfreeze_lm_decoder")}
+    seen = {}
+
+    def lm_copy(trainer):
+        return {k: v.detach().cpu().clone() for k, v in flatten(
+            trainer.state.params["lm_decoder"]).items()}
+
+    def first_step(self, *args, **kw):
+        seen.setdefault("start", (self.state.step, lm_copy(self)))
+        return methods["training_step"](self, *args, **kw)
+
+    def unfreeze(self):
+        seen["unfreeze"] = (self.state.step, lm_copy(self))
+        return methods["unfreeze_lm_decoder"](self)
+
+    argv = ["--pretrained", "--audio-encoder-checkpoint", enc_dir, "--lm-pretrained-model",
+            lm_dir, "--per-device-train-batch-size", "2", "--gradient-accumulation-steps", "1",
+            "--num-train-epochs", "2", "--unfreeze-lm-at-epoch", "1", "--eval-steps", "0",
+            "--save-steps", "3", "--logging-steps", "1", "--no-load-best-model-at-end"]
+    out_a, out_b = (os.path.join(tmp, f"u{x}_1_linear_none") for x in "ab")
+    wrappers = kernel_wrappers()
+    try:
+        train.load_hf_dataset = lambda name, split=None: splits[split]
+        train.build_tokenizer = lambda config: tokenizer
+        AATTrainer.training_step = first_step
+        AATTrainer.unfreeze_lm_decoder = unfreeze
+        for w in wrappers.values():
+            w.launches = 0
+        calls = reset_entry_calls()
+        with DeterministicCudnn(torch):
+            start = time.perf_counter()
+            trainer = train.main(argv + ["--output-dir", os.path.join(tmp, "ua")], device=device)
+            torch.cuda.synchronize()
+            a_s = time.perf_counter() - start
+            launches = {n: w.launches for n, w in wrappers.items()}
+            calls = flash_entry_calls(calls, "unfreeze cli run A", "bfloat16")
+            final = lm_copy(trainer)
+            del trainer
+            step0, lm_start = seen["start"]
+            step_u, lm_unfreeze = seen.pop("unfreeze")
+            frozen_ok = all(torch.equal(lm_start[k], v) for k, v in lm_unfreeze.items())
+            moved = sum(not torch.equal(final[k], v) for k, v in lm_unfreeze.items())
+            with open(os.path.join(out_a, "metrics.jsonl")) as f:
+                losses = [m["train/loss"] for m in map(json.loads, f) if "train/loss" in m]
+            print(f"unfreeze cli run A (--unfreeze-lm-at-epoch 1, 2 epochs of 4 steps): wall "
+                  f"{a_s:.3f} s; unfrozen at step {step_u}; SmolLM through epoch 0 bit for bit "
+                  f"the read weights: {frozen_ok}; moved in epoch 1: {moved} of {len(final)} "
+                  f"tensors; losses {[round(x, 5) for x in losses]}; launches {launches}",
+                  flush=True)
+            check(step0 == 0 and step_u == 4 and frozen_ok, "the LM moved before its unfreeze")
+            check(moved > 0 and all(np.isfinite(losses)) and len(losses) == 8,
+                  f"unfreeze run A: {moved} LM tensors moved, losses {losses}")
+            check(launches["flash_bwd_causal"] > 0, "no causal backward after the unfreeze")
+            resume = os.path.join(out_a, "checkpoint-6")
+            with open(os.path.join(resume, "trainer_meta.json")) as f:
+                check(json.load(f)["train_lm_decoder"] is True, "checkpoint-6 has a frozen LM")
+            start = time.perf_counter()
+            train.main(argv + ["--output-dir", os.path.join(tmp, "ub"),
+                               "--resume-from-checkpoint", resume], device=device)
+            torch.cuda.synchronize()
+            b_s = time.perf_counter() - start
+        want = checkpoint_tensors(torch, os.path.join(out_a, "checkpoint-8"))
+        got = checkpoint_tensors(torch, os.path.join(out_b, "checkpoint-8"))
+        differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        lm_moments = sum(k.startswith("optimizer.mu.lm_decoder") for k in want)
+        print(f"unfreeze cli run B (resumed from checkpoint-6, after the unfreeze): wall "
+              f"{b_s:.3f} s; checkpoint-8 equal to run A's on {len(want) - len(differ)} of "
+              f"{len(want)} tensors ({lm_moments} LM first moments among them), bit for bit",
+              flush=True)
+        check(set(got) == set(want) and not differ and lm_moments > 0,
+              f"the resumed unfreeze run differs on {differ[:5]}")
+    finally:
+        for name, fn in real.items():
+            setattr(train, name, fn)
+        for name, fn in methods.items():
+            setattr(AATTrainer, name, fn)
+        for out in (out_a, out_b):
+            shutil.rmtree(out, ignore_errors=True)
+    return launches, calls
+
 
 
 def main():
@@ -2565,17 +3178,20 @@ def main():
                          serve.padded_length(whole_waves))
 
     # 8. training at full width (the serving weights, trained in place)
-    train_launches, train_calls = phase_training(torch, model, params, rng)
+    train_launches, train_calls = phase_training(torch, model, params, rng, smi_line)
     # 12. train → evaluate → save → resume → finalize on those weights
     eval_launches, eval_calls, prefix_launches, prefix_calls = phase_checkpoint(
         torch, model, params, rng, smi_line)
+    # 15. remat of the whole-utterance step, Adafactor and the unfused chain
+    pieces = phase_trainer_pieces(torch, model, params, rng, smi_line)
     del model, params  # SmolLM and its encoder leave the card before Qwen comes
     gc.collect()
     torch.cuda.empty_cache()
     # 13. the command lines at full width: the readers, train (and resume),
     # validate and serve
     (cli_launches, cli_calls, cli_prefix_launches, cli_prefix_calls, serve_cli_launches,
-     serve_cli_calls) = phase_cli(torch, device, rng, smi_line)
+     serve_cli_calls, pieces["dataset"], pieces["train_unfreeze_cli"]) = phase_cli(
+        torch, device, rng, smi_line)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2587,19 +3203,22 @@ def main():
     split_results = phase_split_backward(torch, device, rng)
     gc.collect()
     torch.cuda.empty_cache()
-    longform_launches, longform_calls = phase_longform(torch, device, rng)
+    longform_launches, longform_calls, pieces["longform_remat"] = phase_longform(
+        torch, device, rng, smi_line)
 
     # phases 12 and 13's training paths in two parts: training and eval loss
     # (bf16), and the generation prefix (f32)
     paths = {"serve": launches, "train": train_launches, "pipeline": pipeline_launches,
              "longform": longform_launches, "train_eval": eval_launches,
              "train_eval_prefix": prefix_launches, "train_cli": cli_launches,
-             "train_cli_prefix": cli_prefix_launches, "serve_cli": serve_cli_launches}
+             "train_cli_prefix": cli_prefix_launches, "serve_cli": serve_cli_launches,
+             **{path: launches for path, (launches, _) in pieces.items()}}
     # the flash launches by C entry (the pipeline launches no flash kernel)
     path_calls = {"serve": serve_calls, "train": train_calls, "pipeline": {},
                   "longform": longform_calls, "train_eval": eval_calls,
                   "train_eval_prefix": prefix_calls, "train_cli": cli_calls,
-                  "train_cli_prefix": cli_prefix_calls, "serve_cli": serve_cli_calls}
+                  "train_cli_prefix": cli_prefix_calls, "serve_cli": serve_cli_calls,
+                  **{path: calls for path, (_, calls) in pieces.items()}}
 
     def entry(name, source, replaces, path, result, counter=None, c_entry=None):
         """``launches`` counts the run of ``path``, the path whose shapes the

@@ -74,9 +74,12 @@ def test_checkpoint_roundtrip(tmp_path):
     assert sorted(os.listdir(path)) == ["optimizer.pt", "params.pt", "trainer_meta.json"]
     assert read_checkpoint_meta(path) == {"step": 2, "train_lm_decoder": False,
                                           "train_audio_encoder": True}
+    # one flat dotted-path map of the optimizer state
     opt = torch.load(os.path.join(path, "optimizer.pt"), weights_only=True)
-    assert not any(k.startswith("lm_decoder") for k in opt["mu"])  # frozen: no moments
-    assert set(opt["mu"]) == {k for k, v in ckpt.flatten(t.freeze).items() if v}
+    trainable = {k for k, v in ckpt.flatten(t.freeze).items() if v}
+    assert not any(k.startswith(("mu.lm_decoder", "nu.lm_decoder")) for k in opt)  # frozen
+    assert set(opt) == ({"count", "total_notfinite"} | {f"mu.{k}" for k in trainable}
+                        | {f"nu.{k}" for k in trainable})
 
     before = {k: v.clone() for k, v in ckpt.flatten(t.state.params["adapter"]).items()}
     for x in ckpt.flatten(t.state.params["adapter"]).values():

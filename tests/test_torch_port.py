@@ -181,13 +181,19 @@ def test_port_imports_no_jax():
         "aat_tpu_torch.data.datasets", "aat_tpu_torch.utils.tracking",
         "aat_tpu_torch.utils.timing", "aat_tpu_torch.scripts.train",
         "aat_tpu_torch.scripts.validate", "aat_tpu_torch.scripts.serve",
+        "aat_tpu_torch.runtime.native", "aat_tpu_torch.utils.flops",
+        "aat_tpu_torch.scripts.melspec_precompute", "aat_tpu_torch.scripts.audio_tokenization",
+        "aat_tpu_torch.scripts.reduce_seq_len", "aat_tpu_torch.scripts.merge_datasets",
+        "aat_tpu_torch.scripts.dataset_info", "aat_tpu_torch.scripts.inspect_embeddings",
+        "aat_tpu_torch.scripts.parity_check",
     ]
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in modules)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aat_tpu', "
         "'orbax', 'transformers', 'safetensors', 'nltk', 'datasets', 'regex', 'wandb'))\n"
-        + "built = aat_tpu_torch.runtime.kernels._library is not None\n"
+        + "built = (aat_tpu_torch.runtime.kernels._library is not None\n"
+        + "         or aat_tpu_torch.runtime.native._tried)\n"
         + "print(bad, 'kernel library built' if built else '')\n"
         + "sys.exit(1 if bad or built else 0)\n"
     )

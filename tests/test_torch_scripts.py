@@ -41,6 +41,7 @@ from aat_tpu_torch.scripts import serve as tserve
 from aat_tpu_torch.scripts import train as ttrain
 from aat_tpu_torch.scripts import validate as tvalidate
 from aat_tpu_torch.serving import serve as serving
+from aat_tpu_torch.training.checkpoint import flatten as ckpt_flatten
 from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from tests.conftest import make_speechlike_waveform
 from tests.test_collate import WordTokenizer
@@ -248,13 +249,70 @@ def test_train_cli_resume_equals_uninterrupted_run(tmp_path, seams, hf_dirs, cap
                              str(tmp_path / "c") + "_1_linear_none/checkpoint-8")
 
 
-def test_train_cli_refuses_what_needs_unfreezing(tmp_path, seams, hf_dirs):
+def test_train_cli_refuses_what_needs_unfreezing(tmp_path, monkeypatch, seams, hf_dirs):
+    """``--unfreeze-lm-at-epoch 1`` (which the port once refused): the LM
+    stays bitwise frozen through epoch 0 and trains in epoch 1, and the 4
+    losses equal those of JAX's ``scripts/train.py`` on the same command
+    line within 1e-5 (f32, whole utterances, no eval)."""
     enc, lm = hf_dirs
-    seams(speech_items(5, [0.4] * 4), speech_items(6, [0.4] * 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ttrain.main(["--audio-encoder-checkpoint", enc, "--lm-pretrained-model", lm,
-                     "--per-device-train-batch-size", "2", "--unfreeze-lm-at-epoch", "0",
-                     "--output-dir", str(tmp_path / "u")], device="cpu")
+    seams(speech_items(5, [0.5] * 4), speech_items(6, [0.5] * 2))
+    monkeypatch.setattr(jcache, "enable_compilation_cache", lambda *a, **k: None)
+    argv = ["--pretrained", "--audio-encoder-checkpoint", enc, "--lm-pretrained-model", lm,
+            "--compute-dtype", "float32", "--per-device-train-batch-size", "2",
+            "--gradient-accumulation-steps", "1", "--num-train-epochs", "2",
+            "--unfreeze-lm-at-epoch", "1", "--logging-steps", "1", "--eval-steps", "0",
+            "--save-steps", "2", "--no-load-best-model-at-end", "--no-add-prefix"]
+    trainer = ttrain.main(argv + ["--output-dir", str(tmp_path / "port")], device="cpu")
+    monkeypatch.setattr(sys, "argv", ["train.py", *argv, "--output-dir", str(tmp_path / "jax")])
+    jax_train_script().main()
+    got, want = (losses(str(tmp_path / f"{name}_1_linear_none")) for name in ("port", "jax"))
+    assert len(got) == len(want) == 4
+    np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=0)
+
+    out = str(tmp_path / "port") + "_1_linear_none"
+    lm_at = {step: read_checkpoint(os.path.join(out, f"checkpoint-{step}"))["params"]["params"]
+             for step in (2, 4)}
+    initial, _ = tbuild.build_lm_decoder(TConfig(lm_pretrained_model=lm), device="cpu")
+    lm_keys = [k for k in lm_at[2] if k.startswith("lm_decoder.")]
+    assert lm_keys and trainer.config.train_lm_decoder
+    for k in lm_keys:  # epoch 0 (steps 1-2): bitwise the read weights
+        assert torch.equal(lm_at[2][k], ckpt_flatten(initial)[k[len("lm_decoder."):]]), k
+    final = ckpt_flatten(trainer.state.params["lm_decoder"])
+    assert any(not torch.equal(final[k[len("lm_decoder."):]], lm_at[2][k]) for k in lm_keys)
+    assert json.load(open(os.path.join(out, "checkpoint-2", "trainer_meta.json")))[
+        "train_lm_decoder"] is False
+
+
+def test_train_cli_resumes_a_run_that_unfroze_the_lm(tmp_path, seams, hf_dirs, caplog):
+    """A run resumed from a checkpoint taken after the unfreeze (step 6 of
+    8, epoch 1) unfreezes before restoring, so the LM's moments restore
+    too, and ends on the uninterrupted run's ``checkpoint-8`` bit for
+    bit."""
+    enc, lm = hf_dirs
+    seams(speech_items(15, [0.4, 0.55, 0.45, 0.65, 0.5, 0.6, 0.35, 0.7]),
+          speech_items(16, [0.45, 0.6]))
+    argv = ["--pretrained", "--audio-encoder-checkpoint", enc, "--lm-pretrained-model", lm,
+            "--per-device-train-batch-size", "2", "--gradient-accumulation-steps", "1",
+            "--num-train-epochs", "2", "--unfreeze-lm-at-epoch", "1", "--eval-steps", "0",
+            "--save-steps", "3", "--logging-steps", "1", "--no-load-best-model-at-end",
+            "--compute-dtype", "float32"]
+    a = str(tmp_path / "a")
+    ttrain.main(argv + ["--output-dir", a], device="cpu")
+    out_a = a + "_1_linear_none"
+    resume = os.path.join(out_a, "checkpoint-6")
+    meta = json.load(open(os.path.join(resume, "trainer_meta.json")))
+    assert meta["train_lm_decoder"] is True
+    saved_opt = read_checkpoint(resume)["optimizer"]
+    assert any(k.startswith("mu.lm_decoder.") for k in saved_opt)
+    with caplog.at_level(logging.WARNING):
+        trainer = ttrain.main(argv + ["--output-dir", str(tmp_path / "b"),
+                                      "--resume-from-checkpoint", resume], device="cpu")
+    assert "not restorable" not in caplog.text
+    assert trainer.config.train_lm_decoder and trainer.state.step == 8
+    out_b = str(tmp_path / "b") + "_1_linear_none"
+    assert equal_checkpoints(os.path.join(out_a, "checkpoint-8"),
+                             os.path.join(out_b, "checkpoint-8")) == []
+    assert losses(out_b) == losses(out_a)[6:]
 
 
 def test_train_cli_profile_writes_a_cprofile_dump(tmp_path, seams, hf_dirs, monkeypatch):

@@ -161,10 +161,6 @@ def test_unported_options_raise():
     params = from_jax_params(jax.device_get(jax_params(jm)))
     with pytest.raises(NotImplementedError, match="multi-device"):
         TConfig(mesh_dp=2)
-    for kw in (dict(optimizer="adafactor"), dict(skip_nonfinite_updates=False),
-               dict(encoder_remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TTrainer(tm, params, TConfig(**TRAIN, **kw))
     t = TTrainer(tm, params, TConfig(**TRAIN))
     batch = {"batched_segments_melspectrograms": torch.zeros(1, 1, 64, 8),
              **{k: torch.as_tensor(v) for k, v in captions(np.random.default_rng(0), 1).items()}}
