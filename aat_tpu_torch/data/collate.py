@@ -14,8 +14,10 @@ and seed.
 
 Every random draw comes from one ``np.random.default_rng(seed)`` per
 collator in the JAX package's order: the batch's ``n_words``, then per
-item the noise, the crop and the prefix. The melspec batches of the
-EfficientNet encoder are not ported (ROADMAP Queue 1 item 7).
+item the noise, the crop and the prefix. For the EfficientNet encoder
+(``audio_encoder_type="efficient_net"``) the segments are the host
+melspec's frames instead: ``[bs, segments, n_mels, 1 + max_frames //
+hop]``, zero-padded, with no waveform segments.
 """
 
 from __future__ import annotations
@@ -147,9 +149,6 @@ class TokenizedAudioWaveformCollator:
     ):
         if segmentation not in ("uniform", "adaptive"):
             raise ValueError(f"segmentation must be uniform or adaptive, not {segmentation!r}")
-        if audio_encoder_type == "efficient_net":
-            raise NotImplementedError("EfficientNet melspec batches are not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
         self.audio_encoder_type = audio_encoder_type
         self.segmentation = segmentation
         self.audio_tokenizer = audio_tokenizer
@@ -239,6 +238,7 @@ class TokenizedAudioWaveformCollator:
         texts, prefixes = [], []
         all_boundaries: List[np.ndarray] = []
         waveforms: List[np.ndarray] = []
+        melspecs: List[np.ndarray] = []
         max_frame_lens: List[int] = []
         for item in items:
             _check_rate(item, self.sampling_rate)
@@ -252,6 +252,7 @@ class TokenizedAudioWaveformCollator:
             prefixes.append(bos + prefix)
             texts.append(bos + text + eos)
             waveforms.append(waveform)
+            melspecs.append(melspec)
             all_boundaries.append(np.asarray(boundaries))
             max_frame_lens.append(int(raw_lengths.max()))
 
@@ -271,8 +272,13 @@ class TokenizedAudioWaveformCollator:
         result["segments_max_frame_len"] = np.asarray(max_frame_lens)
         result["segments_count"] = max_n_bounds
 
-        # per-row zero-mean/unit-var, then the dense segment batch
         max_frames = self.max_segment_waveform_frames
+        if self.audio_encoder_type == "efficient_net":
+            result.update(batched_segments_melspectrograms=self._melspec_segments(
+                melspecs, boarders, max_n_bounds, max_frames),
+                batched_segments=None, segments_waveforms_mask=None)
+            return result
+        # per-row zero-mean/unit-var, then the dense segment batch
         normed, _ = host_ops.normalize_pad(waveforms)
         starts = np.concatenate([np.zeros((bs, 1), np.int64), boarders[:, :-1]], axis=1)
         seg_valid = boarders_mask.astype(bool) & (boarders > starts)
@@ -286,6 +292,25 @@ class TokenizedAudioWaveformCollator:
         result["segments_waveforms_mask"] = masks
         result["batched_segments_melspectrograms"] = None
         return result
+
+    def _melspec_segments(self, melspecs, boarders, max_n_bounds: int, max_frames: int):
+        """Each segment's melspec frames ``[prev // hop, end // hop)``
+        (``prev`` the previous boundary) in ``[bs, segments, n_mels, 1 +
+        max_frames // hop]``, zero-padded; a padded slot stays zero."""
+        hop = self.audio_tokenizer.hop_length
+        max_mel = int(1 + np.floor(max_frames / hop))
+        n_mels = self.audio_tokenizer.num_mel_filters
+        mels = np.zeros((len(melspecs), max_n_bounds, n_mels, max_mel), np.float32)
+        for i, melspec in enumerate(melspecs):
+            prev = 0
+            for s in range(max_n_bounds):
+                b = int(boarders[i, s])
+                if s > 0 and b == 0:
+                    continue
+                piece = melspec[:, prev // hop: b // hop]
+                mels[i, s, :, : piece.shape[1]] = piece[:, :max_mel]
+                prev = b
+        return mels
 
 
 class NoSegmentationAudioWaveformCollator:

@@ -1,11 +1,23 @@
 """ASLM — audio encoder + segment projection + audio BOS/EOS + Llama
 decoder (counterpart of ``aat_tpu/models/aslm.py``). ``dropout_seed``
-(an int32, or None for eval) selects the encoder's train mode.
+(an int32, or None for eval) selects the encoder's and the projection's
+train mode.
 
-Projection types ported: ``linear`` (zero masked frames, crop T to a
-multiple of k, ``[N, T/k, k*E]`` → MLP → LM hidden) and ``mean`` (masked
-mean → Linear). The ``transformer_encoder`` pooling projection is not
-ported yet.
+The audio encoder is HuBERT / wav2vec2 on segment waveforms
+(:meth:`AslmModel.encode_audio`) or EfficientNet-b0 on segment melspecs
+(:meth:`AslmModel.encode_audio_melspec`, ``audio_encoder_type=
+"efficient_net"``). Projection types:
+
+- ``linear``: zero masked frames, crop T to a multiple of k, ``[N, T/k,
+  k*E]`` → MLP → LM hidden;
+- ``mean``: masked mean → Linear;
+- ``transformer_encoder``: a learned CLS embedding prepended, a pre-LN
+  transformer (torch ``nn.TransformerEncoderLayer`` semantics: ReLU
+  feed-forward, key-padding mask, train-mode dropout at four sites a
+  layer) and ``l_out`` on the CLS position → ``[N, 1, H_lm]``
+  (:func:`pooling_forward`). Its dropout seeds derive from the
+  projection's seed with :func:`~aat_tpu_torch.ops.dropout.fold_seed`
+  (``(layer, site)``), where JAX splits a key.
 """
 
 from __future__ import annotations
@@ -19,23 +31,37 @@ import torch.nn.functional as F
 
 from aat_tpu_torch.models import hubert as hub
 from aat_tpu_torch.models import llama as llm
+from aat_tpu_torch.ops.dropout import dropout, fold_seed
 from aat_tpu_torch.ops.ragged import masked_mean
 from aat_tpu_torch.utils.port import to_tensors
 
 
 @dataclasses.dataclass(frozen=True)
+class PoolingConfig:
+    """The ``transformer_encoder`` projection's dims (JAX ``PoolingConfig``)."""
+
+    hidden_dim: int = 4096
+    num_heads: int = 32
+    num_layers: int = 4
+    ffn_dim: int = 2048  # torch TransformerEncoderLayer default
+    max_positions: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class AslmConfig:
-    projection_type: str = "linear"  # linear | mean
+    projection_type: str = "linear"  # linear | transformer_encoder | mean
     audio_encoder_embeddings_seq_len: int = 1
     audio_encoder_hidden: int = 1024
     lm_hidden: int = 576
     projection_hidden: int = 4096
+    pooling: PoolingConfig = PoolingConfig()
     audio_bos_token_id: int = 0
     audio_eos_token_id: int = 1
+    dropout: float = 0.1  # the transformer_encoder projection's train-mode rate
 
 
 def init_aslm_numpy(seed, config: AslmConfig, std: float = 0.02) -> dict:
-    """The JAX package's adapter draws (linear and mean), as numpy: ``seed``
+    """The JAX package's adapter draws, as numpy, in its order: ``seed``
     is an int or a JAX PRNG key's data words
     (:func:`~aat_tpu_torch.models.hubert.np_rng_from`)."""
     r = hub.np_rng_from(seed)
@@ -47,6 +73,9 @@ def init_aslm_numpy(seed, config: AslmConfig, std: float = 0.02) -> dict:
     def dense(din, dout):
         return {"kernel": normal(din, dout), "bias": np.zeros((dout,), np.float32)}
 
+    def layernorm(d):
+        return {"scale": np.ones((d,), np.float32), "bias": np.zeros((d,), np.float32)}
+
     params: dict = {"audio_tokens_embeddings": {"embedding": normal(2, h_lm)}}
     if config.projection_type == "linear":
         k = config.audio_encoder_embeddings_seq_len
@@ -54,6 +83,25 @@ def init_aslm_numpy(seed, config: AslmConfig, std: float = 0.02) -> dict:
                                 "out": dense(config.projection_hidden, h_lm)}
     elif config.projection_type == "mean":
         params["projection"] = {"out": dense(e, h_lm)}
+    elif config.projection_type == "transformer_encoder":
+        p = config.pooling
+        params["cls_token"] = {"embedding": normal(1, e)}
+        pooling = {
+            "l_in": dense(e, p.hidden_dim),
+            "positional_embeddings": {"embedding": normal(p.max_positions, p.hidden_dim)},
+            "l_out": dense(p.hidden_dim, h_lm),
+            "layers": [],
+        }
+        for _ in range(p.num_layers):
+            pooling["layers"].append({
+                "attention": {"in_proj": dense(p.hidden_dim, 3 * p.hidden_dim),
+                              "out_proj": dense(p.hidden_dim, p.hidden_dim)},
+                "norm1": layernorm(p.hidden_dim),
+                "norm2": layernorm(p.hidden_dim),
+                "linear1": dense(p.hidden_dim, p.ffn_dim),
+                "linear2": dense(p.ffn_dim, p.hidden_dim),
+            })
+        params["pooling"] = pooling
     else:
         raise ValueError(f"unsupported projection_type: {config.projection_type}")
     return params
@@ -66,25 +114,97 @@ def init_aslm_params(seed, config: AslmConfig, device=None) -> dict:
 
 
 def _dense(x, p):
+    """``x @ kernel`` at ``x``'s dtype, then the bias (JAX adds it after the
+    cast, so a bf16 activation and an f32 bias promote alike)."""
     return torch.matmul(x, p["kernel"].to(x.dtype)) + p["bias"]
+
+
+# ---------------------------------------------------------------------------
+# The transformer_encoder projection (torch nn.TransformerEncoder, pre-LN)
+# ---------------------------------------------------------------------------
+
+
+def _pooling_mha(p, x, key_padding, num_heads: int, seed: Optional[int] = None,
+                 rate: float = 0.0):
+    """torch ``nn.MultiheadAttention`` with packed q/k/v, batch first: the
+    scores and P·V with float32 accumulation, the key-padding bias
+    ``finfo(float32).min``, softmax in float32, the probabilities cast to
+    the compute dtype before their dropout (``seed``) and P·V."""
+    b, t, d = x.shape
+    hd = d // num_heads
+    q, k, v = _dense(x, p["in_proj"]).split(d, dim=-1)
+
+    def heads(z):
+        return z.reshape(b, t, num_heads, hd).transpose(1, 2)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
+    bias = torch.where(key_padding[:, None, None, :], torch.finfo(torch.float32).min, 0.0)
+    probs = torch.softmax(scores + bias, dim=-1).to(x.dtype)
+    probs = dropout(seed, probs, rate)
+    ctx = torch.matmul(probs.float(), v.float()).to(x.dtype)
+    return _dense(ctx.transpose(1, 2).reshape(b, t, d), p["out_proj"])
+
+
+def pooling_forward(params: dict, config: PoolingConfig, inputs_embeds: torch.Tensor,
+                    attention_mask: torch.Tensor, dropout_seed: Optional[int] = None,
+                    dropout_rate: float = 0.0) -> torch.Tensor:
+    """``l_in`` → + positions → pre-LN transformer layers with the
+    key-padding mask → ``l_out`` on the CLS position: ``[N, T, E]`` →
+    ``[N, 1, out]``. ``dropout_seed`` selects train mode: the attention
+    probabilities, both residual branches and the feed-forward activation,
+    each site seeded ``fold_seed(dropout_seed, layer, site)``."""
+    h = _dense(inputs_embeds, params["l_in"])
+    t = h.shape[1]
+    max_positions = params["positional_embeddings"]["embedding"].shape[0]
+    if t > max_positions:
+        raise AssertionError(
+            f"pooling input has {t} positions (CLS + encoder frames) but the "
+            f"positional table holds {max_positions}; set "
+            f"PoolingConfig.max_positions >= encoder frames per segment + 1 "
+            f"(reference contract, modeling_aslm.py:110-112)")
+    h = h + params["positional_embeddings"]["embedding"][:t, :]
+    key_padding = attention_mask == 0
+    for idx, layer in enumerate(params["layers"]):
+        s_attn = s_res1 = s_ff = s_res2 = None
+        if dropout_seed is not None:
+            s_attn, s_res1, s_ff, s_res2 = (fold_seed(dropout_seed, idx, site)
+                                            for site in range(4))
+        attn_in = hub._layer_norm(h, layer["norm1"], 1e-5)
+        attn_out = _pooling_mha(layer["attention"], attn_in, key_padding, config.num_heads,
+                                s_attn, dropout_rate)
+        h = h + dropout(s_res1, attn_out, dropout_rate)  # torch .dropout1
+        y = F.relu(_dense(hub._layer_norm(h, layer["norm2"], 1e-5), layer["linear1"]))
+        y = _dense(dropout(s_ff, y, dropout_rate), layer["linear2"])
+        h = h + dropout(s_res2, y, dropout_rate)  # torch .dropout2
+    return _dense(h[:, 0:1, :], params["l_out"])
 
 
 class AslmModel:
     """Functional ASLM: methods take explicit parameter trees
-    ``{"audio_encoder", "adapter", "lm_decoder"}``."""
+    ``{"audio_encoder", "adapter", "lm_decoder"}``. ``audio_encoder_config``
+    is a ``HubertConfig``, or an ``EfficientNetConfig`` with
+    ``audio_encoder_type="efficient_net"``."""
 
-    def __init__(self, config: AslmConfig, audio_encoder_config: hub.HubertConfig,
-                 lm_config: llm.LlamaConfig):
+    def __init__(self, config: AslmConfig, audio_encoder_config, lm_config: llm.LlamaConfig,
+                 audio_encoder_type: str = "hubert"):
         self.config = config
         self.audio_encoder_config = audio_encoder_config
         self.lm_config = lm_config
+        self.audio_encoder_type = audio_encoder_type
 
     def init_params(self, seed: int, device=None) -> dict:
         """Int-seed init: encoder from ``seed``, adapter from ``seed + 1``,
         decoder from ``seed + 2`` (each equal to the JAX int-seed init of
-        its part)."""
+        its part; EfficientNet's is ``init_efficientnet_params(seed)``)."""
+        if self.audio_encoder_type == "efficient_net":
+            from aat_tpu_torch.models.efficientnet import init_efficientnet_params
+
+            encoder = init_efficientnet_params(seed, device)
+        else:
+            encoder = hub.init_hubert_params(seed, self.audio_encoder_config, device)
         return {
-            "audio_encoder": hub.init_hubert_params(seed, self.audio_encoder_config, device),
+            "audio_encoder": encoder,
             "adapter": init_aslm_params(seed + 1, self.config, device),
             "lm_decoder": llm.init_llama_params(seed + 2, self.lm_config, device),
         }
@@ -104,12 +224,45 @@ class AslmModel:
             frame_mask = frame_mask & segments_mask[:, None].bool()
         return frames, frame_mask
 
+    def encode_audio_melspec(self, params: dict, melspecs: torch.Tensor,
+                             segments_mask: Optional[torch.Tensor] = None,
+                             train: bool = False):
+        """EfficientNet: per-segment melspecs ``[N, n_mels, T]`` (or ``[N, 1,
+        n_mels, T]``) → ``([N, 1, 1280] frames, [N, 1] mask)``, padded
+        segments masked out. ``train=True`` normalizes with the batch's BN
+        statistics and also returns them (for
+        :func:`~aat_tpu_torch.models.efficientnet.apply_bn_updates`)."""
+        from aat_tpu_torch.models.efficientnet import EfficientNetAudioEncoderAdapter
+
+        adapter = EfficientNetAudioEncoderAdapter(self.audio_encoder_config)
+        if train:
+            frames, bn_stats = adapter(params["audio_encoder"], melspecs, train=True)
+        else:
+            frames = adapter(params["audio_encoder"], melspecs)
+        frame_mask = torch.ones(frames.shape[:2], dtype=torch.bool, device=frames.device)
+        if segments_mask is not None:
+            frame_mask = frame_mask & segments_mask[:, None].bool()
+        if train:
+            return frames, frame_mask, bn_stats
+        return frames, frame_mask
+
     def project_audio_embeddings(self, params: dict, audio_embeds: torch.Tensor,
-                                 frame_mask: torch.Tensor):
-        """[N, T, E] + [N, T] → ([N, P, H_lm], [N, P] mask)."""
+                                 frame_mask: torch.Tensor, dropout_seed: Optional[int] = None):
+        """[N, T, E] + [N, T] → ([N, P, H_lm], [N, P] mask). ``dropout_seed``
+        selects the transformer_encoder projection's train mode (the other
+        two have no dropout)."""
         cfg = self.config
         adapter = params["adapter"]
         n = audio_embeds.shape[0]
+        if cfg.projection_type == "transformer_encoder":
+            cls = adapter["cls_token"]["embedding"][0][None, None, :].expand(
+                n, 1, audio_embeds.shape[-1]).to(audio_embeds.dtype)
+            with_cls = torch.cat([cls, audio_embeds], dim=1)
+            mask_with_cls = torch.cat([torch.ones((n, 1), dtype=frame_mask.dtype,
+                                                  device=frame_mask.device), frame_mask], dim=1)
+            projected = pooling_forward(adapter["pooling"], cfg.pooling, with_cls, mask_with_cls,
+                                        dropout_seed=dropout_seed, dropout_rate=cfg.dropout)
+            return projected, frame_mask.any(-1, keepdim=True)
         if cfg.projection_type == "linear":
             k = cfg.audio_encoder_embeddings_seq_len
             t = audio_embeds.shape[1]
@@ -136,13 +289,13 @@ class AslmModel:
                              dropout_seed: Optional[int] = None) -> dict:
         """Project audio, wrap with audio BOS/EOS embeddings, concat text.
         With ``segments_count``, ``audio_embeds`` is ``[B*S, ...]`` and the
-        projected vectors unflatten to ``[B, S*P, H]``. ``dropout_seed`` is
-        accepted for the JAX signature: the linear and mean projections have
-        no dropout (the transformer_encoder projection, not ported, has)."""
+        projected vectors unflatten to ``[B, S*P, H]``. ``dropout_seed``
+        goes to :meth:`project_audio_embeddings`."""
         cfg = self.config
         if input_ids is not None:
             inputs_embeds = self.encode_text(params, input_ids)
-        projected, proj_mask = self.project_audio_embeddings(params, audio_embeds, frame_mask)
+        projected, proj_mask = self.project_audio_embeddings(params, audio_embeds, frame_mask,
+                                                             dropout_seed)
         if segments_count is not None:
             h, p = projected.shape[-1], projected.shape[1]
             projected = projected.reshape(-1, segments_count * p, h)

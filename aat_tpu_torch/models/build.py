@@ -1,5 +1,6 @@
 """Model construction (counterpart of ``aat_tpu/models/build.py``): the
-audio encoder and the Llama-family LM decoder that a
+audio encoder (HuBERT, wav2vec2 or EfficientNet-b0) and the Llama-family
+LM decoder that a
 :class:`~aat_tpu_torch.training.config.TrainingConfig` names, the
 tokenizer, the composed ASLM, and :func:`load_pretrained` of an export.
 
@@ -16,7 +17,10 @@ weights as the JAX package draws them (``PRNGKey(0)`` for the encoder,
 adapter exported by ``AATTrainer.save_pretrained`` restores against a
 fresh build (``from_pretrained_adapter``); ``model_config_dict`` writes the
 export's ``config.json`` and :func:`load_pretrained` rebuilds the model
-from it.
+from it. ``build_model`` records the run's ``audio_encoder_type`` on the
+model, so the export's ``config.json`` names it (JAX's ``build_model``
+leaves the model's default, ``"hubert"``, there, and its
+``load_pretrained`` then cannot rebuild an EfficientNet export).
 
 The weights go to ``device``: ``cuda:0`` when it is None, and without a GPU
 the build functions raise (after their refusals and the check that a
@@ -34,7 +38,7 @@ import os
 
 from aat_tpu_torch.models import hubert as hub
 from aat_tpu_torch.models import llama as llm
-from aat_tpu_torch.models.aslm import AslmConfig, AslmModel, init_aslm_params
+from aat_tpu_torch.models.aslm import AslmConfig, AslmModel, PoolingConfig, init_aslm_params
 from aat_tpu_torch.runtime.device import resolve_device
 from aat_tpu_torch.training import checkpoint as ckpt_lib
 from aat_tpu_torch.training.config import TrainingConfig
@@ -52,11 +56,15 @@ def _on(tree, device):
 
 
 def build_audio_encoder(config: TrainingConfig, pretrained: bool = True, device=None):
-    """→ (params, HubertConfig) for ``config.audio_encoder_type`` hubert
-    (hubert-large) or wav2vec2 (wav2vec2-large): read from the local
-    checkpoint directory ``audio_encoder_checkpoint`` when ``pretrained``."""
+    """→ (params, config) for ``config.audio_encoder_type``: hubert
+    (hubert-large) or wav2vec2 (wav2vec2-large), read from the local
+    checkpoint directory ``audio_encoder_checkpoint`` when ``pretrained``;
+    or efficient_net (b0: ``efficientnet_pytorch`` when ``pretrained``,
+    else, or without that package, the seeded random init)."""
     if config.audio_encoder_type == "efficient_net":
-        raise NotImplementedError("EfficientNet is not ported yet (ROADMAP Queue 1 item 7)")
+        from aat_tpu_torch.models.efficientnet import build_efficientnet_encoder
+
+        return build_efficientnet_encoder(pretrained, resolve_device(device))
     if config.audio_encoder_type not in ("hubert", "wav2vec2"):
         raise ValueError(f"unknown audio_encoder_type: {config.audio_encoder_type}")
 
@@ -115,7 +123,7 @@ def model_config_dict(model: AslmModel, config: TrainingConfig, saved_subtrees) 
     return {
         "model_type": "aslm",
         "aslm": dataclasses.asdict(model.config),
-        "audio_encoder_type": getattr(model, "audio_encoder_type", "hubert"),
+        "audio_encoder_type": model.audio_encoder_type,
         "audio_encoder_config": dataclasses.asdict(model.audio_encoder_config),
         "lm_config": dataclasses.asdict(model.lm_config),
         "audio_encoder_checkpoint": config.audio_encoder_checkpoint,
@@ -130,8 +138,9 @@ def build_model(config: TrainingConfig, pretrained: bool = True,
     :func:`build_audio_encoder` / :func:`build_lm_decoder` and a fresh
     adapter (``init_aslm_params(PRNGKey(seed))``), or the adapter of the
     export at ``from_pretrained_adapter`` (``AATTrainer.save_pretrained``)
-    restored against it: the same paths and shapes, or it raises. Freezing
-    is the trainer's freeze mask, as in JAX."""
+    restored against it: the same paths and shapes, or it raises. The
+    ``AslmConfig`` takes ``projection_type`` and the default
+    ``PoolingConfig``. Freezing is the trainer's freeze mask, as in JAX."""
     enc_params, enc_cfg = build_audio_encoder(config, pretrained, device)
     lm_params, lm_cfg = build_lm_decoder(config, pretrained, device)
     aslm_cfg = AslmConfig(
@@ -145,8 +154,8 @@ def build_model(config: TrainingConfig, pretrained: bool = True,
         saved = ckpt_lib.read_params(path, device)["params"]
         adapter = ckpt_lib.unflatten_like(adapter, saved, "adapter.")
         logger.info("loaded adapter from %s", path)
-    return (AslmModel(aslm_cfg, enc_cfg, lm_cfg),
-            {"audio_encoder": enc_params, "adapter": adapter, "lm_decoder": lm_params})
+    model = AslmModel(aslm_cfg, enc_cfg, lm_cfg, audio_encoder_type=config.audio_encoder_type)
+    return model, {"audio_encoder": enc_params, "adapter": adapter, "lm_decoder": lm_params}
 
 
 def _detuple(d: dict) -> dict:
@@ -165,11 +174,17 @@ def load_pretrained(path: str, pretrained_missing: bool = False, seed: int = 0, 
     with open(os.path.join(path, "config.json")) as f:
         desc = json.load(f)
     enc_type = desc["audio_encoder_type"]
+    aslm_kw = dict(desc["aslm"])
+    if "pooling" in aslm_kw:
+        aslm_kw["pooling"] = PoolingConfig(**aslm_kw["pooling"])
     if enc_type == "efficient_net":
-        raise NotImplementedError("EfficientNet is not ported yet (ROADMAP Queue 1 item 7)")
-    model = AslmModel(AslmConfig(**desc["aslm"]),
-                      hub.HubertConfig(**_detuple(desc["audio_encoder_config"])),
-                      llm.LlamaConfig(**_detuple(desc["lm_config"])))
+        from aat_tpu_torch.models.efficientnet import EfficientNetConfig
+
+        enc_cfg = EfficientNetConfig(**_detuple(desc["audio_encoder_config"]))
+    else:
+        enc_cfg = hub.HubertConfig(**_detuple(desc["audio_encoder_config"]))
+    model = AslmModel(AslmConfig(**aslm_kw), enc_cfg,
+                      llm.LlamaConfig(**_detuple(desc["lm_config"])), audio_encoder_type=enc_type)
     saved = set(desc["saved_subtrees"])
     missing = {"audio_encoder", "adapter", "lm_decoder"} - saved
     device = resolve_device(device)

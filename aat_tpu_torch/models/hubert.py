@@ -24,10 +24,12 @@ reads as zero.
 Remat (``HubertConfig.remat``) trades FLOPs for memory per encoder layer
 under autograd, as the JAX ``jax.checkpoint`` does: ``"full"`` keeps only
 each layer's input and recomputes the layer in the backward
-(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps the matrix
-products' outputs (``aten.mm`` / ``addmm`` / ``bmm``) and recomputes the
-rest, the flash kernel among it (its ctypes launch is no aten op, as the
-Pallas call is no dot for JAX's ``dots_with_no_batch_dims_saveable``).
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps the outputs
+of the products without batch dimensions (``aten.mm`` / ``addmm``: the
+projections and the feed-forward), as JAX's
+``dots_with_no_batch_dims_saveable`` does, and recomputes the rest: the
+plain attention's batched ``bmm`` products and the flash kernel (its
+ctypes launch is no aten op, as the Pallas call is no dot for JAX).
 Dropout masks come from seeds, so the recompute redraws them exactly, and
 LayerDrop is decided outside the checkpointed layer. Without autograd
 (evaluation, serving) a layer runs once.
@@ -51,7 +53,7 @@ import torch.utils.checkpoint as torch_checkpoint
 
 from aat_tpu_torch.ops.attention import attention_bthd
 from aat_tpu_torch.ops.dropout import dropout, fold_seed, uniform_from_seed
-from aat_tpu_torch.utils.port import hubert_from_jax
+from aat_tpu_torch.utils.port import encoder_from_jax
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,7 +178,7 @@ def init_hubert_numpy(seed, config: HubertConfig) -> dict:
 def init_hubert_params(seed, config: HubertConfig, device=None) -> dict:
     """Random init equal to the JAX package's ``init_hubert_params`` of the
     same int seed or PRNG key."""
-    return hubert_from_jax(init_hubert_numpy(seed, config), device)
+    return encoder_from_jax(init_hubert_numpy(seed, config), device)
 
 
 # ---------------------------------------------------------------------------
@@ -293,12 +295,14 @@ def _layer(layer, config: HubertConfig, hidden, frame_mask, seed):
     return _layer_norm(hidden, layer["final_layer_norm"], eps)
 
 
-_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-                  torch.ops.aten.bmm.default)
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
-    """The ``"dots"`` remat policy: keep matrix-product outputs."""
+    """The ``"dots"`` remat policy (JAX's ``dots_with_no_batch_dims_saveable``):
+    keep the outputs of products without batch dimensions (a ``[B, T, D]``
+    activation by a ``[D, K]`` weight dispatches ``aten.mm``); attention's
+    batched ``bmm`` products (QKᵀ, P·V) are recomputed."""
     if op in _SAVED_BY_DOTS:
         return torch_checkpoint.CheckpointPolicy.MUST_SAVE
     return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE

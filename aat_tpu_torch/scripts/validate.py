@@ -10,12 +10,17 @@ and print ``AATTrainerSegmentation.evaluate``'s metrics.
 With ``--pretrained`` (the default) the encoder and the LM are read from
 the local checkpoint directories that ``TrainingConfig`` names by default;
 the tokenizer needs ``transformers`` and ``--dataset`` needs ``datasets``.
+The encoder type is the one the export's ``config.json`` records (JAX's
+script takes the default, HuBERT), so an EfficientNet run's export
+validates on melspec batches.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 
 from aat_tpu_torch.data.collate import TokenizedAudioWaveformCollator
 from aat_tpu_torch.data.dataloaders import BatchIterator, load_hf_dataset
@@ -38,7 +43,8 @@ def main(argv=None, device=None):
     args = parser.parse_args(argv)
 
     config = TrainingConfig(segmentation=args.segmentation,
-                            projection_type=args.projection_type)
+                            projection_type=args.projection_type,
+                            audio_encoder_type=_recorded_encoder_type(args.checkpoint))
     model, params = build_model(config, pretrained=args.pretrained,
                                 from_pretrained_adapter=args.checkpoint, device=device)
     tokenizer = build_tokenizer(config)
@@ -60,6 +66,15 @@ def main(argv=None, device=None):
     metrics = trainer.evaluate(batches)
     print(metrics)
     return metrics
+
+
+def _recorded_encoder_type(path: str) -> str:
+    """The ``audio_encoder_type`` of the export's ``config.json``, else hubert."""
+    file = os.path.join(path, "config.json")
+    if not os.path.exists(file):
+        return "hubert"
+    with open(file) as f:
+        return json.load(f).get("audio_encoder_type", "hubert")
 
 
 if __name__ == "__main__":

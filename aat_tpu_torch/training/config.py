@@ -109,7 +109,7 @@ class TrainingConfig:
         if meshes:
             raise NotImplementedError(
                 f"{meshes}: multi-device training is not ported yet "
-                "(ROADMAP Queue 1, multi-device)")
+                "(ROADMAP Queue 1 item 8, multi-device)")
 
 
 def overfit_one_batch_config() -> TrainingConfig:

@@ -314,8 +314,8 @@ def relative_step(count: torch.Tensor) -> torch.Tensor:
     return torch.clamp_max(torch.rsqrt(count.float() + 1.0), 1e-2)
 
 
-def adafactor(learning_rate=None, weight_decay: float = 0.0,
-              freeze: Optional[dict] = None) -> GradientTransformation:
+def adafactor(learning_rate=None, weight_decay: float = 0.0, freeze: Optional[dict] = None,
+              axes: Optional[dict] = None) -> GradientTransformation:
     """``optax.adafactor`` under the JAX package's settings (``optim.py:101``),
     op for op in optax 0.2.6's order, per trainable leaf:
 
@@ -334,8 +334,16 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0,
        deviation from fairseq);
     6. the sign flip.
 
-    Frozen leaves (``freeze`` False) get no update and no state."""
+    Frozen leaves (``freeze`` False) get no update and no state. ``axes``
+    maps a leaf's path to the ``(d1, d0)`` it factors over instead of
+    :func:`factored_dims` of its shape (the conv kernels, whose port layout
+    permutes JAX's axes: ``utils.port.adafactor_axes``)."""
     relative = learning_rate is None
+    axes = axes or {}
+
+    def dims_of(path, p):
+        return axes[path] if path in axes else factored_dims(p.shape)
+
     if relative:
         learning_rate = relative_step
     decay_exponent, eps, clip, min_rms = 0.8, 1e-30, 1.0, 1e-3
@@ -343,10 +351,10 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0,
     def init_fn(params):
         train = freeze if freeze is not None else tree_map(lambda _: True, params)
 
-        def slots(p, t):
+        def slots(p, t, path):
             if not t:
                 return None, None, None
-            dims = factored_dims(p.shape)
+            dims = dims_of(path, p)
             if dims is None:
                 return None, None, torch.zeros_like(p)
             d1, d0 = dims
@@ -355,7 +363,7 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0,
             col = shape[:d1] + shape[d1 + 1:]
             return p.new_zeros(row), p.new_zeros(col), None
 
-        out = tree_map(slots, params, train)
+        out = tree_map(slots, params, train, tree_paths(params))
         device = tree_leaves(params)[0].device
         return FactoredState(torch.zeros((), dtype=torch.int32, device=device),
                              _pick(train, out, 0), _pick(train, out, 1), _pick(train, out, 2))
@@ -365,13 +373,13 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0,
         decay = 1.0 - torch.pow((state.count + 1).float(), -decay_exponent)
         lr_t = _schedule_at(learning_rate, state.count)
 
-        def leaf(g, v_row, v_col, v, p, t):
+        def leaf(g, v_row, v_col, v, p, t, path):
             if not t:
                 return None, None, None, None
             if g is None:
                 g = torch.zeros_like(p)
             g_sq = g * g + eps
-            dims = factored_dims(p.shape)
+            dims = dims_of(path, p)
             if dims is not None:
                 d1, d0 = dims
                 v_row = decay * v_row + (1.0 - decay) * g_sq.mean(d0)
@@ -391,7 +399,8 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0,
                 u = u + weight_decay * p
             return -1.0 * u, v_row, v_col, v
 
-        out = tree_map(leaf, grads, state.v_row, state.v_col, state.v, params, train)
+        out = tree_map(leaf, grads, state.v_row, state.v_col, state.v, params, train,
+                       tree_paths(params))
         return _pick(train, out, 0), FactoredState(
             state.count + 1, _pick(train, out, 1), _pick(train, out, 2), _pick(train, out, 3))
 

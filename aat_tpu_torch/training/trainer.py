@@ -34,8 +34,17 @@ when ``skip_nonfinite_updates``. :meth:`AATTrainer.unfreeze_lm_decoder`
 starts training the LM mid-run. Encoder remat is the encoder config's
 (``HubertConfig.remat``, set from ``encoder_remat`` by ``models/build``).
 
-Not ported yet (ROADMAP Queue 1): EfficientNet melspec batches and
-multi-device meshes.
+EfficientNet melspec batches (``batched_segments_melspectrograms``, ``[B,
+S, n_mels, T]``) run the encoder's batch norm in train mode in the
+training step, as the reference's ``.train()`` model does: after the
+optimizer's update, each microbatch's batch statistics fold into the
+running estimates in microbatch order (JAX ``_fold_bn_stats``), also with
+the encoder frozen and also when the guard drops the update. The running
+statistics get zero gradients, so the optimizer leaves them unmoved (they
+are 1-D: no weight decay). Evaluation and the generation prefix normalize
+with the running statistics.
+
+Multi-device meshes are ROADMAP Queue 1 item 8 and raise.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from aat_tpu_torch.training import checkpoint as ckpt_lib
 from aat_tpu_torch.training import optim as optim_lib
 from aat_tpu_torch.training.config import TrainingConfig
 from aat_tpu_torch.training.lr_schedule import warmup_linear_schedule
+from aat_tpu_torch.utils import port
 
 logger = logging.getLogger(__name__)
 
@@ -92,7 +102,7 @@ class AATTrainer:
                  tokenizer=None, generation_config=None):
         if mesh is not None:
             raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP Queue 1, multi-device)")
+                "device meshes are not ported yet (ROADMAP Queue 1 item 8, multi-device)")
         self.model = model
         self.config = config
         self.tokenizer = tokenizer
@@ -126,7 +136,8 @@ class AATTrainer:
             tx = optim_lib.adamw_grouped(self.schedule, params, weight_decay=cfg.weight_decay,
                                          grad_clip_norm=cfg.grad_clip_norm, freeze=self.freeze)
         elif cfg.optimizer == "adafactor":
-            tx = optim_lib.adafactor(self.schedule, freeze=self.freeze)
+            tx = optim_lib.adafactor(self.schedule, freeze=self.freeze,
+                                     axes=port.adafactor_axes(params))
         else:
             raise ValueError(f"unknown optimizer {cfg.optimizer}")
         return optim_lib.guard_nonfinite(tx) if cfg.skip_nonfinite_updates else tx
@@ -163,8 +174,11 @@ class AATTrainer:
             sampling_rate=self.config.sampling_rate,
             tokenizer_config=getattr(self, "tokenizer_config", None))
 
-    def _assemble_and_forward(self, params, batch, dropout_seed: Optional[int] = None):
-        """→ (caption logits, assembled inputs)."""
+    def _assemble_and_forward(self, params, batch, dropout_seed: Optional[int] = None,
+                              train: bool = False):
+        """→ (caption logits, assembled inputs, BN statistics). The
+        statistics are ``{}`` except on EfficientNet melspec batches with
+        ``train``, where the encoder's batch norm runs in train mode."""
         model = self.model
         compute_dtype = (torch.bfloat16 if self.config.compute_dtype == "bfloat16"
                          else torch.float32)
@@ -172,12 +186,21 @@ class AATTrainer:
         s_enc = s_proj = None
         if dropout_seed is not None:
             s_enc, s_proj = fold_seed(dropout_seed, 0), fold_seed(dropout_seed, 1)
+        bn_stats = {}
         if "raw_waveforms" in batch:
             batch = self._segment_on_device(batch)
         if "batched_segments_melspectrograms" in batch:
-            raise NotImplementedError(
-                "EfficientNet melspec batches are not ported yet (ROADMAP Queue 1, EfficientNet)")
-        if "batched_segments" in batch:
+            # [B, S, n_mels, T] → [B*S, n_mels, T]
+            mels = batch["batched_segments_melspectrograms"]
+            b, s = mels.shape[:2]
+            encoded = model.encode_audio_melspec(
+                params, mels.reshape(b * s, *mels.shape[2:]).to(compute_dtype),
+                batch["segments_boarders_attention_mask"].reshape(b * s), train=train)
+            audio_embeds, frame_mask = encoded[:2]
+            if train:
+                bn_stats = encoded[2]
+            segments_count = s
+        elif "batched_segments" in batch:
             seg = batch["batched_segments"]
             b, s, f = seg.shape
             audio_embeds, frame_mask = model.encode_audio(
@@ -198,7 +221,7 @@ class AATTrainer:
         logits = model.forward(params, inputs["inputs_embeds"], inputs["attention_mask"],
                                pack=self.config.lm_pack,
                                caption_len=batch["input_ids"].shape[1])
-        return logits, inputs
+        return logits, inputs, bn_stats
 
     def _debug_metrics(self, params, batch, inputs) -> Dict[str, torch.Tensor]:
         """The reference's compute_loss debug block, on the device."""
@@ -233,13 +256,15 @@ class AATTrainer:
     # ------------------------------------------------------------------
 
     def _grad_step(self, params, batch, dropout_seed: Optional[int]):
-        """→ (grads, metrics): grads is the params tree with float32 tensors
-        on trainable leaves (zeros where a skipped layer left none) and
-        ``None`` on frozen ones."""
+        """→ (grads, metrics, bn_stats): grads is the params tree with
+        float32 tensors on trainable leaves (zeros where a skipped layer, or
+        a running BN statistic, left none) and ``None`` on frozen ones;
+        bn_stats the EfficientNet batch statistics (``{}`` otherwise)."""
         leaves = optim_lib.tree_map(
             lambda p, t: p.detach().requires_grad_(True) if t else p.detach(),
             params, self.freeze)
-        logits, inputs = self._assemble_and_forward(leaves, batch, dropout_seed)
+        logits, inputs, bn_stats = self._assemble_and_forward(leaves, batch, dropout_seed,
+                                                              train=True)
         loss = caption_cross_entropy(logits, batch["input_ids"],
                                      batch["input_ids_attention_mask"])
         trainable = [x for x, t in zip(optim_lib.tree_leaves(leaves),
@@ -262,7 +287,7 @@ class AATTrainer:
                 "audio_encoder", {}):
             metrics["train/audio_encdoer_grad_norm"] = optim_lib.global_norm(
                 grads["audio_encoder"]["feature_projection"]["projection"])
-        return grads, metrics
+        return grads, metrics, bn_stats
 
     def _to_device(self, batch: dict) -> dict:
         out = {}
@@ -281,12 +306,16 @@ class AATTrainer:
                       fetch_metrics: bool = True) -> Dict[str, float]:
         """One optimizer step over the microbatches: gradients summed, then
         divided by their count (metrics averaged the same way), then the
-        optimizer's update in place. Returns host metrics when
-        ``fetch_metrics`` (one device sync)."""
+        optimizer's update in place, then each microbatch's EfficientNet BN
+        statistics folded into the running estimates, in order. Returns host
+        metrics when ``fetch_metrics`` (one device sync)."""
         acc_grads = acc_metrics = None
+        bn_stats_seq = []
         for idx, mb in enumerate(microbatches):
-            grads, metrics = self._grad_step(self.state.params, self._to_device(mb),
-                                             self.dropout_seed(self.state.step, idx))
+            grads, metrics, bn_stats = self._grad_step(self.state.params, self._to_device(mb),
+                                                       self.dropout_seed(self.state.step, idx))
+            if bn_stats:
+                bn_stats_seq.append(bn_stats)
             if acc_grads is None:
                 acc_grads, acc_metrics = grads, metrics
             else:
@@ -302,8 +331,22 @@ class AATTrainer:
             updates, opt_state = self.tx.update(acc_grads, self.state.opt_state,
                                                 self.state.params)
             optim_lib.apply_updates(self.state.params, updates)
+            if bn_stats_seq:
+                self._fold_bn_stats(bn_stats_seq)
         self.state = TrainState(self.state.step + 1, self.state.params, opt_state)
         return self._finish_metrics(acc_metrics, fetch_metrics)
+
+    def _fold_bn_stats(self, stats_seq):
+        """EMA each microbatch's EfficientNet batch statistics into the
+        running estimates, in order, in place (torch updates them once per
+        train-mode forward; JAX ``_fold_bn_stats``)."""
+        from aat_tpu_torch.models.efficientnet import apply_bn_updates
+
+        encoder = self.state.params["audio_encoder"]
+        folded = encoder
+        for stats in stats_seq:
+            folded = apply_bn_updates(folded, stats)
+        optim_lib.tree_map(lambda p, x: None if p is x else p.copy_(x), encoder, folded)
 
     def _finish_metrics(self, acc_metrics, fetch_metrics: bool) -> Dict[str, float]:
         if not fetch_metrics:
@@ -443,22 +486,26 @@ class AATTrainer:
         """Caption CE of a device batch at the compute dtype, no dropout
         (the JAX ``_eval_step``), as a device scalar."""
         with torch.no_grad():
-            logits, _ = self._assemble_and_forward(params, batch)
+            logits, _, _ = self._assemble_and_forward(params, batch)
             return caption_cross_entropy(logits, batch["input_ids"],
                                          batch["input_ids_attention_mask"])
 
     def _prefix_inputs(self, params, batch) -> dict:
         """[audio | prefix text] embeds for generation, encoded with the f32
         masters as they are (no compute-dtype cast), from whole-utterance,
-        segmented or raw-waveform device batches."""
+        segmented, raw-waveform or melspec (eval-mode BN) device batches."""
         model = self.model
         with torch.no_grad():
             if "raw_waveforms" in batch:
                 batch = self._segment_on_device(batch)
             if "batched_segments_melspectrograms" in batch:
-                raise NotImplementedError(
-                    "EfficientNet melspec batches are not ported yet (ROADMAP Queue 1, EfficientNet)")
-            if "batched_segments" in batch:
+                mels = batch["batched_segments_melspectrograms"]
+                b, s = mels.shape[:2]
+                audio_embeds, frame_mask = model.encode_audio_melspec(
+                    params, mels.reshape(b * s, *mels.shape[2:]),
+                    batch["segments_boarders_attention_mask"].reshape(b * s))
+                segments_count = s
+            elif "batched_segments" in batch:
                 seg = batch["batched_segments"]
                 b, s, f = seg.shape
                 audio_embeds, frame_mask = model.encode_audio(

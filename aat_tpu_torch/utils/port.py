@@ -1,9 +1,11 @@
 """Bridge between the JAX package's parameter pytrees and the port's.
 
 The JAX package keeps parameters as nested dicts/lists of arrays; the port
-keeps the same trees as tensors, except HuBERT conv kernels, which move
-from ``[K, C_in, C_out]`` to PyTorch's ``[C_out, C_in/groups, K]``. This
-module is the one place that knows that layout. :func:`from_jax_params`
+keeps the same trees as tensors, except the encoders' conv kernels, which
+take PyTorch's layouts: HuBERT's move from ``[K, C_in, C_out]`` to
+``[C_out, C_in/groups, K]``, EfficientNet's from HWIO to OIHW. This module
+is the one place that knows those layouts (:func:`encoder_conv_perms`,
+dispatched on the encoder tree's kind). :func:`from_jax_params`
 takes a full ASLM tree (``audio_encoder``, ``adapter``, ``lm_decoder``) as
 numpy arrays (``jax.device_get`` of the JAX tree); :func:`to_jax_params` is
 its inverse, as numpy. :func:`checkpoint_from_jax` does the same for a
@@ -54,24 +56,71 @@ def _to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
-def _conv_kernels(hubert_tree: dict):
-    """The HuBERT tree's conv-kernel holders (feature extractor + pos conv)."""
-    return [layer["conv"] for layer in hubert_tree["feature_extractor"]] + [hubert_tree["pos_conv"]]
+# the conv kernels whose layout differs, by the JAX-axis order of the port's
+# axes: the port's axis i is the JAX layout's axis perm[i]
+HUBERT_CONV_PERM = (2, 1, 0)  # JAX [K, C_in, C_out] → the port's [C_out, C_in, K]
+EFFICIENTNET_CONV_PERM = (3, 2, 0, 1)  # JAX HWIO → the port's OIHW (not a reversal)
 
 
-def hubert_from_jax(tree: dict, device=None) -> dict:
-    """JAX HuBERT parameters (numpy) → the port's, conv kernels permuted."""
-    out = to_tensors(tree, device)
-    for holder in _conv_kernels(out):
-        if holder["kernel"] is not None:
-            holder["kernel"] = holder["kernel"].permute(2, 1, 0).contiguous()
-    return out
+def _kernel_paths(tree, path=()):
+    """Paths of every ``"kernel"`` leaf of a tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [path] if path and path[-1] == "kernel" else []
+    return [p for k, v in items for p in _kernel_paths(v, path + (k,))]
+
+
+def encoder_conv_perms(encoder: dict) -> dict:
+    """``{path in the encoder tree: perm}`` of its conv kernels, by the
+    tree's kind: HuBERT / wav2vec2 (the feature extractor's convs and the
+    positional conv) or EfficientNet (every kernel: all are convs)."""
+    if "feature_extractor" in encoder:
+        paths = [("feature_extractor", i, "conv", "kernel")
+                 for i in range(len(encoder["feature_extractor"]))] + [("pos_conv", "kernel")]
+        return dict.fromkeys(paths, HUBERT_CONV_PERM)
+    if "stem" in encoder:
+        return dict.fromkeys(_kernel_paths(encoder), EFFICIENTNET_CONV_PERM)
+    raise ValueError(f"unknown audio encoder tree (keys {sorted(encoder)})")
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _set(tree, path, value):
+    _get(tree, path[:-1])[path[-1]] = value
+
+
+def _carry(tree: dict, to_port: bool) -> dict:
+    """The conv kernels of an encoder tree (``None`` leaves kept) permuted
+    into the port's layout, or back to JAX's, in place."""
+    for path, perm in encoder_conv_perms(tree).items():
+        x = _get(tree, path)
+        if x is None:
+            continue
+        if to_port:
+            _set(tree, path, x.permute(perm).contiguous())
+        else:
+            _set(tree, path, np.ascontiguousarray(x.transpose(np.argsort(perm))))
+    return tree
+
+
+def encoder_from_jax(tree: dict, device=None) -> dict:
+    """JAX audio-encoder parameters (numpy; HuBERT / wav2vec2 or
+    EfficientNet) → the port's, conv kernels permuted."""
+    return _carry(to_tensors(tree, device), True)
 
 
 def from_jax_params(tree: dict, device=None) -> dict:
-    """JAX ASLM parameters (numpy leaves) → the port's parameters."""
+    """JAX ASLM parameters (numpy leaves; HuBERT / wav2vec2 or EfficientNet
+    encoder) → the port's parameters."""
     return {
-        "audio_encoder": hubert_from_jax(tree["audio_encoder"], device),
+        "audio_encoder": encoder_from_jax(tree["audio_encoder"], device),
         "adapter": to_tensors(tree["adapter"], device),
         "lm_decoder": to_tensors(tree["lm_decoder"], device),
     }
@@ -81,9 +130,7 @@ def to_jax_params(params: dict) -> dict:
     """The port's ASLM parameters (or a moment tree of them, ``None`` on
     frozen leaves) → the JAX layout, as numpy."""
     out = _to_numpy(params)
-    for holder in _conv_kernels(out["audio_encoder"]):
-        if holder["kernel"] is not None:
-            holder["kernel"] = np.ascontiguousarray(holder["kernel"].transpose(2, 1, 0))
+    _carry(out["audio_encoder"], False)
     return out
 
 
@@ -124,24 +171,41 @@ def _find_state(tree, names):
     return None
 
 
-def _conv_kernel_paths(params: dict) -> set:
-    """Paths (tuples of keys) of the conv kernels, whose layout differs."""
-    enc = params["audio_encoder"]
-    paths = {("audio_encoder", "feature_extractor", i, "conv", "kernel")
-             for i in range(len(enc["feature_extractor"]))}
-    return paths | {("audio_encoder", "pos_conv", "kernel")}
+def conv_perms(params: dict) -> dict:
+    """``{path: perm}`` of an ASLM tree's conv kernels (paths from the
+    root, as tuples of keys)."""
+    return {("audio_encoder",) + path: perm
+            for path, perm in encoder_conv_perms(params["audio_encoder"]).items()}
+
+
+def adafactor_axes(params: dict) -> dict:
+    """``{"audio_encoder/.../kernel": (d1, d0)}``: for each conv kernel, the
+    axes (in the port's layout) that JAX's Adafactor factors its second
+    moments over (``optim.factored_dims`` of the JAX shape). On the port's
+    shape ``factored_dims`` can pick other axes where sizes tie (the
+    EfficientNet stem, ``[3, 3, 3, 32]``); with these the port's Adafactor
+    keeps JAX's statistics."""
+    from aat_tpu_torch.training.optim import factored_dims
+
+    out = {}
+    for path, perm in conv_perms(params).items():
+        shape = tuple(_get(params, path).shape)
+        jax_shape = tuple(shape[perm.index(j)] for j in range(len(shape)))
+        d1, d0 = factored_dims(jax_shape)
+        out["/".join(map(str, path))] = (perm.index(d1), perm.index(d0))
+    return out
 
 
 def _factored_from_jax(v_row, v_col, params: dict):
     """Adafactor's factored moments of the JAX layout → the port's
     ``(v_row, v_col)`` trees (numpy; None on 1-D and frozen leaves). A
-    statistic is a mean over one axis of the squared gradient; in the
-    port's layout a conv kernel's axes are reversed, so its factored axes
-    may swap roles: each port statistic is the JAX one over the same axis,
-    transposed to the port's axis order."""
+    statistic is a mean over one axis of the squared gradient, and the
+    port's Adafactor reduces the same axes as JAX's
+    (:func:`adafactor_axes`): each port statistic is the JAX one over the
+    same axis, transposed to the port's axis order."""
     from aat_tpu_torch.training.optim import factored_dims
 
-    conv = _conv_kernel_paths(params)
+    perms = conv_perms(params)
 
     def walk(p, vr, vc, path):
         if isinstance(p, dict):
@@ -154,19 +218,17 @@ def _factored_from_jax(v_row, v_col, params: dict):
         if _unmask(vr) is None or len(shape) < 2:
             return None, None
         n = len(shape)
-        perm = tuple(range(n))[::-1] if path in conv else tuple(range(n))  # port axis -> JAX
+        perm = perms.get(path, tuple(range(n)))  # port axis -> JAX axis
         d1j, d0j = factored_dims(shape)
         by_axis = {d0j: np.asarray(vr), d1j: np.asarray(vc)}  # JAX stat by reduced axis
-        d1p, d0p = factored_dims(tuple(shape[perm[i]] for i in range(n)))
 
-        def port_stat(axis_p):
-            axis_j = perm[axis_p]
+        def port_stat(axis_j):
             rest_j = [a for a in range(n) if a != axis_j]
-            rest_p = [perm[i] for i in range(n) if i != axis_p]
+            rest_p = [perm[i] for i in range(n) if perm[i] != axis_j]
             return np.ascontiguousarray(
                 np.transpose(by_axis[axis_j], [rest_j.index(a) for a in rest_p]))
 
-        return port_stat(d0p), port_stat(d1p)
+        return port_stat(d0j), port_stat(d1j)
 
     return walk(params, v_row, v_col, ())
 

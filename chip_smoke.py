@@ -204,10 +204,39 @@ Phases, one line each:
      ``checkpoint-8`` bit for bit; and the MFU of phases 8 and 11's warm
      steps from ``utils/flops`` (model FLOPs over the step wall over 989
      TFLOP/s).
+ 16. the two encoder/projection paths ported last, at full width, after
+     phase 15: (a) the ``transformer_encoder`` projection (the default
+     ``PoolingConfig``, dropout 0.1) on phase 8's hubert-large and
+     SmolLM-135M, 3 steps of 2 microbatches of 2 raw-waveform utterances
+     of 2-12 s segmented adaptively on the device (the mel kernel, its
+     segment tables equal to the plain mel route's), bf16 over f32
+     masters: finite losses, the LM unchanged, the pooling and encoder
+     weights moved; an f32 gradient step through the kernel and plain
+     routes (mel's plain version, ``attention_impl="xla"``) within
+     ``TRAIN_REL_TOL``; the step under remat "dots" against no remat, bit
+     for bit, with peak memory (the plain attention route, whose batched
+     products "dots" now recomputes); evaluate with generation; the warm
+     step's MFU. (b) EfficientNet-b0 (seeded random), the linear
+     projection and SmolLM-135M on the train command line's adaptive
+     collator's melspec batches of 28-35 s utterances with no n_words
+     crop, so every LM row reaches the flash gate: 3 steps with the
+     encoder trained (the causal flash kernels through the bf16 entries),
+     the stem's BN running mean the EMA of its 6 folds (within 1e-6) and
+     moved by no more than 6 EMAs of momentum 0.01 can, one more step
+     with the encoder frozen moving only the BN running statistics, an
+     f32 kernel-versus-plain step, and evaluate with generation (eval-mode
+     BN). (c) in phase 13's directory, the train command line with
+     ``--audio-encoder-type efficient_net --projection-type
+     transformer_encoder --segmentation adaptive`` (SmolLM read from its
+     directory, EfficientNet random after JAX's warning), 2 steps;
+     ``scripts.validate`` on its export; the export read back by
+     ``load_pretrained`` as an EfficientNet run with a ``PoolingConfig``,
+     its params bit for bit.
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
 long-form steps, phase 13's run A and its serve command, phase 14, each
-remat step of phase 15, its optimizer steps and its unfreeze run A) and
+remat step of phase 15, its optimizer steps and its unfreeze run A, and
+phase 16's three runs) and
 read just after; each kernel of the path must have
 launched there, and each path's flash launches must all go through the C
 entries of one dtype (serving's f32 forward through
@@ -218,7 +247,8 @@ are counted apart, as the path ``train_eval_prefix``, from its bf16 part,
 ``train_cli``, and its serve command as ``serve_cli``; phase 14 as
 ``dataset``, phase 15's remat steps as ``train_remat`` and
 ``longform_remat``, its optimizer steps as ``train_optimizers`` and its
-unfreeze run as ``train_unfreeze_cli``). Then a
+unfreeze run as ``train_unfreeze_cli``; phase 16's as ``train_pooling``,
+``train_efficientnet`` and ``train_projections_cli``). Then a
 JSON line of kernel results, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. In the kernel line the flash entries
 report bf16 (the tensor-core kernels, counting only launches through their
@@ -1016,7 +1046,7 @@ def phase_training(torch, model, params, rng, smi_line):
     calls = reset_entry_calls()
     for label, m in (("kernel", model), ("plain", plain_model)):
         t = AATTrainer(m, params, f32)
-        grads, metrics = t._grad_step(params, batches[0][0], t.dropout_seed(0, 0))
+        grads, metrics, _ = t._grad_step(params, batches[0][0], t.dropout_seed(0, 0))
         routes[label] = (metrics["train/loss"].item(), optim.global_norm(grads).item(),
                          grads["audio_encoder"]["feature_projection"]["projection"]["kernel"])
         del t, grads
@@ -1553,9 +1583,9 @@ def check_read_weights(torch, params, hubert_tree, g, v, smollm):
     within ``POS_CONV_TOL`` of g v / ||v|| in f64. Returns (tensors checked,
     the conv's norm ratio)."""
     from aat_tpu_torch.training.checkpoint import flatten
-    from aat_tpu_torch.utils.port import hubert_from_jax
+    from aat_tpu_torch.utils.port import encoder_from_jax
 
-    want = flatten(hubert_from_jax(hubert_tree))
+    want = flatten(encoder_from_jax(hubert_tree))
     got = flatten(params["audio_encoder"])
     check(set(got) == set(want) | {"pos_conv.kernel"}, "the encoder tree's paths differ")
     differ = [k for k, w in want.items() if not torch.equal(got[k].cpu(), w)]
@@ -1652,8 +1682,9 @@ def phase_cli(torch, device, rng, smi_line):
     the build directory, with cuDNN's deterministic algorithms (the resumed
     run must equal the uninterrupted one bit for bit) and wandb disabled.
     Returns the train CLI's launches by wrapper and by C entry (its bf16
-    part and its generation prefixes') and serve's, then phase 14's and
-    phase 15's unfreeze command line's (run in the same directory)."""
+    part and its generation prefixes') and serve's, then phase 14's,
+    phase 15's unfreeze command line's and phase 16c's (run in the same
+    directory)."""
     import shutil
     import tempfile
 
@@ -1671,7 +1702,12 @@ def phase_cli(torch, device, rng, smi_line):
         # command line, on the directories written here
         dataset = phase_dataset(torch, device, rng, smi_line, tmp)
         unfreeze = phase_unfreeze_cli(torch, device, rng, smi_line, tmp)
-        return result + (dataset, unfreeze)
+        # 16c. the EfficientNet and transformer_encoder command line
+        start = time.perf_counter()
+        projections = phase_projection_cli(torch, device, np.random.default_rng(161), smi_line,
+                                           tmp)
+        print(f"phase 16c wall {time.perf_counter() - start:.1f} s", flush=True)
+        return result + (dataset, unfreeze, projections)
     finally:
         torch.backends.cudnn.deterministic = deterministic
         if wandb_mode is None:
@@ -2810,31 +2846,35 @@ class DeterministicCudnn:
         return False
 
 
-def remat_compare(torch, model, params, cfg, micro, label, smi_line):
+def remat_compare(torch, model, params, cfg, micro, label, smi_line,
+                  policies=("none", "full", "dots"), flash=True):
     """One optimizer step from the same state without remat and with
-    encoder remat "full" and "dots" (fresh trainers; the LM frozen): the
-    losses and the updated parameters must be equal bit for bit, and the
-    encoder's flash forwards twice as many under remat (the recompute).
-    Prints the peak memory and wall of each. Returns the remat steps'
-    launches by wrapper and by C entry."""
+    encoder remat under ``policies`` (fresh trainers; the LM frozen): the
+    losses and the updated parameters must be equal bit for bit, and, on a
+    ``flash`` path, the encoder's flash forwards twice as many under remat
+    (the recompute). Prints the peak memory and wall of each. Returns the
+    remat steps' launches by wrapper and by C entry."""
     from aat_tpu_torch.models.aslm import AslmModel
     from aat_tpu_torch.training import optim
     from aat_tpu_torch.training.checkpoint import flatten
     from aat_tpu_torch.training.trainer import AATTrainer
 
     trained = {k: params[k] for k in ("audio_encoder", "adapter")}
-    initial = optim.tree_map(lambda x: x.detach().clone(), trained)
+    # the starting state and the first step's result wait on the host, so
+    # each step's peak counts only what the step itself holds on the card
+    initial = optim.tree_map(lambda x: x.detach().to("cpu", copy=True), trained)
     wrappers = kernel_wrappers()
     remat_launches = dict.fromkeys(wrappers, 0)
     remat_calls = None
     runs, want = {}, None
     with DeterministicCudnn(torch):
-        for policy in ("none", "full", "dots"):
+        for policy in policies:
             with torch.no_grad():
                 optim.tree_map(lambda p, x: p.copy_(x), trained, initial)
             enc_cfg = dataclasses.replace(model.audio_encoder_config, remat=policy != "none",
                                           remat_policy="full" if policy == "none" else policy)
-            trainer = AATTrainer(AslmModel(model.config, enc_cfg, model.lm_config), params, cfg)
+            trainer = AATTrainer(AslmModel(model.config, enc_cfg, model.lm_config,
+                                           model.audio_encoder_type), params, cfg)
             for w in wrappers.values():
                 w.launches = 0
             calls = reset_entry_calls()
@@ -2848,17 +2888,19 @@ def remat_compare(torch, model, params, cfg, micro, label, smi_line):
             peak = torch.cuda.max_memory_allocated() / 2**30
             launches = {n: w.launches for n, w in wrappers.items()}
             if policy != "none":
-                flash_entry_calls(calls, f"{label} remat {policy}", "bfloat16")
+                if flash:
+                    flash_entry_calls(calls, f"{label} remat {policy}", "bfloat16")
                 for n in remat_launches:
                     remat_launches[n] += launches[n]
                 remat_calls = {e: (remat_calls or {}).get(e, 0) + c for e, c in calls.items()}
-            state = flatten(trained)
+            state = {k: v.cpu() for k, v in flatten(trained).items()}
             if want is None:
-                want = {k: v.clone() for k, v in state.items()}
+                want = state
                 differ, worst = [], 0.0
             else:
                 differ = [k for k, v in state.items() if not torch.equal(v, want[k])]
                 worst = max((float((state[k] - want[k]).abs().max()) for k in differ), default=0.0)
+            del state
             runs[policy] = (loss, peak, wall, launches["flash_fwd"], len(differ), worst)
             del trainer
     with torch.no_grad():
@@ -2869,12 +2911,12 @@ def remat_compare(torch, model, params, cfg, micro, label, smi_line):
         f"{p}: loss {r[0]:.6f}, peak {r[1]:.2f} GiB, wall {r[2]:.3f} s, encoder flash forwards "
         f"{r[3]}, params differing from no remat {r[4]} (max abs {r[5]:.3e})"
         for p, r in runs.items()), flush=True)
-    for policy in ("full", "dots"):
+    for policy in policies[1:]:
         loss, peak, wall, fwd, n_differ, _ = runs[policy]
         check(loss == base[0] and n_differ == 0,
               f"{label} remat {policy}: the step differs from no remat")
-        check(fwd == 2 * base[3], f"{label} remat {policy}: {fwd} flash forwards, not twice "
-              f"{base[3]}")
+        check(fwd == 2 * base[3] if flash else fwd == base[3] == 0,
+              f"{label} remat {policy}: {fwd} flash forwards, no remat {base[3]}")
     return remat_launches, remat_calls
 
 
@@ -3080,6 +3122,449 @@ def phase_unfreeze_cli(torch, device, rng, smi_line, tmp):
 
 
 
+# ---------------------------------------------------------------------------
+# 16. the transformer_encoder projection and EfficientNet-b0 at full width
+# ---------------------------------------------------------------------------
+
+# 3 steps of 2 microbatches of 2 raw-waveform utterances in phase 5's range
+POOLING_SECONDS = (2.0, 4.5, 12.0, 7.0, 3.2, 9.5, 5.5, 10.5, 2.6, 8.0, 6.2, 11.0)
+# LibriSpeech-long utterances for EfficientNet: with captions at 3.5 words a
+# second and no n_words crop every LM row passes MIN_PALLAS_SEQ_LEN (256)
+EFFNET_SECONDS = (28.0, 35.0, 31.5, 33.0, 29.5, 34.5, 30.5, 32.0, 30.0, 33.5, 28.5, 34.0)
+# the train command line of phase 16c, in phase 13's directory
+PROJECTION_CLI_SECONDS = (8.0, 10.0, 12.0, 9.0)
+
+
+def raw_waveform_batches(torch, device, rng, seconds, accum=2, per_batch=2):
+    """Steps of ``accum`` microbatches of ``per_batch`` raw speech-like
+    utterances (``raw_waveforms`` / ``raw_lengths``, padded as serving
+    pads them), random caption ids of 32-48 tokens and a 4-token text
+    prefix; and the utterances of each microbatch."""
+    steps, waves_by_batch = [], []
+    durations = iter(seconds)
+    for _ in range(len(seconds) // (accum * per_batch)):
+        micro = []
+        for _ in range(accum):
+            waves = [speechlike_waveform(rng, next(durations)) for _ in range(per_batch)]
+            x, lengths = padded_batch(torch, waves, device)
+            cap_lens = rng.integers(32, 49, per_batch)
+            ids = np.zeros((per_batch, int(cap_lens.max())), np.int64)
+            cmask = np.zeros(ids.shape, np.int32)
+            for i, c in enumerate(cap_lens):
+                ids[i, :c], cmask[i, :c] = rng.integers(3, 49152, c), 1
+            ids[:, 0] = 1
+            micro.append({"raw_waveforms": x, "raw_lengths": lengths, **{
+                k: torch.from_numpy(v).to(device) for k, v in (
+                    ("input_ids", ids), ("attention_mask", cmask),
+                    ("input_ids_attention_mask", cmask), ("prefix_input_ids", ids[:, :4]),
+                    ("prefix_attention_mask", np.ones((per_batch, 4), np.int32)))}})
+            waves_by_batch.append(waves)
+        steps.append(micro)
+    return steps, waves_by_batch
+
+
+def plain_mel_segmentation():
+    """``segment_waveforms`` through mel's plain version (phase 5's plain
+    route), for a trainer's on-device segmentation."""
+    from aat_tpu_torch.ops import mel, segmentation
+
+    def segment(norm, lengths, cfg):
+        plain = mel.melspec_frames_reference(mel.frame_waveform_ragged(norm, lengths))
+        return segmentation.segment_table_from_melspec(plain.transpose(-1, -2), lengths, cfg)
+
+    return segment
+
+
+def run_steps(torch, trainer, steps):
+    """The optimizer steps with counts set to 0 first: (losses, walls,
+    launches by wrapper, launches by C entry, last metrics)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    calls = reset_entry_calls()
+    torch.cuda.synchronize()
+    losses, walls = [], []
+    for micro in steps:
+        start = time.perf_counter()
+        metrics = trainer.training_step(micro)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        losses.append(metrics["train/loss"])
+    return losses, walls, {n: w.launches for n, w in wrappers.items()}, dict(calls), metrics
+
+
+def f32_routes(torch, kernel_model, plain_model, params, cfg, micro, label, segment=None):
+    """One f32 gradient step through the kernel route and the plain route
+    (``plain_model``; ``segment`` replaces the on-device segmentation),
+    same seeds: loss and gradient norm within ``TRAIN_REL_TOL``. Returns
+    the kernel route's launches by wrapper."""
+    from aat_tpu_torch.data import ondevice
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.trainer import AATTrainerSegmentation
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    wrappers = kernel_wrappers()
+    routes, launches = {}, {}
+    real = ondevice.segment_waveforms
+    for name, m in (("kernel", kernel_model), ("plain", plain_model)):
+        for w in wrappers.values():
+            w.launches = 0
+        reset_entry_calls()
+        if name == "plain" and segment is not None:
+            ondevice.segment_waveforms = segment
+        try:
+            t = AATTrainerSegmentation(m, params, f32)
+            grads, metrics, _ = t._grad_step(params, t._to_device(micro), t.dropout_seed(0, 0))
+            routes[name] = (metrics["train/loss"].item(), optim.global_norm(grads).item())
+        finally:
+            ondevice.segment_waveforms = real
+        launches[name] = {n: w.launches for n, w in wrappers.items()}
+        del t, grads
+        torch.cuda.empty_cache()
+    (loss_k, norm_k), (loss_p, norm_p) = routes["kernel"], routes["plain"]
+    print(f"{label} f32 routes: loss kernel {loss_k:.6f} plain {loss_p:.6f}; grad norm kernel "
+          f"{norm_k:.6e} plain {norm_p:.6e}; launches kernel route {launches['kernel']}, plain "
+          f"route {sum(launches['plain'].values())}", flush=True)
+    check(abs(loss_k - loss_p) <= TRAIN_REL_TOL * abs(loss_p), f"{label}: f32 losses differ")
+    check(abs(norm_k - norm_p) <= TRAIN_REL_TOL * norm_p, f"{label}: f32 grad norms differ")
+    check(sum(launches["plain"].values()) == 0, f"{label}: the plain route launched a kernel")
+    return launches["kernel"]
+
+
+def evaluate_once(torch, trainer, batch, label, vocab):
+    """``evaluate(with_generation=True)`` on one batch, then its beam ids."""
+    start = time.perf_counter()
+    metrics = trainer.evaluate([batch], with_generation=True)
+    ids = trainer.generate_for_batch(batch)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - start
+    print(f"{label} evaluate(with_generation=True), 1 batch: eval/loss {metrics['eval/loss']:.5f}; "
+          f"beam ids {ids.shape}, first {ids[0][:8].tolist()}; {eval_s:.3f} s", flush=True)
+    check(np.isfinite(metrics["eval/loss"]), f"{label}: eval loss {metrics['eval/loss']}")
+    check(ids.ndim == 2 and bool(((ids >= 0) & (ids < vocab)).all()), f"{label}: beam ids")
+
+
+def phase_pooling(torch, model, params, rng, smi_line):
+    """16a, ``train_pooling``: the transformer_encoder projection on phase
+    8's hubert-large and SmolLM-135M, a fresh pooling adapter (the default
+    PoolingConfig, dropout 0.1), adaptive segmentation on the device, bf16
+    over f32 masters: 3 steps of 2 microbatches of 2 raw-waveform
+    utterances of 2-12 s; then an f32 step through the kernel and plain
+    routes, the step under remat "dots" against no remat (bit for bit, the
+    plain attention route the repair changed), evaluate with generation,
+    and the warm step's MFU. Returns the steps' launches by wrapper and by
+    C entry."""
+    import types
+
+    from aat_tpu_torch.models.aslm import AslmModel, init_aslm_params
+    from aat_tpu_torch.ops import attention
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.config import projection_training_config
+    from aat_tpu_torch.training.trainer import AATTrainerSegmentation
+    from aat_tpu_torch.utils import flops
+
+    device = params["lm_decoder"]["embed_tokens"]["embedding"].device
+    aslm_cfg = dataclasses.replace(model.config, projection_type="transformer_encoder")
+    pmodel = AslmModel(aslm_cfg, model.audio_encoder_config, model.lm_config)
+    start = time.perf_counter()
+    adapter = init_aslm_params((0, 16), aslm_cfg, device)
+    pparams = {"audio_encoder": params["audio_encoder"], "adapter": adapter,
+               "lm_decoder": params["lm_decoder"]}
+    n_adapter = sum(x.numel() for x in optim.tree_leaves(adapter))
+    cfg = dataclasses.replace(projection_training_config(), projection_type="transformer_encoder",
+                              segmentation="adaptive", per_device_train_batch_size=2,
+                              gradient_accumulation_steps=2)
+    steps, waves = raw_waveform_batches(torch, device, rng, POOLING_SECONDS)
+    # the settings phase_segment_tables reads, as the trainer segments
+    slots = types.SimpleNamespace(max_segments=cfg.max_on_device_segments,
+                                  max_segment_frames=cfg.max_segment_frames)
+    counts = [phase_segment_tables(torch, device, w, slots) for w in waves]
+    print(f"pooling: transformer_encoder adapter {n_adapter} parameters ({aslm_cfg.pooling}, "
+          f"dropout {aslm_cfg.dropout}), init {time.perf_counter() - start:.1f} s; segments per "
+          f"utterance {counts} (capped at {slots.max_segments}), kernel and plain mel routes' "
+          f"segment tables equal", flush=True)
+    check(all(0 < c <= slots.max_segments for cs in counts for c in cs), f"segments {counts}")
+
+    trainer = AATTrainerSegmentation(pmodel, pparams, cfg)
+    lm_before = [x.clone() for x in optim.tree_leaves(pparams["lm_decoder"])]
+    watched = {"adapter/pooling/layers/0/attention/in_proj/kernel":
+               adapter["pooling"]["layers"][0]["attention"]["in_proj"]["kernel"],
+               "audio_encoder/feature_projection/projection/kernel":
+               pparams["audio_encoder"]["feature_projection"]["projection"]["kernel"]}
+    before = {k: v.clone() for k, v in watched.items()}
+    losses, walls, launches, calls, metrics = run_steps(torch, trainer, steps)
+    print(f"train_pooling ({smi_line}): 3 steps x 2 microbatches x 2 utterances, bf16, losses "
+          f"{[round(x, 5) for x in losses]}, LM sequence length {metrics['debug/seq_len']:.0f}, "
+          f"step walls {[round(x, 3) for x in walls]} s (warm {walls[-1]:.3f} s), skipped "
+          f"{metrics['train/skipped_nonfinite_total']}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {launches}", flush=True)
+    check(all(np.isfinite(losses)), f"non-finite pooling losses {losses}")
+    check(metrics["train/skipped_nonfinite_total"] == 0.0, "a pooling update was dropped")
+    check(all(torch.equal(a, b) for a, b in zip(lm_before, optim.tree_leaves(pparams["lm_decoder"]))),
+          "a frozen LM weight changed under the pooling projection")
+    for name, old in before.items():
+        check(not torch.equal(old, watched[name]), f"trained weight {name} did not move")
+    check(launches["mel"] > 0, "pooling training never launched the mel kernel")
+    check(metrics["debug/seq_len"] < attention.MIN_PALLAS_SEQ_LEN,
+          "the pooling rows reach the flash gate; the path is meant to be the plain one")
+    del lm_before, before
+    total = sum(flops.aslm_train_step_flops(
+        pmodel.audio_encoder_config, pmodel.lm_config, aslm_cfg, 2, cfg.max_on_device_segments,
+        cfg.max_segment_frames, int(b["input_ids"].shape[1]), cfg.train_audio_encoder,
+        cfg.train_lm_decoder)["total"] for b in steps[-1])
+    print(f"mfu: phase 16a (segmented, transformer_encoder, {cfg.max_on_device_segments} segment "
+          f"slots of {cfg.max_segment_frames} samples a row, as the step computes them) warm step "
+          f"{total / 1e12:.3f} TFLOP (utils/flops) in {walls[-1]:.3f} s: MFU "
+          f"{flops.mfu(total, walls[-1]):.4f} of {flops.H100_BF16_PEAK / 1e12:.0f} TFLOP/s "
+          f"({smi_line})", flush=True)
+
+    plain = AslmModel(aslm_cfg,
+                      dataclasses.replace(pmodel.audio_encoder_config, attention_impl="xla"),
+                      dataclasses.replace(pmodel.lm_config, attention_impl="xla"))
+    kernel_launches = f32_routes(torch, pmodel, plain, pparams, cfg, steps[0][0], "train_pooling",
+                                 segment=plain_mel_segmentation())
+    check(kernel_launches["mel"] > 0, "the f32 kernel route never launched the mel kernel")
+    # the repaired "dots": attention's bmm products recomputed, no others
+    remat_compare(torch, pmodel, pparams, cfg, steps[0], "segmented pooling", smi_line,
+                  policies=("none", "dots"), flash=False)
+    evaluate_once(torch, trainer, steps[0][0], "train_pooling", pmodel.lm_config.vocab_size)
+    del trainer, adapter, pparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, calls
+
+
+def phase_efficientnet(torch, lm_params, lm_cfg, device, rng, smi_line):
+    """16b, ``train_efficientnet``: EfficientNet-b0 (seeded random init),
+    the linear projection (1280 wide) and phase 8's SmolLM-135M, on melspec
+    batches of the train command line's adaptive collator from seeded
+    utterances of 28-35 s with no n_words crop, so every LM row reaches the
+    flash gate: 3 steps of 2 microbatches of 2 utterances with the encoder
+    trained (the causal flash kernels through the bf16 entries; the stem's
+    BN running mean the EMA of its 6 folds); one more
+    step with it frozen, which moves the BN running statistics and nothing
+    else of the encoder; an f32 step through the kernel and plain routes;
+    evaluate with generation (eval-mode BN). Returns the 3 steps' launches
+    by wrapper and by C entry."""
+    from aat_tpu_torch.models.aslm import AslmConfig, AslmModel, init_aslm_params
+    from aat_tpu_torch.models.efficientnet import (
+        BN_MOMENTUM, EfficientNetConfig, init_efficientnet_params,
+    )
+    from aat_tpu_torch.ops import attention
+    from aat_tpu_torch.scripts import train
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.checkpoint import flatten
+    from aat_tpu_torch.training.config import projection_training_config
+    from aat_tpu_torch.training.trainer import AATTrainerSegmentation
+
+    aslm_cfg = AslmConfig(projection_type="linear", audio_encoder_hidden=1280,
+                          lm_hidden=lm_cfg.hidden_size)
+    emodel = AslmModel(aslm_cfg, EfficientNetConfig(), lm_cfg, audio_encoder_type="efficient_net")
+    eparams = {"audio_encoder": init_efficientnet_params(0, device),
+               "adapter": init_aslm_params((0, 17), aslm_cfg, device), "lm_decoder": lm_params}
+    cfg = dataclasses.replace(projection_training_config(), audio_encoder_type="efficient_net",
+                              segmentation="adaptive", n_words=None,
+                              per_device_train_batch_size=2, gradient_accumulation_steps=2)
+    items = cli_items(rng, EFFNET_SECONDS, "effnet")
+    tokenizer = CliWords({w for it in items for w in it["words"]})
+    collate, _ = train.make_collator(cfg, tokenizer)
+    start = time.perf_counter()
+    steps = [[collate(items[4 * s + 2 * m: 4 * s + 2 * m + 2]) for m in range(2)]
+             for s in range(3)]
+    collate_s = time.perf_counter() - start
+    rows = [2 + b["batched_segments_melspectrograms"].shape[1] + b["input_ids"].shape[1]
+            for micro in steps for b in micro]
+    shapes = [tuple(b["batched_segments_melspectrograms"].shape) for micro in steps for b in micro]
+    print(f"efficientnet: melspec batches {shapes} from the train command line's adaptive "
+          f"collator ({collate_s:.2f} s); LM rows T {rows} (flash gate "
+          f"{attention.MIN_PALLAS_SEQ_LEN})", flush=True)
+    check(min(rows) >= attention.MIN_PALLAS_SEQ_LEN, f"LM rows {rows} below the flash gate")
+
+    encoder = eparams["audio_encoder"]
+    stem_bn = encoder["stem"]["bn"]
+    mean0 = stem_bn["mean"].clone()
+    lm_before = [x.clone() for x in optim.tree_leaves(lm_params)]
+    watched = {"audio_encoder/blocks/5/dw_conv/kernel": encoder["blocks"][5]["dw_conv"]["kernel"],
+               "adapter/projection/in/kernel": eparams["adapter"]["projection"]["in"]["kernel"]}
+    before = {k: v.clone() for k, v in watched.items()}
+    trainer = AATTrainerSegmentation(emodel, eparams, cfg)
+    folded = []  # each microbatch's stem statistics, in the order they fold
+    fold = trainer._fold_bn_stats
+
+    def record(stats_seq):
+        folded.extend(s["stem"]["bn"]["mean"].clone() for s in stats_seq)
+        return fold(stats_seq)
+
+    trainer._fold_bn_stats = record
+    losses, walls, launches, calls, metrics = run_steps(torch, trainer, steps)
+    trainer._fold_bn_stats = fold
+    shift = float((stem_bn["mean"] - mean0).abs().max())
+    # the running mean, folded again here from the recorded statistics
+    ema = mean0.clone()
+    for batch_mean in folded:
+        ema = (1.0 - BN_MOMENTUM) * ema + BN_MOMENTUM * batch_mean
+    ema_err = float((ema - stem_bn["mean"]).abs().max())
+    # k EMAs move a running value by at most 1 - (1 - m)^k of its distance
+    # to the farthest batch value
+    reach = (1.0 - (1.0 - BN_MOMENTUM) ** len(folded)) * max(
+        float((b - mean0).abs().max()) for b in folded)
+    print(f"train_efficientnet ({smi_line}): 3 steps x 2 microbatches x 2 utterances, encoder "
+          f"trained, bf16, losses {[round(x, 5) for x in losses]}, step walls "
+          f"{[round(x, 3) for x in walls]} s (warm {walls[-1]:.3f} s), stem BN running mean "
+          f"moved by {shift:.3e} ({len(folded)} folds, at most {reach:.3e}; the recorded "
+          f"statistics folded again differ by {ema_err:.3e}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {launches}", flush=True)
+    check(all(np.isfinite(losses)), f"non-finite EfficientNet losses {losses}")
+    check(metrics["train/skipped_nonfinite_total"] == 0.0, "an EfficientNet update was dropped")
+    check(all(torch.equal(a, b) for a, b in zip(lm_before, optim.tree_leaves(lm_params))),
+          "a frozen LM weight changed under EfficientNet")
+    for name, old in before.items():
+        check(not torch.equal(old, watched[name]), f"trained weight {name} did not move")
+    # two EMAs of momentum 0.01 a step, in microbatch order
+    check(len(folded) == 6 and 0.0 < shift <= reach * (1 + 1e-6),
+          f"the stem BN running mean moved by {shift} in {len(folded)} folds (reach {reach})")
+    check(ema_err <= 1e-6 * max(1.0, float(ema.abs().max())),
+          f"the stem BN running mean is not the EMA of its folds ({ema_err})")
+    for name in ("flash_fwd_causal", "flash_bwd_causal"):
+        check(launches[name] > 0, f"EfficientNet training never launched {name}")
+    flash_entry_calls(calls, "train_efficientnet", "bfloat16")
+    del lm_before, before
+
+    # the fold moves the running statistics and nothing else: one more step
+    # with the encoder frozen leaves every other encoder leaf bit for bit
+    held = {k: v.clone() for k, v in flatten(encoder).items()}
+    frozen = AATTrainerSegmentation(emodel, eparams,
+                                    dataclasses.replace(cfg, train_audio_encoder=False))
+    frozen.training_step(steps[0])
+    stats = {k for k in held if k.endswith((".mean", ".var"))}
+    moved = {k for k, v in flatten(encoder).items() if not torch.equal(v, held[k])}
+    print(f"efficientnet, one step with the encoder frozen: {len(moved)} of {len(held)} encoder "
+          f"tensors moved, all of them among the {len(stats)} BN running statistics", flush=True)
+    check(moved and moved <= stats, f"frozen encoder: {sorted(moved - stats)[:5]} moved")
+    del frozen, held
+
+    plain = AslmModel(aslm_cfg, EfficientNetConfig(),
+                      dataclasses.replace(lm_cfg, attention_impl="xla"),
+                      audio_encoder_type="efficient_net")
+    reset_entry_calls()
+    kernel_launches = f32_routes(torch, emodel, plain, eparams, cfg, steps[0][0],
+                                 "train_efficientnet")
+    check(kernel_launches["flash_fwd_causal"] > 0 and kernel_launches["flash_bwd_causal"] > 0,
+          "the f32 kernel route never launched the causal flash kernels")
+    evaluate_once(torch, trainer, steps[0][0], "train_efficientnet", lm_cfg.vocab_size)
+    del trainer, eparams, encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, calls
+
+
+def phase_projection_cli(torch, device, rng, smi_line, tmp):
+    """16c, in phase 13's directory: ``python -m aat_tpu_torch.scripts.train
+    --audio-encoder-type efficient_net --projection-type transformer_encoder
+    --segmentation adaptive`` with SmolLM read from its seeded directory
+    and EfficientNet's random init after JAX's warning, 1 epoch of 2 steps;
+    ``scripts.validate`` on its export; the export's ``config.json`` read
+    back by ``load_pretrained``, its params bit for bit. Returns the run's
+    launches by wrapper and by C entry."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+
+    from aat_tpu_torch.models.aslm import PoolingConfig
+    from aat_tpu_torch.models.build import load_pretrained
+    from aat_tpu_torch.models.efficientnet import EfficientNetConfig
+    from aat_tpu_torch.scripts import train, validate
+    from aat_tpu_torch.training.checkpoint import flatten
+
+    lm_dir = os.path.join(tmp, "smollm-135m")
+    items = cli_items(rng, PROJECTION_CLI_SECONDS, "projections")
+    valid = cli_items(rng, PROJECTION_CLI_SECONDS[:2], "projections-valid")
+    tokenizer = CliWords({w for it in items + valid for w in it["words"]})
+    splits = {"train": items, "valid": valid}
+    seams = {(mod, "load_hf_dataset"): lambda name, split=None: splits[split]
+             for mod in (train, validate)}
+    seams.update({(mod, "build_tokenizer"): lambda config: tokenizer for mod in (train, validate)})
+    real = {key: getattr(*key) for key in seams}
+    warnings = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    catch = Catch(logging.WARNING)
+    logger = logging.getLogger("aat_tpu_torch.models.efficientnet")
+    out_dir = os.path.join(tmp, "proj")
+    wrappers = kernel_wrappers()
+    try:
+        for key, fn in seams.items():
+            setattr(*key, fn)
+        logger.addHandler(catch)
+        for w in wrappers.values():
+            w.launches = 0
+        calls = reset_entry_calls()
+        start = time.perf_counter()
+        trainer = train.main(["--pretrained", "--lm-pretrained-model", lm_dir,
+                              "--audio-encoder-type", "efficient_net",
+                              "--projection-type", "transformer_encoder",
+                              "--segmentation", "adaptive", "--per-device-train-batch-size", "2",
+                              "--gradient-accumulation-steps", "1", "--num-train-epochs", "1",
+                              "--eval-steps", "0", "--save-steps", "0", "--logging-steps", "1",
+                              "--no-load-best-model-at-end", "--output-dir", out_dir],
+                             device=device)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - start
+        launches = {n: w.launches for n, w in wrappers.items()}
+        calls = dict(calls)
+        run_dir = f"{out_dir}_1_transformer_encoder_adaptive"
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            losses = [m["train/loss"] for m in map(json.loads, f) if "train/loss" in m]
+        print(f"cli train --audio-encoder-type efficient_net --projection-type "
+              f"transformer_encoder --segmentation adaptive ({smi_line}): wall {train_s:.3f} s; "
+              f"losses {[round(x, 5) for x in losses]}; EfficientNet warnings {warnings}; "
+              f"launches {launches}", flush=True)
+        check(trainer.state.step == 2 and len(losses) == 2 and all(np.isfinite(losses)),
+              f"the projections run: step {trainer.state.step}, losses {losses}")
+        check(any("efficientnet_pytorch unavailable" in w for w in warnings),
+              "no warning before EfficientNet's random init")
+        export = trainer.save_pretrained(os.path.join(tmp, "proj-export"))
+        saved = {name: {k: v.detach().cpu().clone()
+                        for k, v in flatten(trainer.state.params[name]).items()}
+                 for name in ("adapter", "audio_encoder")}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics = validate.main(["--checkpoint", export, "--items", "2", "--batch", "2",
+                                     "--projection-type", "transformer_encoder",
+                                     "--no-pretrained"], device=device)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - start
+        check(np.isfinite(metrics["eval/loss"]) and "wer" in metrics, f"validate: {metrics}")
+    finally:
+        logger.removeHandler(catch)
+        for key, fn in real.items():
+            setattr(*key, fn)
+    model, params = load_pretrained(export, device=device)
+    differ = [f"{name}.{k}" for name, tree in saved.items()
+              for k, v in flatten(params[name]).items() if not torch.equal(v.cpu(), tree[k])]
+    n_saved = sum(len(tree) for tree in saved.values())
+    print(f"cli validate on the export (--no-pretrained, efficient_net from its config.json): "
+          f"wall {val_s:.3f} s, eval/loss {metrics['eval/loss']:.5f}; load_pretrained: "
+          f"audio_encoder_type {model.audio_encoder_type}, "
+          f"{type(model.audio_encoder_config).__name__}, {model.config.pooling}; "
+          f"{n_saved - len(differ)} of {n_saved} saved tensors equal bit for bit", flush=True)
+    check(model.audio_encoder_type == "efficient_net"
+          and isinstance(model.audio_encoder_config, EfficientNetConfig)
+          and isinstance(model.config.pooling, PoolingConfig), "the export read back wrongly")
+    check(not differ, f"the export's params differ on {differ[:5]}")
+    del model, params, saved
+    for done in (run_dir, export):
+        shutil.rmtree(done, ignore_errors=True)
+    return launches, calls
+
+
 def main():
     import torch
 
@@ -3184,14 +3669,22 @@ def main():
         torch, model, params, rng, smi_line)
     # 15. remat of the whole-utterance step, Adafactor and the unfused chain
     pieces = phase_trainer_pieces(torch, model, params, rng, smi_line)
+    # 16. the transformer_encoder projection and EfficientNet-b0 on the same
+    # encoder and LM (a generator of its own: the later phases draw as before)
+    start = time.perf_counter()
+    rng16 = np.random.default_rng(16)
+    pieces["train_pooling"] = phase_pooling(torch, model, params, rng16, smi_line)
+    pieces["train_efficientnet"] = phase_efficientnet(
+        torch, params["lm_decoder"], model.lm_config, device, rng16, smi_line)
+    print(f"phase 16a-b wall {time.perf_counter() - start:.1f} s", flush=True)
     del model, params  # SmolLM and its encoder leave the card before Qwen comes
     gc.collect()
     torch.cuda.empty_cache()
     # 13. the command lines at full width: the readers, train (and resume),
     # validate and serve
     (cli_launches, cli_calls, cli_prefix_launches, cli_prefix_calls, serve_cli_launches,
-     serve_cli_calls, pieces["dataset"], pieces["train_unfreeze_cli"]) = phase_cli(
-        torch, device, rng, smi_line)
+     serve_cli_calls, pieces["dataset"], pieces["train_unfreeze_cli"],
+     pieces["train_projections_cli"]) = phase_cli(torch, device, rng, smi_line)
     gc.collect()
     torch.cuda.empty_cache()
 

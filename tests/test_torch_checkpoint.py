@@ -201,6 +201,7 @@ def test_save_pretrained_filters_frozen_submodules(tmp_path, monkeypatch):
     want = json.loads(json.dumps(jbuild.model_config_dict(
         jmodel, JConfig(), ["adapter", "audio_encoder"])))
     assert set(desc) == set(want)
+    assert desc["aslm"] == want["aslm"]  # pooling and dropout too, in both directions
     for key, value in desc.items():
         if isinstance(value, dict):
             for field, v in value.items():
@@ -225,6 +226,89 @@ def test_save_pretrained_filters_frozen_submodules(tmp_path, monkeypatch):
     small = make_trainer(tmp_path, "small").save_pretrained(str(tmp_path / "small-export"))
     with pytest.raises(ValueError, match="saved shape"):
         tbuild.build_model(cfg, pretrained=False, from_pretrained_adapter=small, device="cpu")
+
+
+@pytest.mark.parametrize("run", ["efficient_net", "transformer_encoder"])
+def test_export_of_the_new_paths_loads_back(tmp_path, monkeypatch, run):
+    """An EfficientNet run's export (``build_model``) and a pooling run's
+    (tiny ``PoolingConfig``): ``config.json`` equals JAX's
+    ``model_config_dict`` of the same model (an EfficientNet ``AslmModel``
+    built with ``audio_encoder_type="efficient_net"``), and
+    ``load_pretrained`` gives back the encoder type, the configs and the
+    saved params bit for bit."""
+    from aat_tpu.models import aslm as jaslm
+    from aat_tpu.models import efficientnet as jeff
+    from aat_tpu.models import hubert as jhub
+    from aat_tpu.models import llama as jllm
+    from aat_tpu_torch.models import aslm as taslm
+    from aat_tpu_torch.models import efficientnet as teff
+
+    tiny_build(monkeypatch)
+    kw = dict(TRAIN, gradient_accumulation_steps=1, output_dir=str(tmp_path))
+    if run == "efficient_net":
+        cfg = TConfig(**kw, audio_encoder_type="efficient_net")
+        model, params = tbuild.build_model(cfg, pretrained=False, seed=4, device="cpu")
+        jmodel = jaslm.AslmModel(
+            jaslm.AslmConfig(audio_encoder_hidden=1280, lm_hidden=32),
+            jeff.EfficientNetConfig(), jllm.tiny_test_config(),
+            audio_encoder_type="efficient_net")
+        jcfg = JConfig(**kw, audio_encoder_type="efficient_net")
+    else:
+        pool = dict(hidden_dim=16, num_heads=2, num_layers=1, ffn_dim=24, max_positions=32)
+        model = taslm.AslmModel(
+            taslm.AslmConfig(projection_type="transformer_encoder", audio_encoder_hidden=32,
+                             lm_hidden=32, pooling=taslm.PoolingConfig(**pool)),
+            thub.tiny_test_config(), tllm.tiny_test_config())
+        params = model.init_params(4)
+        jmodel = jaslm.AslmModel(
+            jaslm.AslmConfig(projection_type="transformer_encoder", audio_encoder_hidden=32,
+                             lm_hidden=32, pooling=jaslm.PoolingConfig(**pool)),
+            jhub.tiny_test_config(), jllm.tiny_test_config())
+        cfg, jcfg = TConfig(**kw), JConfig(**kw)
+    t = TTrainer(model, params, cfg)
+    path = t.save_pretrained(str(tmp_path / "export"))
+    with open(os.path.join(path, "config.json")) as f:
+        desc = json.load(f)
+    want = json.loads(json.dumps(jbuild.model_config_dict(
+        jmodel, jcfg, ["adapter", "audio_encoder"])))
+    assert set(desc) == set(want)
+    for key in ("aslm", "audio_encoder_type", "saved_subtrees", "audio_encoder_checkpoint"):
+        assert desc[key] == want[key], key
+    if run == "efficient_net":
+        assert desc["audio_encoder_config"] == want["audio_encoder_config"]
+    for field, v in desc["lm_config"].items():
+        assert want["lm_config"][field] == v, field
+
+    loaded, got = tbuild.load_pretrained(path, device="cpu")
+    assert loaded.audio_encoder_type == ("efficient_net" if run == "efficient_net" else "hubert")
+    assert isinstance(loaded.audio_encoder_config,
+                      teff.EfficientNetConfig if run == "efficient_net" else thub.HubertConfig)
+    assert isinstance(loaded.config.pooling, taslm.PoolingConfig)
+    assert loaded.config == model.config
+    for name in ("adapter", "audio_encoder"):
+        for k, v in ckpt.flatten(params[name]).items():
+            assert torch.equal(ckpt.flatten(got[name])[k], v), k
+
+
+def test_jax_build_model_records_hubert_for_an_efficientnet_run(monkeypatch):
+    """The reference's defect, as it is: JAX's ``build_model`` builds the
+    ``AslmModel`` without ``audio_encoder_type``, so an EfficientNet run's
+    ``model_config_dict`` says ``"hubert"`` beside an ``EfficientNetConfig``
+    (and JAX's ``load_pretrained`` would then build a HubertConfig from
+    it). The port's ``build_model`` records ``"efficient_net"``."""
+    from aat_tpu.models import efficientnet as jeff
+
+    tiny_build(monkeypatch)
+    kw = dict(TRAIN, audio_encoder_type="efficient_net")
+    jmodel, _ = jbuild.build_model(JConfig(**kw), pretrained=False, seed=0)
+    assert isinstance(jmodel.audio_encoder_config, jeff.EfficientNetConfig)
+    assert jmodel.audio_encoder_type == "hubert"
+    assert jbuild.model_config_dict(jmodel, JConfig(**kw), ["adapter"])[
+        "audio_encoder_type"] == "hubert"
+    tmodel, _ = tbuild.build_model(TConfig(**kw), pretrained=False, seed=0, device="cpu")
+    assert tmodel.audio_encoder_type == "efficient_net"
+    assert tbuild.model_config_dict(tmodel, TConfig(**kw), ["adapter"])[
+        "audio_encoder_type"] == "efficient_net"
 
 
 def test_load_best_model_at_end(tmp_path):

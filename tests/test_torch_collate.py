@@ -35,10 +35,10 @@ def corpus(seed, durations, n_words=12):
     return [make_item(rng, d, n_words=n_words) for d in durations]
 
 
-def both(segmentation, **kw):
+def both(segmentation, encoder="hubert", **kw):
     """(JAX collator, port collator) with the same settings."""
     make = lambda mod, tok: mod.TokenizedAudioWaveformCollator(  # noqa: E731
-        audio_encoder_type="hubert", segmentation=segmentation,
+        audio_encoder_type=encoder, segmentation=segmentation,
         audio_tokenizer=tok.create(max_segment_duration_milliseconds=250),
         tokenizer=WordTokenizer(), uniform_segmentation_frames_per_segment=4000, **kw)
     return make(jcollate, JTok), make(tcollate, TTok)
@@ -66,6 +66,25 @@ def test_collator_batches_equal_jax(case):
         assert_batches_equal(got, want)
     if "n_words" in kw:  # the crop happened: fewer words than the item has
         assert got["attention_mask"][0].sum() < n_words
+
+
+@pytest.mark.parametrize("case", ["uniform", "adaptive-n_words-noise", "adaptive-unbucketed"])
+def test_efficient_net_collator_batches_equal_jax(case):
+    """The ``efficient_net`` branch: each segment's host melspec frames in
+    ``[bs, segments, 64, 1 + 4000 // 160]``, zero-padded, and no waveform
+    segments (``None``), element for element equal to JAX's."""
+    segmentation, kw, durations, n_words = CASES[case]
+    items = corpus(14, durations, n_words)
+    jc, tc = both(segmentation, encoder="efficient_net", **kw)
+    for is_validation in (False, True, False):
+        want = jc(items, is_validation=is_validation)
+        got = tc(items, is_validation=is_validation)
+        assert_batches_equal(got, want)
+    mels = got["batched_segments_melspectrograms"]
+    assert mels.shape[0] == len(items) and mels.shape[2:] == (64, 26)
+    assert got["batched_segments"] is None and got["segments_waveforms_mask"] is None
+    pad = got["segments_boarders_attention_mask"] == 0
+    assert pad.any() and not mels[pad].any()  # padded slots stay zero
 
 
 @pytest.mark.parametrize("segmentation", ["uniform", "adaptive"])
@@ -136,8 +155,8 @@ def test_assemble_segments_equals_jax_native_and_numpy_routes(monkeypatch):
 
 
 def test_rejects_what_is_not_ported_or_wrong():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcollate.TokenizedAudioWaveformCollator("efficient_net", "uniform", TTok(),
+    with pytest.raises(ValueError, match="uniform or adaptive"):
+        tcollate.TokenizedAudioWaveformCollator("efficient_net", "none", TTok(),
                                                 WordTokenizer())
     _, tc = both("uniform")
     item = corpus(1, (1.0,))[0]

@@ -121,3 +121,18 @@ def test_flops_equal_jax_on_flagship_configs(lm):
     total = want["total"]
     assert tflops.mfu(total, 0.5) == jflops.mfu(total, 0.5, peak=989e12) == total / 0.5 / 989e12
     assert tflops.H100_BF16_PEAK == 989e12
+
+
+def test_flops_equal_jax_on_the_pooling_projection():
+    """The transformer_encoder projection's count (the default
+    ``PoolingConfig``: the port's ``AslmConfig`` carries it now) on
+    hubert-large and SmolLM-135M, segmented as phase 16a runs it."""
+    jcfg = jaslm.AslmConfig(projection_type="transformer_encoder", lm_hidden=576)
+    tcfg = taslm.AslmConfig(projection_type="transformer_encoder", lm_hidden=576)
+    assert tflops.projection_flops(tcfg, 128, 12) == jflops.projection_flops(jcfg, 128, 12)
+    for flags in ((True, False), (False, False)):
+        want = jflops.aslm_train_step_flops(jhub.hubert_large_config(), jllm.smollm_135m_config(),
+                                            jcfg, 2, 64, 4000, 48, *flags)
+        got = tflops.aslm_train_step_flops(thub.hubert_large_config(), tllm.smollm_135m_config(),
+                                           tcfg, 2, 64, 4000, 48, *flags)
+        assert got == want and got["projection_fwd"] > 0

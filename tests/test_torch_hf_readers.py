@@ -33,7 +33,7 @@ from aat_tpu_torch.runtime.device import resolve_device
 from aat_tpu_torch.training.checkpoint import flatten
 from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.utils import port as tport
-from aat_tpu_torch.utils.port import hubert_from_jax, to_tensors
+from aat_tpu_torch.utils.port import encoder_from_jax, to_tensors
 from tests.test_aslm import TorchPoolingOracle
 
 # full-precision torch kernels for the HF oracle (this host's oneDNN build
@@ -131,7 +131,7 @@ def test_hubert_reader_equals_jax(tmp_path, case):
     tparams, tcfg = tbuild.build_audio_encoder(
         TConfig(audio_encoder_type=enc_type, audio_encoder_checkpoint=path), pretrained=True,
         device="cpu")
-    assert_trees(tparams, hubert_from_jax(jax.device_get(jparams)), inexact=("pos_conv.kernel",))
+    assert_trees(tparams, encoder_from_jax(jax.device_get(jparams)), inexact=("pos_conv.kernel",))
     # build_audio_encoder asks for the flash route; the reader's config is JAX's
     assert tcfg.attention_impl == "pallas"
     assert_same_fields(tcfg, jcfg, skip=("attention_impl",))

@@ -15,7 +15,7 @@ import aat_tpu.ops.attention as jatt
 import aat_tpu_torch.ops.attention as tatt
 from aat_tpu.models import hubert as jhub
 from aat_tpu_torch.models import hubert as thub
-from aat_tpu_torch.utils.port import hubert_from_jax
+from aat_tpu_torch.utils.port import encoder_from_jax
 
 LAYOUTS = {
     "large": {},  # pre-LN, layer-norm conv stack (the tiny config's defaults)
@@ -41,7 +41,7 @@ def inputs(seed, b=3, length=1600):
 def encode_both(layout, attention_impl, seed):
     jcfg, tcfg = configs(layout, attention_impl)
     jparams = jhub.init_hubert_params(seed, jcfg)
-    tparams = hubert_from_jax(jparams)
+    tparams = encoder_from_jax(jparams)
     wave, mask = inputs(seed)
     want, want_mask = jhub.hubert_encode(jparams, jcfg, jnp.asarray(wave), jnp.asarray(mask))
     got, got_mask = thub.hubert_encode(tparams, tcfg, torch.from_numpy(wave),
@@ -73,7 +73,7 @@ def test_feature_lengths_match_jax():
 
 
 def encode_port(cfg, seed=None, layers=None):
-    tparams = hubert_from_jax(jhub.init_hubert_params(4, configs("large")[0]))
+    tparams = encoder_from_jax(jhub.init_hubert_params(4, configs("large")[0]))
     wave, mask = inputs(4)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_hidden_layers=layers)

@@ -121,10 +121,16 @@ def test_prng_key_inits_equal_jax(key):
 
 
 def assert_same_fields(port_cfg, jax_cfg):
-    """Every field of the port's config equals JAX's (JAX has more: remat,
-    pipeline and pooling fields the port does not carry)."""
+    """Every field of the port's config equals JAX's (JAX has more: the
+    pipeline fields the port does not carry); a nested config (the
+    ``PoolingConfig`` of ``AslmConfig``) field by field."""
     for field in dataclasses.fields(port_cfg):
-        assert getattr(port_cfg, field.name) == getattr(jax_cfg, field.name), field.name
+        value = getattr(port_cfg, field.name)
+        if dataclasses.is_dataclass(value):
+            assert dataclasses.asdict(value) == dataclasses.asdict(
+                getattr(jax_cfg, field.name)), field.name
+        else:
+            assert value == getattr(jax_cfg, field.name), field.name
 
 
 @pytest.mark.parametrize("lm", ["HuggingFaceTB/SmolLM-135M-Instruct", "Qwen/Qwen1.5-1.8B"])

@@ -3,7 +3,9 @@
 parameter gradient equal no remat's bit for bit on the CPU (dropout and
 LayerDrop on: the seeded masks are redrawn exactly in the recompute), each
 layer's forward runs again in the backward and not without autograd,
-``"dots"`` re-runs no matrix product, and 3 trainer steps with either
+``"dots"`` re-runs no product without batch dimensions (``mm``/``addmm``)
+and every layer's attention ``bmm`` (JAX's
+``dots_with_no_batch_dims_saveable``), and 3 trainer steps with either
 policy match JAX's remat trainer within the trajectory tolerance
 (``tests/test_training.py:265``)."""
 
@@ -64,20 +66,22 @@ def test_remat_value_and_gradients_equal_no_remat(monkeypatch, policy):
 class CountOps(TorchDispatchMode):
     def __init__(self, names):
         super().__init__()
-        self.names, self.count = names, 0
+        self.count = dict.fromkeys(names, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.count += func.__name__.split(".")[0] in self.names
+        name = func.__name__.split(".")[0]
+        if name in self.count:
+            self.count[name] += 1
         return func(*args, **(kwargs or {}))
 
 
 def backward_products(cfg, wav):
-    """(layer forwards run, matrix products run in the backward) of one
-    encoder forward and backward."""
+    """The matrix products run in the backward of one encoder forward, by
+    op: ``{"mm": n, "addmm": n, "bmm": n}``."""
     params = thub.init_hubert_params(0, cfg)
     leaves = toptim.tree_map(lambda x: x.detach().requires_grad_(True), params)
     out, _ = thub.hubert_encode(leaves, cfg, wav)
-    mms = CountOps({"mm", "addmm", "bmm"})
+    mms = CountOps(("mm", "addmm", "bmm"))
     with mms:
         out.sum().backward()
     return mms.count
@@ -106,12 +110,16 @@ def test_remat_recomputes_layers_in_the_backward_only(monkeypatch, policy):
     calls["n"] = 0
     plain_products = backward_products(plain, wav)
     assert calls["n"] == cfg.num_hidden_layers
-    # "dots" keeps every product's output: the backward runs no more
-    # products than without remat; "full" runs the layers' again
+    # "dots" keeps the products without batch dimensions (the projections
+    # and the feed-forward: mm/addmm) and recomputes each layer's two
+    # attention bmms (QK^T, P.V); "full" re-runs both kinds
+    dense = ("mm", "addmm")
     if policy == "dots":
-        assert products == plain_products
+        assert all(products[op] == plain_products[op] for op in dense)
+        assert products["bmm"] == plain_products["bmm"] + 2 * cfg.num_hidden_layers
     else:
-        assert products > plain_products
+        assert sum(products[op] for op in dense) > sum(plain_products[op] for op in dense)
+        assert products["bmm"] == plain_products["bmm"] + 2 * cfg.num_hidden_layers
 
 
 def test_build_applies_remat(monkeypatch):
