@@ -18,6 +18,8 @@ from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from aat_tpu_torch.parallel.distributed import world
+
 logger = logging.getLogger(__name__)
 
 
@@ -171,14 +173,28 @@ def build_dataloaders(
     few_train_samples: Optional[int] = None,
     few_val_samples: Optional[int] = None,
     seed: int = 42,
-    shard_index: int = 0,
-    num_shards: int = 1,
+    shard_index: Optional[int] = None,
+    num_shards: Optional[int] = None,
     bucket_by_duration: bool = False,
     bucket_pool_batches: int = 50,
+    mesh=None,
 ):
-    """Train and validation iterators. The port runs on one device, so one
-    shard unless the caller says otherwise (multi-device is ROADMAP Queue 1
-    item 8)."""
+    """Train and validation iterators. The shards default to ``mesh``'s data
+    rank and data world (a :class:`~aat_tpu_torch.parallel.mesh.Mesh`: tp
+    and sp peers read the same rows), as JAX's default to the process
+    topology, and to one shard in a one-process run. In a group of several
+    ranks the caller passes the mesh or the shards: the world rank is not
+    the data rank under tp or sp."""
+    if shard_index is None or num_shards is None:
+        if mesh is not None:
+            rank, size = mesh.data_rank, mesh.data_world
+        elif world()[1] > 1:
+            raise ValueError("build_dataloaders in a group of several ranks needs mesh= "
+                             "or shard_index / num_shards")
+        else:
+            rank, size = 0, 1
+        shard_index = rank if shard_index is None else shard_index
+        num_shards = size if num_shards is None else num_shards
     if few_train_samples is not None:
         train_items = train_items[:few_train_samples]
     if few_val_samples is not None:

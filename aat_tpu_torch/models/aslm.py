@@ -18,6 +18,13 @@ The audio encoder is HuBERT / wav2vec2 on segment waveforms
   (:func:`pooling_forward`). Its dropout seeds derive from the
   projection's seed with :func:`~aat_tpu_torch.ops.dropout.fold_seed`
   (``(layer, site)``), where JAX splits a key.
+
+``AslmModel.mesh`` is the trainer's mesh (:mod:`aat_tpu_torch.parallel`),
+or None: the model passes it to the encoder and the LM (their tensor- and
+sequence-parallel routes, EfficientNet's global-batch statistics), and
+keys the projection's masks on the rows' global positions
+(:class:`~aat_tpu_torch.ops.dropout.ElementShard`), so data parallelism
+draws one device's masks.
 """
 
 from __future__ import annotations
@@ -125,7 +132,7 @@ def _dense(x, p):
 
 
 def _pooling_mha(p, x, key_padding, num_heads: int, seed: Optional[int] = None,
-                 rate: float = 0.0):
+                 rate: float = 0.0, shard=None):
     """torch ``nn.MultiheadAttention`` with packed q/k/v, batch first: the
     scores and P·V with float32 accumulation, the key-padding bias
     ``finfo(float32).min``, softmax in float32, the probabilities cast to
@@ -141,19 +148,20 @@ def _pooling_mha(p, x, key_padding, num_heads: int, seed: Optional[int] = None,
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
     bias = torch.where(key_padding[:, None, None, :], torch.finfo(torch.float32).min, 0.0)
     probs = torch.softmax(scores + bias, dim=-1).to(x.dtype)
-    probs = dropout(seed, probs, rate)
+    probs = dropout(seed, probs, rate, shard)
     ctx = torch.matmul(probs.float(), v.float()).to(x.dtype)
     return _dense(ctx.transpose(1, 2).reshape(b, t, d), p["out_proj"])
 
 
 def pooling_forward(params: dict, config: PoolingConfig, inputs_embeds: torch.Tensor,
                     attention_mask: torch.Tensor, dropout_seed: Optional[int] = None,
-                    dropout_rate: float = 0.0) -> torch.Tensor:
+                    dropout_rate: float = 0.0, shard=None) -> torch.Tensor:
     """``l_in`` → + positions → pre-LN transformer layers with the
     key-padding mask → ``l_out`` on the CLS position: ``[N, T, E]`` →
     ``[N, 1, out]``. ``dropout_seed`` selects train mode: the attention
     probabilities, both residual branches and the feed-forward activation,
-    each site seeded ``fold_seed(dropout_seed, layer, site)``."""
+    each site seeded ``fold_seed(dropout_seed, layer, site)``; ``shard``
+    places the rows in the global batch."""
     h = _dense(inputs_embeds, params["l_in"])
     t = h.shape[1]
     max_positions = params["positional_embeddings"]["embedding"].shape[0]
@@ -172,11 +180,11 @@ def pooling_forward(params: dict, config: PoolingConfig, inputs_embeds: torch.Te
                                             for site in range(4))
         attn_in = hub._layer_norm(h, layer["norm1"], 1e-5)
         attn_out = _pooling_mha(layer["attention"], attn_in, key_padding, config.num_heads,
-                                s_attn, dropout_rate)
-        h = h + dropout(s_res1, attn_out, dropout_rate)  # torch .dropout1
+                                s_attn, dropout_rate, shard)
+        h = h + dropout(s_res1, attn_out, dropout_rate, shard)  # torch .dropout1
         y = F.relu(_dense(hub._layer_norm(h, layer["norm2"], 1e-5), layer["linear1"]))
-        y = _dense(dropout(s_ff, y, dropout_rate), layer["linear2"])
-        h = h + dropout(s_res2, y, dropout_rate)  # torch .dropout2
+        y = _dense(dropout(s_ff, y, dropout_rate, shard), layer["linear2"])
+        h = h + dropout(s_res2, y, dropout_rate, shard)  # torch .dropout2
     return _dense(h[:, 0:1, :], params["l_out"])
 
 
@@ -192,6 +200,7 @@ class AslmModel:
         self.audio_encoder_config = audio_encoder_config
         self.lm_config = lm_config
         self.audio_encoder_type = audio_encoder_type
+        self.mesh = None  # the trainer's parallel.mesh.Mesh, which it sets and clears
 
     def init_params(self, seed: int, device=None) -> dict:
         """Int-seed init: encoder from ``seed``, adapter from ``seed + 1``,
@@ -217,7 +226,7 @@ class AslmModel:
         frames of padded segments (``segments_mask`` 0) are masked out."""
         frames, frame_mask = hub.hubert_encode(
             params["audio_encoder"], self.audio_encoder_config, waveforms, waveforms_mask,
-            dropout_seed=dropout_seed)
+            dropout_seed=dropout_seed, mesh=self.mesh)
         if frame_mask is None:
             frame_mask = torch.ones(frames.shape[:2], dtype=torch.bool, device=frames.device)
         if segments_mask is not None:
@@ -236,7 +245,8 @@ class AslmModel:
 
         adapter = EfficientNetAudioEncoderAdapter(self.audio_encoder_config)
         if train:
-            frames, bn_stats = adapter(params["audio_encoder"], melspecs, train=True)
+            frames, bn_stats = adapter(params["audio_encoder"], melspecs, train=True,
+                                       mesh=self.mesh)
         else:
             frames = adapter(params["audio_encoder"], melspecs)
         frame_mask = torch.ones(frames.shape[:2], dtype=torch.bool, device=frames.device)
@@ -260,8 +270,10 @@ class AslmModel:
             with_cls = torch.cat([cls, audio_embeds], dim=1)
             mask_with_cls = torch.cat([torch.ones((n, 1), dtype=frame_mask.dtype,
                                                   device=frame_mask.device), frame_mask], dim=1)
+            shard = self.mesh.element_shard() if self.mesh is not None else None
             projected = pooling_forward(adapter["pooling"], cfg.pooling, with_cls, mask_with_cls,
-                                        dropout_seed=dropout_seed, dropout_rate=cfg.dropout)
+                                        dropout_seed=dropout_seed, dropout_rate=cfg.dropout,
+                                        shard=shard)
             return projected, frame_mask.any(-1, keepdim=True)
         if cfg.projection_type == "linear":
             k = cfg.audio_encoder_embeddings_seq_len
@@ -343,9 +355,9 @@ class AslmModel:
             logits, _ = llm.llama_forward(
                 params["lm_decoder"], self.lm_config, inputs_embeds=packed,
                 attention_mask=mask, positions=positions.expand(b // pack, pack * t),
-                pack_len=t, logit_caption_len=caption_len)
+                pack_len=t, logit_caption_len=caption_len, mesh=self.mesh)
             return logits.reshape(b, out_t or t, logits.shape[-1])
         logits, _ = llm.llama_forward(
             params["lm_decoder"], self.lm_config, inputs_embeds=inputs_embeds,
-            attention_mask=attention_mask, logit_caption_len=caption_len)
+            attention_mask=attention_mask, logit_caption_len=caption_len, mesh=self.mesh)
         return logits

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aat_tpu_torch.parallel import comm
 from aat_tpu_torch.utils.port import encoder_from_jax, to_tensors
 
 logger = logging.getLogger(__name__)
@@ -161,29 +162,35 @@ def _bn(x, p, batch_stats=None):
             + _per_channel(p["bias"]))
 
 
-def _batch_stats(x):
+def _batch_stats(x, mesh=None):
     """Per-channel statistics over (N, H, W) in float32: (mean, biased var)
     at ``x``'s dtype to normalize, and the detached float32 (mean, unbiased
-    var) for the running estimates."""
+    var) for the running estimates. With a mesh they are the global
+    batch's: the sums and the element count are all-reduced over the data
+    ranks (gradients too), as JAX's one global array gives them."""
     xf = x.float()
-    n = x.shape[0] * x.shape[2] * x.shape[3]
-    mean = xf.mean((0, 2, 3))
-    var = (xf - _per_channel(mean)).square().mean((0, 2, 3))
-    unbiased = var * (n / max(n - 1, 1))
+    group = mesh.group("dp", "fsdp") if mesh is not None else None
+    count = torch.full((1,), float(x.shape[0] * x.shape[2] * x.shape[3]), device=x.device)
+    sums = comm.all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), count]), group)
+    n = sums[-1]
+    mean = sums[:-1] / n
+    var = comm.all_reduce_sum((xf - _per_channel(mean)).square().sum((0, 2, 3)), group) / n
+    unbiased = var * (n / torch.clamp_min(n - 1, 1))
     return mean.to(x.dtype), var.to(x.dtype), mean.detach(), unbiased.detach()
 
 
-def efficientnet_features(params: dict, images: torch.Tensor, train: bool = False):
+def efficientnet_features(params: dict, images: torch.Tensor, train: bool = False, mesh=None):
     """``[B, 3, H, W]`` → ``[B, 1280]`` pooled features. ``train=True``
-    normalizes every BN with the batch's statistics and returns
-    ``(features, bn_stats)``, ``bn_stats`` mirroring the BN subtrees with
-    the batch ``{mean, var}`` (var unbiased)."""
+    normalizes every BN with the batch's statistics (over the global batch
+    of ``mesh``'s data ranks) and returns ``(features, bn_stats)``,
+    ``bn_stats`` mirroring the BN subtrees with the batch ``{mean, var}``
+    (var unbiased)."""
     stats: dict = {"stem": {}, "blocks": [], "head": {}}
 
     def bn(x, p, slot, key):
         if not train:
             return _bn(x, p)
-        mean, var, mean32, unbiased = _batch_stats(x)
+        mean, var, mean32, unbiased = _batch_stats(x, mesh)
         slot[key] = {"mean": mean32, "var": unbiased}
         return _bn(x, p, batch_stats=(mean, var))
 
@@ -244,14 +251,15 @@ class EfficientNetAudioEncoderAdapter:
         self.config = config
         self.hidden_size = config.hidden_size
 
-    def __call__(self, params: dict, melspec: torch.Tensor, train: bool = False):
+    def __call__(self, params: dict, melspec: torch.Tensor, train: bool = False, mesh=None):
         """``[bs, 1, n_mels, T]`` (or ``[bs, n_mels, T]``) → ``[bs, 1,
-        1280]``, with the batch BN statistics when ``train``."""
+        1280]``, with the batch BN statistics when ``train`` (over the
+        global batch of ``mesh``'s data ranks)."""
         if melspec.ndim == 3:
             melspec = melspec[:, None, :, :]
         images = melspec.repeat(1, 3, 1, 1)  # [bs, 3, n_mels, T]
         if train:
-            feats, bn_stats = efficientnet_features(params, images, train=True)
+            feats, bn_stats = efficientnet_features(params, images, train=True, mesh=mesh)
             return feats[:, None, :], bn_stats
         return efficientnet_features(params, images)[:, None, :]
 

@@ -34,10 +34,29 @@ Dropout masks come from seeds, so the recompute redraws them exactly, and
 LayerDrop is decided outside the checkpointed layer. Without autograd
 (evaluation, serving) a layer runs once.
 
-Left out (TPU layout devices and multi-device): pipeline/sequence/tensor
-parallelism, the chunked and im2col/space-to-depth conv forms, and the
-pre-pad to the flash block multiple (with dropout on, the pre-pad changes
-the flat positions the JAX masks are keyed on).
+Multi-device (``mesh``, the trainer's :class:`~aat_tpu_torch.parallel.
+mesh.Mesh`, which ``AslmModel`` passes in): under tensor parallelism, where
+:func:`tp_partitionable` holds, each layer is a Megatron body on this
+rank's heads and feed-forward columns (the parameters arrive as shards),
+the out and output products partial, all-reduced, then their bias; the
+attention and activation dropout seeds are salted by the tp index
+(``0x3C6EF35F``, and ``fold_seed`` of the activation seed). That is the
+recipe of JAX's pipeline bodies, the only place JAX applies it: its tp
+without pp runs on global arrays and draws one device's masks, which a
+head shard cannot draw here (the kernels key a head on its index within
+the launch, and the offset to the global index changes with the row).
+Under sequence parallelism the feature extractor and the
+positional conv run whole on every sp rank, the layer stack runs on this
+rank's time slice with Ulysses attention
+(:mod:`aat_tpu_torch.parallel.sequence`), and its output is gathered over
+time before the last layer norm. Every dropout mask is keyed on the
+element's global position (:class:`~aat_tpu_torch.ops.dropout.
+ElementShard`), so data parallelism draws one device's masks.
+
+Left out (TPU layout devices): pipeline parallelism (ROADMAP Queue 1 item
+8b), the chunked and im2col/space-to-depth conv forms, and the pre-pad to
+the flash block multiple (with dropout on, the pre-pad changes the flat
+positions the JAX masks are keyed on).
 """
 
 from __future__ import annotations
@@ -52,8 +71,18 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as torch_checkpoint
 
 from aat_tpu_torch.ops.attention import attention_bthd
-from aat_tpu_torch.ops.dropout import dropout, fold_seed, uniform_from_seed
+from aat_tpu_torch.ops.dropout import (
+    dropout,
+    fold_seed,
+    shift_head_seed,
+    to_int32,
+    uniform_from_seed,
+)
+from aat_tpu_torch.parallel import comm, sequence
 from aat_tpu_torch.utils.port import encoder_from_jax
+
+# the attention seed's salt per tp index (JAX's pipeline bodies, hubert.py:514-519)
+TP_SEED_SALT = 0x3C6EF35F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +112,20 @@ class HubertConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+def tp_partitionable(config: HubertConfig, tp: int) -> bool:
+    """True when the layers' heads and feed-forward hidden split evenly
+    over ``tp`` (the gate of the tensor-parallel body, JAX's predicate)."""
+    return (tp > 1 and config.num_attention_heads % tp == 0
+            and config.intermediate_size % tp == 0)
+
+
+def _tp_group(config: HubertConfig, mesh):
+    """The tp group when the layers run as tensor-parallel bodies, else None."""
+    if mesh is None or not tp_partitionable(config, mesh.size("tp")):
+        return None
+    return mesh.group("tp")
 
 
 def hubert_large_config() -> HubertConfig:
@@ -245,53 +288,83 @@ def _pos_conv_embedding(params, config: HubertConfig, hidden: torch.Tensor) -> t
     return F.gelu(x).transpose(1, 2)
 
 
-def _attention(params, config: HubertConfig, x, frame_mask, dropout_seed=None):
+def _attention(params, config: HubertConfig, x, frame_mask, dropout_seed=None, shard=None,
+               mesh=None):
+    """Self-attention; under tp on this rank's heads (the q/k/v/out
+    parameters are its shards), under sp on its time slice (Ulysses)."""
     b, t, _ = x.shape
     hd = config.head_dim
+    tp_group = _tp_group(config, mesh)
+    x = comm.copy_to_group(x, tp_group)
     nh = params["q"]["kernel"].shape[-1] // hd
     q = _dense(x, params["q"]).reshape(b, t, nh, hd)
     k = _dense(x, params["k"]).reshape(b, t, nh, hd)
     v = _dense(x, params["v"]).reshape(b, t, nh, hd)
     key_mask = (frame_mask.to(torch.int32) if frame_mask is not None
                 else torch.ones((b, t), dtype=torch.int32, device=x.device))
-    ctx = attention_bthd(q, k, v, key_mask, causal=False, sm_scale=hd ** -0.5,
-                         use_kernel=config.attention_impl == "pallas",
-                         dropout_rate=config.attention_dropout, dropout_seed=dropout_seed)
-    return _dense(ctx.reshape(b, t, nh * hd), params["out"])
+    seed = dropout_seed
+    if seed is not None and config.attention_dropout > 0.0:
+        if shard is not None:
+            seed = shift_head_seed(seed, shard.row_block * b, nh)
+        if tp_group is not None:
+            seed = to_int32(seed + mesh.index("tp") * TP_SEED_SALT)
+    kw = dict(sm_scale=hd ** -0.5, use_kernel=config.attention_impl == "pallas",
+              dropout_rate=config.attention_dropout, dropout_seed=seed)
+    if mesh is not None and mesh.size("sp") > 1:
+        ctx = sequence.ulysses_attention_bthd(q, k, v, key_mask, mesh, **kw)
+    else:
+        ctx = attention_bthd(q, k, v, key_mask, causal=False, **kw)
+    return _dense_row_parallel(ctx.reshape(b, t, nh * hd), params["out"], tp_group)
 
 
-def _feed_forward(params, x, config: HubertConfig, dropout_seed=None):
-    y = F.gelu(_dense(x, params["intermediate"]))
+def _dense_row_parallel(x, p, tp_group):
+    """``_dense`` whose kernel's input rows may be this rank's tp shard:
+    the partial products all-reduced over ``tp_group``, then the bias once."""
+    y = comm.reduce_from_group(torch.matmul(x, p["kernel"].to(x.dtype)), tp_group)
+    return y + p["bias"]
+
+
+def _feed_forward(params, x, config: HubertConfig, dropout_seed=None, shard=None, mesh=None):
+    tp_group = _tp_group(config, mesh)
+    y = F.gelu(_dense(comm.copy_to_group(x, tp_group), params["intermediate"]))
     if dropout_seed is None:
-        return _dense(y, params["output"])
+        return _dense_row_parallel(y, params["output"], tp_group)
     # HF HubertFeedForward: intermediate_dropout (activation_dropout), then
-    # output_dropout (hidden_dropout)
-    y = dropout(fold_seed(dropout_seed, 0), y, config.activation_dropout)
-    return dropout(fold_seed(dropout_seed, 1), _dense(y, params["output"]),
-                   config.hidden_dropout)
+    # output_dropout (hidden_dropout). Under tp the activation is this
+    # rank's columns, so its seed is salted by the tp index; the output is
+    # replicated and keeps one mask.
+    s_act = fold_seed(dropout_seed, 0)
+    if tp_group is not None:
+        s_act = fold_seed(s_act, mesh.index("tp"))
+    y = dropout(s_act, y, config.activation_dropout, shard)
+    return dropout(fold_seed(dropout_seed, 1), _dense_row_parallel(y, params["output"], tp_group),
+                   config.hidden_dropout, shard)
 
 
 _HIDDEN_SITE = 1 << 16  # encoder seed site of the post-positional-conv dropout
 _LAYERDROP_SITE = 1 << 20  # layer seed site of the LayerDrop draw
 
 
-def _layer(layer, config: HubertConfig, hidden, frame_mask, seed):
+def _layer(layer, config: HubertConfig, hidden, frame_mask, seed, shard=None, mesh=None):
     """One encoder layer; ``seed`` (or None) is the layer's dropout seed,
-    split into attention (0), attention-residual (1) and feed-forward (2)."""
+    split into attention (0), attention-residual (1) and feed-forward (2);
+    ``shard`` places ``hidden`` in the global batch for the masks."""
     eps = config.layer_norm_eps
     s_attn = s_res = s_ff = None
     if seed is not None:
         s_attn, s_res, s_ff = (fold_seed(seed, i) for i in range(3))
     if config.do_stable_layer_norm:  # pre-LN (large)
         attn_in = _layer_norm(hidden, layer["layer_norm"], eps)
-        attn_out = _attention(layer["attention"], config, attn_in, frame_mask, s_attn)
-        hidden = hidden + dropout(s_res, attn_out, config.hidden_dropout)
+        attn_out = _attention(layer["attention"], config, attn_in, frame_mask, s_attn, shard,
+                              mesh)
+        hidden = hidden + dropout(s_res, attn_out, config.hidden_dropout, shard)
         ff_in = _layer_norm(hidden, layer["final_layer_norm"], eps)
-        return hidden + _feed_forward(layer["feed_forward"], ff_in, config, s_ff)
-    attn_out = _attention(layer["attention"], config, hidden, frame_mask, s_attn)  # post-LN
-    hidden = _layer_norm(hidden + dropout(s_res, attn_out, config.hidden_dropout),
+        return hidden + _feed_forward(layer["feed_forward"], ff_in, config, s_ff, shard, mesh)
+    attn_out = _attention(layer["attention"], config, hidden, frame_mask, s_attn, shard,
+                          mesh)  # post-LN
+    hidden = _layer_norm(hidden + dropout(s_res, attn_out, config.hidden_dropout, shard),
                          layer["layer_norm"], eps)
-    hidden = hidden + _feed_forward(layer["feed_forward"], hidden, config, s_ff)
+    hidden = hidden + _feed_forward(layer["feed_forward"], hidden, config, s_ff, shard, mesh)
     return _layer_norm(hidden, layer["final_layer_norm"], eps)
 
 
@@ -308,41 +381,54 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _run_layer(layer, config: HubertConfig, hidden, frame_mask, seed):
+def _run_layer(layer, config: HubertConfig, hidden, frame_mask, seed, shard=None, mesh=None):
     """One encoder layer, checkpointed when ``config.remat`` and autograd
     is recording."""
     if not (config.remat and torch.is_grad_enabled()):
-        return _layer(layer, config, hidden, frame_mask, seed)
+        return _layer(layer, config, hidden, frame_mask, seed, shard, mesh)
     kw = {}
     if config.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
     # the layer draws no torch RNG (dropout hashes its seed), so the RNG
     # state need not be saved for the recompute
-    return torch_checkpoint.checkpoint(_layer, layer, config, hidden, frame_mask, seed,
-                                       use_reentrant=False, preserve_rng_state=False, **kw)
+    return torch_checkpoint.checkpoint(_layer, layer, config, hidden, frame_mask, seed, shard,
+                                       mesh, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def encoder(params, config: HubertConfig, hidden: torch.Tensor,
             frame_mask: Optional[torch.Tensor],
-            dropout_seed: Optional[int] = None) -> torch.Tensor:
+            dropout_seed: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Transformer encoder. ``dropout_seed`` selects train mode: hidden
     dropout after the positional conv, per-layer dropout, and LayerDrop
-    (one draw per layer per call skips the whole layer for the batch)."""
+    (one draw per layer per call skips the whole layer for the batch).
+    Under ``mesh``'s sp the layer stack runs on this rank's time slice."""
     eps = config.layer_norm_eps
+    shard = mesh.element_shard() if mesh is not None else None
     if frame_mask is not None:
         hidden = hidden * frame_mask[..., None].to(hidden.dtype)
     hidden = hidden + _pos_conv_embedding(params, config, hidden)
     if not config.do_stable_layer_norm:
         hidden = _layer_norm(hidden, params["encoder_layer_norm"], eps)
     if dropout_seed is not None:
-        hidden = dropout(fold_seed(dropout_seed, _HIDDEN_SITE), hidden, config.hidden_dropout)
+        hidden = dropout(fold_seed(dropout_seed, _HIDDEN_SITE), hidden, config.hidden_dropout,
+                         shard)
+    t = hidden.shape[1]
+    sequence_parallel = mesh is not None and mesh.size("sp") > 1
+    if sequence_parallel:
+        if frame_mask is None:
+            frame_mask = torch.ones(hidden.shape[:2], dtype=torch.bool, device=hidden.device)
+        hidden = sequence.shard_time(hidden, mesh)
+        frame_mask = sequence.shard_time(frame_mask, mesh)
+        shard = mesh.element_shard(time=(mesh.index("sp") * hidden.shape[1], t))
     for idx, layer in enumerate(params["layers"][: config.num_hidden_layers]):
         seed = fold_seed(dropout_seed, idx) if dropout_seed is not None else None
         if (seed is not None and config.layerdrop > 0.0
                 and uniform_from_seed(fold_seed(seed, _LAYERDROP_SITE)) < config.layerdrop):
             continue
-        hidden = _run_layer(layer, config, hidden, frame_mask, seed)
+        hidden = _run_layer(layer, config, hidden, frame_mask, seed, shard, mesh)
+    if sequence_parallel:
+        hidden = sequence.gather_time(hidden, mesh, t)
     if config.do_stable_layer_norm:
         hidden = _layer_norm(hidden, params["encoder_layer_norm"], eps)
     return hidden
@@ -350,10 +436,11 @@ def encoder(params, config: HubertConfig, hidden: torch.Tensor,
 
 def hubert_encode(params: dict, config: HubertConfig, waveform: torch.Tensor,
                   attention_mask: Optional[torch.Tensor] = None,
-                  dropout_seed: Optional[int] = None):
+                  dropout_seed: Optional[int] = None, mesh=None):
     """[B, L] waveforms → ([B, T, H] frames, [B, T] bool frame mask or None)
     (``HubertModel.forward`` with mask_time_prob=0). Passing an int32
-    ``dropout_seed`` selects train mode; omitting it gives eval mode."""
+    ``dropout_seed`` selects train mode; omitting it gives eval mode.
+    ``mesh`` (the trainer's, or None) selects the tp and sp routes."""
     features = _conv_stack(params, config, waveform)
     frame_mask = None
     if attention_mask is not None:
@@ -363,6 +450,8 @@ def hubert_encode(params: dict, config: HubertConfig, waveform: torch.Tensor,
     hidden = _dense(hidden, fp["projection"])
     seed_enc = None
     if dropout_seed is not None:
-        hidden = dropout(fold_seed(dropout_seed, 0), hidden, config.feature_projection_dropout)
+        shard = mesh.element_shard() if mesh is not None else None
+        hidden = dropout(fold_seed(dropout_seed, 0), hidden, config.feature_projection_dropout,
+                         shard)
         seed_enc = fold_seed(dropout_seed, 1)
-    return encoder(params, config, hidden, frame_mask, seed_enc), frame_mask
+    return encoder(params, config, hidden, frame_mask, seed_enc, mesh), frame_mask

@@ -12,9 +12,12 @@ casts explicitly to the promoted type at those points.
 Routes of attention: the KV cache (serving prefill and decode), the
 plain no-cache route, and the causal flash route that a no-cache
 ``attention_impl="pallas"`` call takes at T >= 256 (training and the
-eval-loss forward). Also ported: sequence packing (``pack_len``) and
-caption-sliced logits (``logit_caption_len``). Not ported: remat and
-pipeline/tensor parallelism.
+eval-loss forward). Also ported: sequence packing (``pack_len``),
+caption-sliced logits (``logit_caption_len``) and, given the trainer's
+mesh (``llama_forward(mesh=...)``), tensor parallelism where
+:func:`tp_partitionable` holds: each layer a Megatron body on this rank's
+heads, kv heads and MLP columns, the out and down products all-reduced.
+Not ported: remat and pipeline parallelism (ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 
 from aat_tpu_torch.models.hubert import np_rng_from
 from aat_tpu_torch.ops import attention as attn_ops
+from aat_tpu_torch.parallel import comm
 from aat_tpu_torch.utils.port import to_tensors
 
 
@@ -49,6 +53,21 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+def tp_partitionable(config: LlamaConfig, tp: int) -> bool:
+    """True when heads, kv heads and the MLP hidden all split evenly over
+    ``tp`` (the gate of the tensor-parallel body, JAX's predicate)."""
+    return (tp > 1 and config.num_attention_heads % tp == 0
+            and config.num_key_value_heads % tp == 0
+            and config.intermediate_size % tp == 0)
+
+
+def _tp_group(config: LlamaConfig, mesh):
+    """The tp group when the layers run as tensor-parallel bodies, else None."""
+    if mesh is None or not tp_partitionable(config, mesh.size("tp")):
+        return None
+    return mesh.group("tp")
 
 
 def smollm_135m_config() -> LlamaConfig:
@@ -131,11 +150,13 @@ def _rms_norm(x, p, eps):
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
 
 
-def _dense(x, p):
+def _dense(x, p, tp_group=None):
     """JAX ``einsum(x, kernel, preferred_element_type=f32).astype(x.dtype)``:
-    mixed operands compute in the promoted type."""
+    mixed operands compute in the promoted type. With ``tp_group`` the
+    kernel's input rows are this rank's shard: the partial products are
+    all-reduced before the bias."""
     ct = torch.promote_types(x.dtype, p["kernel"].dtype)
-    y = torch.matmul(x.to(ct), p["kernel"].to(ct)).to(x.dtype)
+    y = comm.reduce_from_group(torch.matmul(x.to(ct), p["kernel"].to(ct)).to(x.dtype), tp_group)
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -165,7 +186,7 @@ def _apply_rope(q, k, cos, sin):
 
 
 def _attention(p, config: LlamaConfig, x, cos, sin, mask_bias, kv_cache, cache_index,
-               key_padding_mask=None, pack_len=None):
+               key_padding_mask=None, pack_len=None, mesh=None):
     b, t, h = x.shape
     if (pack_len is not None and kv_cache is None
             and key_padding_mask is not None and t != pack_len):
@@ -178,10 +199,14 @@ def _attention(p, config: LlamaConfig, x, cos, sin, mask_bias, kv_cache, cache_i
                          cos.reshape(b * kq, pack_len, cos.shape[-1]),
                          sin.reshape(b * kq, pack_len, sin.shape[-1]),
                          causal_mask_bias(am, pack_len, pack_len, 0), None, 0,
-                         key_padding_mask=am)
+                         key_padding_mask=am, mesh=mesh)
         return out.reshape(b, t, out.shape[-1])
     hd = config.head_dim
-    nh = p["q"]["kernel"].shape[-1] // hd
+    tp_group = _tp_group(config, mesh)
+    if tp_group is not None and kv_cache is not None:
+        raise ValueError("the tensor-parallel body is a training-path route (no KV cache)")
+    x = comm.copy_to_group(x, tp_group)
+    nh = p["q"]["kernel"].shape[-1] // hd  # this rank's heads under tp
     nkv = p["k"]["kernel"].shape[-1] // hd
     q = _dense(x, p["q"]).reshape(b, t, nh, hd).transpose(1, 2)
     k = _dense(x, p["k"]).reshape(b, t, nkv, hd).transpose(1, 2)
@@ -211,7 +236,7 @@ def _attention(p, config: LlamaConfig, x, cos, sin, mask_bias, kv_cache, cache_i
         # kv_len, offset 0); GQA k/v go in unrepeated, the kernels map heads
         ctx = attn_ops.flash_attention(q, k, v, key_padding_mask, True, hd ** -0.5,
                                        pack_len=pack_len)
-        return _dense(ctx.transpose(1, 2).reshape(b, t, nh * hd), p["out"])
+        return _dense(ctx.transpose(1, 2).reshape(b, t, nh * hd), p["out"], tp_group)
 
     if nkv != nh:
         rep = nh // nkv
@@ -225,11 +250,13 @@ def _attention(p, config: LlamaConfig, x, cos, sin, mask_bias, kv_cache, cache_i
     ct = torch.promote_types(probs.dtype, v.dtype)
     ctx = torch.matmul(probs.to(ct), v.to(ct)).to(x.dtype)
     ctx = ctx.transpose(1, 2).reshape(b, t, nh * hd)
-    return _dense(ctx, p["out"])
+    return _dense(ctx, p["out"], tp_group)
 
 
-def _mlp(p, x):
-    return _dense(F.silu(_dense(x, p["gate"])) * _dense(x, p["up"]), p["down"])
+def _mlp(p, x, config: LlamaConfig, mesh=None):
+    tp_group = _tp_group(config, mesh)
+    x = comm.copy_to_group(x, tp_group)
+    return _dense(F.silu(_dense(x, p["gate"])) * _dense(x, p["up"]), p["down"], tp_group)
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -265,7 +292,7 @@ def llama_forward(params: dict, config: LlamaConfig,
                   kv_caches: Optional[list] = None,
                   cache_index=0,
                   pack_len: Optional[int] = None,
-                  logit_caption_len: Optional[int] = None):
+                  logit_caption_len: Optional[int] = None, mesh=None):
     """Returns (logits [B, T, V] f32, kv_caches).
 
     Prefill: embeds/ids and a [B, T] mask (or a [B, L_cache] mask with
@@ -275,7 +302,8 @@ def llama_forward(params: dict, config: LlamaConfig,
     equal-length utterances (block-diagonal attention; pass per-utterance
     ``positions``). ``logit_caption_len``: logits only for the shifted
     caption window, ``[B, K·(cl−1), V]`` with K packed utterances per row;
-    the hidden state is sliced before the final norm and the vocab GEMM."""
+    the hidden state is sliced before the final norm and the vocab GEMM.
+    ``mesh`` (the trainer's, or None) selects the tensor-parallel bodies."""
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids)
     b, t, _ = inputs_embeds.shape
@@ -302,9 +330,10 @@ def llama_forward(params: dict, config: LlamaConfig,
         attn_in = _rms_norm(hidden, layer["input_norm"], config.rms_norm_eps)
         hidden = hidden + _attention(layer["attention"], config, attn_in, cos, sin,
                                      mask_bias, cache, cache_index,
-                                     key_padding_mask=attention_mask, pack_len=pack_len)
+                                     key_padding_mask=attention_mask, pack_len=pack_len,
+                                     mesh=mesh)
         mlp_in = _rms_norm(hidden, layer["post_attention_norm"], config.rms_norm_eps)
-        hidden = hidden + _mlp(layer["mlp"], mlp_in)
+        hidden = hidden + _mlp(layer["mlp"], mlp_in, config, mesh)
 
     if logit_caption_len is not None:
         if kv_caches is not None:

@@ -16,7 +16,7 @@ read to pick a seed.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -98,13 +98,53 @@ def head_seeds(seed: int, n_heads_flat: int, device=None) -> torch.Tensor:
     return ((seed & _M32) + bh * GOLDEN) & _M32
 
 
-def dropout(seed: Optional[int], x: torch.Tensor, rate: float) -> torch.Tensor:
+class ElementShard(NamedTuple):
+    """Where a rank's tensor sits in the global one its masks are keyed on
+    (multi-device training): dim 0 is block ``row_block`` of equal row
+    blocks, and with ``time = (t0, t_full)`` dim 1 holds positions ``t0,
+    t0 + 1, ...`` of ``t_full`` (positions at or past ``t_full`` are
+    padding)."""
+
+    row_block: int = 0
+    time: Optional[Tuple[int, int]] = None
+
+
+def _flat_index(shape, shard: Optional[ElementShard], device) -> torch.Tensor:
+    """The element's flat index in the global tensor, int64, modulo 2**32."""
+    n = 1
+    for d in shape:
+        n *= d
+    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    if shard is None:
+        return idx
+    if shard.time is None:
+        return (idx + shard.row_block * n) & _M32
+    t0, t_full = shard.time
+    rows, t_local, inner = shape[0], shape[1], n // (shape[0] * shape[1])
+    b = torch.arange(rows, dtype=torch.int64, device=device) + shard.row_block * rows
+    t = torch.arange(t_local, dtype=torch.int64, device=device) + t0
+    base = (b[:, None] * t_full + t[None, :]) * inner
+    within = torch.arange(inner, dtype=torch.int64, device=device).reshape(shape[2:])
+    return (base.reshape(rows, t_local, *([1] * (len(shape) - 2))) + within) & _M32
+
+
+def shift_head_seed(seed: int, rows_before: int, heads: int) -> int:
+    """The attention seed of a batch slice that starts at global row
+    ``rows_before``: the kernels key a head on ``seed + bh·GOLDEN`` with the
+    slice's own index ``bh``, which is the global one less ``rows_before ·
+    heads``, so this seed gives the global batch's masks."""
+    return to_int32(seed + rows_before * heads * GOLDEN)
+
+
+def dropout(seed: Optional[int], x: torch.Tensor, rate: float,
+            shard: Optional[ElementShard] = None) -> torch.Tensor:
     """Train-mode inverted dropout (torch semantics: zero with probability
     ``rate``, survivors scaled by 1/(1-rate)). Identity when ``seed`` is
     None or ``rate`` is 0. The keep mask hashes the flat element index:
-    ``mix32(idx ^ seed)``."""
+    ``mix32(idx ^ seed)``, the index in the global tensor that ``shard``
+    places ``x`` in."""
     if seed is None or rate <= 0.0:
         return x
-    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device).reshape(x.shape)
+    idx = _flat_index(x.shape, shard, x.device)
     keep = _uniform24(mix32(idx ^ (seed & _M32))) >= _as(rate, torch.float32)
     return torch.where(keep, x * _as(1.0 / (1.0 - rate), x.dtype), 0.0)

@@ -30,6 +30,14 @@ checkpoint than an uninterrupted run's.
 (``AATTrainer.unfreeze_lm_decoder``); a run resumed from a checkpoint whose
 ``trainer_meta.json`` says the LM trained unfreezes it before restoring,
 so the LM's moments restore too.
+
+Under ``torchrun`` (one process per device) the ranks join a process group
+(:func:`aat_tpu_torch.parallel.distributed.initialize`), the ``--mesh-*``
+flags lay them out, each rank reads its data rank's shard of the
+training and validation items, and only rank 0 writes checkpoints,
+exports, ``data_state.json`` and ``metrics.jsonl``:
+
+    torchrun --nproc-per-node 4 -m aat_tpu_torch.scripts.train --mesh-dp 2 --mesh-fsdp 2 ...
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from aat_tpu_torch.data.collate import (
 )
 from aat_tpu_torch.data.dataloaders import BatchIterator, duration_key, load_hf_dataset
 from aat_tpu_torch.models.build import build_model, build_tokenizer
+from aat_tpu_torch.parallel.distributed import initialize, world
 from aat_tpu_torch.tokenizer import AdaptiveAudioTokenizer
 from aat_tpu_torch.training import checkpoint as ckpt_lib
 from aat_tpu_torch.training.config import (
@@ -173,10 +182,13 @@ def run(trainer, config: TrainingConfig, train_iter, val_iter, val_collate, resu
     data = {"epoch": 0, "train_collator": _rng(train_collate).state}
     save = trainer.save_checkpoint
 
+    writer = world()[0] == 0
+
     def save_with_data_state(*args, **kwargs):
         path = save(*args, **kwargs)
-        ckpt_lib.write_json(path, DATA_STATE_FILE,
-                            {**data, "val_collator": _rng(val_collate).state})
+        if writer:
+            ckpt_lib.write_json(path, DATA_STATE_FILE,
+                                {**data, "val_collator": _rng(val_collate).state})
         return path
 
     trainer.save_checkpoint = save_with_data_state
@@ -203,7 +215,7 @@ def run(trainer, config: TrainingConfig, train_iter, val_iter, val_collate, resu
         # step resumes at the next epoch's start
         data.update(epoch=epoch + 1, train_collator=_rng(train_collate).state)
         last = os.path.join(config.output_dir, f"checkpoint-{trainer.state.step}")
-        if trainer.state.step == (epoch + 1) * steps_per_epoch and os.path.isdir(last):
+        if writer and trainer.state.step == (epoch + 1) * steps_per_epoch and os.path.isdir(last):
             ckpt_lib.write_json(last, DATA_STATE_FILE,
                                 {**data, "val_collator": _rng(val_collate).state})
     trainer.finalize()
@@ -213,6 +225,8 @@ def run(trainer, config: TrainingConfig, train_iter, val_iter, val_collate, resu
 def main(argv=None, device=None):
     args = parse_args(argv)
     config = build_config(args)
+    device = initialize(device=device)  # under torchrun: this rank's process group
+    writer = world()[0] == 0
 
     logger.info("building model (pretrained=%s)", args.pretrained)
     model, params = build_model(config, pretrained=args.pretrained,
@@ -230,19 +244,24 @@ def main(argv=None, device=None):
 
     collate, trainer_cls = make_collator(config, tokenizer)
     val_collate, _ = make_collator(config, tokenizer)
-    tracker = JsonlTracker(os.path.join(config.output_dir, "metrics.jsonl"),
-                           project="tokenized_speech_lm")
+    tracker = (JsonlTracker(os.path.join(config.output_dir, "metrics.jsonl"),
+                            project="tokenized_speech_lm") if writer else None)
     trainer = trainer_cls(model, params, config, compute_metrics=ComputeMetrics(tokenizer),
-                          tokenizer=tokenizer, log_fn=tracker.log)
+                          tokenizer=tokenizer,
+                          log_fn=tracker.log if tracker is not None else lambda metrics: None)
     del params
+    # tp and sp peers read the same rows: the shard is the data rank's
+    mesh = trainer.mesh
+    shard = (dict(shard_index=mesh.data_rank, num_shards=mesh.data_world) if mesh is not None
+             else {})
     train_iter = BatchIterator(
         items, collate, config.per_device_train_batch_size, shuffle=True, drop_last=True,
         seed=config.seed, bucket_key=duration_key if config.bucket_by_duration else None,
-        bucket_pool_batches=config.bucket_pool_batches)
+        bucket_pool_batches=config.bucket_pool_batches, **shard)
 
     def val_iter():
         return BatchIterator(val_items, val_collate, min(len(val_items), 20), shuffle=False,
-                             drop_last=False, is_validation=True)
+                             drop_last=False, is_validation=True, **shard)
 
     try:
         if args.profile:
@@ -251,12 +270,14 @@ def main(argv=None, device=None):
             with cProfile.Profile() as pr:
                 run(trainer, config, train_iter, val_iter, val_collate,
                     args.resume_from_checkpoint)
-            pr.dump_stats("train_profile.prof")
-            logger.info("saved profile: train_profile.prof")
+            if writer:
+                pr.dump_stats("train_profile.prof")
+                logger.info("saved profile: train_profile.prof")
         else:
             run(trainer, config, train_iter, val_iter, val_collate, args.resume_from_checkpoint)
     finally:
-        tracker.finish()
+        if tracker is not None:
+            tracker.finish()
     return trainer
 
 

@@ -1,16 +1,14 @@
 """Typed training configuration (counterpart of
 ``aat_tpu/training/config.py``): the same fields, defaults and preset
-factories. The port runs on one device, so every mesh field other than 1
-raises (multi-device training is a later slice of the port).
+factories. The ``mesh_*`` fields lay the ranks of an initialized process
+group out as the trainer's mesh (:mod:`aat_tpu_torch.parallel.mesh`);
+the trainer refuses ``mesh_pp > 1`` (ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-_MESH_FIELDS = ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp", "mesh_pp")
-
 
 @dataclasses.dataclass
 class TrainingConfig:
@@ -105,11 +103,6 @@ class TrainingConfig:
             raise ValueError(
                 f"encoder_remat_policy must be 'full' or 'dots', got "
                 f"{self.encoder_remat_policy!r}")
-        meshes = {f: getattr(self, f) for f in _MESH_FIELDS if getattr(self, f) != 1}
-        if meshes:
-            raise NotImplementedError(
-                f"{meshes}: multi-device training is not ported yet "
-                "(ROADMAP Queue 1 item 8, multi-device)")
 
 
 def overfit_one_batch_config() -> TrainingConfig:

@@ -136,7 +136,8 @@ class GradientTransformation(NamedTuple):
 def fused_guarded_adamw(learning_rate, params, weight_decay: float = 0.1, b1: float = 0.9,
                         b2: float = 0.999, eps: float = 1e-8,
                         clip_norm: Optional[float] = None,
-                        freeze: Optional[dict] = None) -> GradientTransformation:
+                        freeze: Optional[dict] = None,
+                        norm: Callable = global_norm) -> GradientTransformation:
     """AdamW with the non-finite guard and global-norm clip folded in
     (``optim.py:216``), value for value:
 
@@ -151,6 +152,8 @@ def fused_guarded_adamw(learning_rate, params, weight_decay: float = 0.1, b1: fl
     Everything stays on the device: the guard is a tensor predicate, so a
     step never waits for the host. ``update(grads, state, params)`` returns
     ``(updates, new_state)``; updates of frozen leaves are ``None``.
+    ``norm`` computes the global gradient norm (a mesh's over sharded
+    leaves, :meth:`~aat_tpu_torch.parallel.mesh.Mesh.global_norm`).
     """
     decay = decay_mask(params)
     train = freeze if freeze is not None else tree_map(lambda _: True, params)
@@ -166,7 +169,7 @@ def fused_guarded_adamw(learning_rate, params, weight_decay: float = 0.1, b1: fl
             torch.zeros((), dtype=torch.float32, device=device))
 
     def update_fn(grads, state, params):
-        gn = global_norm(grads)
+        gn = norm(grads)
         ok = torch.isfinite(gn)
         one = torch.ones((), dtype=torch.float32, device=gn.device)
         scale = (torch.where(gn < clip_norm, one, clip_norm / gn)
@@ -207,14 +210,16 @@ class ScaleByAdamState(NamedTuple):
 
 def adamw_grouped(learning_rate, params, weight_decay: float = 0.1, b1: float = 0.9,
                   b2: float = 0.999, eps: float = 1e-8, grad_clip_norm: Optional[float] = None,
-                  freeze: Optional[dict] = None) -> GradientTransformation:
+                  freeze: Optional[dict] = None,
+                  norm: Callable = global_norm) -> GradientTransformation:
     """AdamW with the two weight-decay groups (``optim.py:73``): the optax
     chain ``clip_by_global_norm`` (with ``grad_clip_norm``) →
     ``scale_by_adam`` → ``add_decayed_weights(mask=decay_mask)`` →
     ``scale_by_learning_rate``, on the trainable leaves only (the JAX
     ``multi_transform`` freeze: frozen leaves get no update and no state,
     and the clip's norm leaves them out). The chain's Adam and schedule
-    counts are always equal, so the state keeps one."""
+    counts are always equal, so the state keeps one. ``norm`` computes the
+    clip's global norm."""
     decay = decay_mask(params)
     train = freeze if freeze is not None else tree_map(lambda _: True, params)
 
@@ -230,7 +235,7 @@ def adamw_grouped(learning_rate, params, weight_decay: float = 0.1, b1: float = 
         grads = tree_map(lambda g, p, t: (torch.zeros_like(p) if g is None else g) if t else None,
                          grads, params, train)
         if grad_clip_norm is not None:
-            gn = global_norm(grads)
+            gn = norm(grads)
             below = gn < grad_clip_norm
             grads = tree_map(lambda g: None if g is None else torch.where(
                 below, g, (g / gn.to(g.dtype)) * grad_clip_norm), grads)
@@ -260,14 +265,14 @@ class GuardNonfiniteState(NamedTuple):
     inner_state: object
 
 
-def guard_nonfinite(inner: GradientTransformation,
-                    clip_norm: Optional[float] = None) -> GradientTransformation:
+def guard_nonfinite(inner: GradientTransformation, clip_norm: Optional[float] = None,
+                    norm: Callable = global_norm) -> GradientTransformation:
     """The non-finite guard (``optim.py:150``) around ``inner``: where the
     global gradient norm is not finite the update is zero, ``inner``'s
     state stays as it was and ``total_notfinite`` counts the step. With
     ``clip_norm`` the global-norm clip (``clip_by_global_norm``'s factor,
     1 below the norm, else clip / norm) folds into the same norm, applied
-    before ``inner``."""
+    before ``inner``. ``norm`` computes the global norm."""
 
     def init_fn(params):
         device = tree_leaves(params)[0].device
@@ -275,7 +280,7 @@ def guard_nonfinite(inner: GradientTransformation,
                                    inner.init(params))
 
     def update_fn(grads, state, params):
-        gn = global_norm(grads)
+        gn = norm(grads)
         ok = torch.isfinite(gn)
         one = torch.ones((), dtype=torch.float32, device=gn.device)
         scale = (torch.where(gn < clip_norm, one, clip_norm / gn)

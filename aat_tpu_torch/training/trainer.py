@@ -1,6 +1,6 @@
-"""ASLM trainer (counterpart of ``aat_tpu/training/trainer.py``) on one
-device: audio encoding → projection → input assembly → caption
-cross-entropy, gradient accumulation over microbatches, and the fused
+"""ASLM trainer (counterpart of ``aat_tpu/training/trainer.py``): audio
+encoding → projection → input assembly → caption cross-entropy, gradient
+accumulation over microbatches, and the fused
 guarded AdamW update, through the same entry points as the JAX package
 (``AATTrainer(model, params, config).training_step(microbatches)``,
 ``train(batches, eval_batches=..., resume_from_checkpoint=...)``,
@@ -44,7 +44,25 @@ statistics get zero gradients, so the optimizer leaves them unmoved (they
 are 1-D: no weight decay). Evaluation and the generation prefix normalize
 with the running statistics.
 
-Multi-device meshes are ROADMAP Queue 1 item 8 and raise.
+Multi-device training (``mesh_dp/fsdp/tp/sp`` or ``mesh=``, one process
+per device in an initialized process group, :mod:`aat_tpu_torch.parallel`):
+each rank keeps its shards of the parameters and of the optimizer state
+(``parallel.mesh.shard_params``, the JAX rules) and reads its rows of the
+global batch (``mesh.local_batch``; tp and sp peers read the same rows).
+The trainer sets the mesh on the model (and clears a stale one):
+HuBERT and the LM run their layers as tensor-parallel bodies where their
+``tp_partitionable`` holds, HuBERT its layer stack on a time slice under
+sp, EfficientNet its batch norm over the global batch, and every dropout
+mask is keyed on global positions. The caption CE divides each rank's sum
+by the global token count (the counts are all-reduced first), so the
+ranks' losses sum to the one-device loss however captions pad; the
+gradients are summed over the ranks that computed distinct parts of them
+(``Mesh.reduce_grads``), and the guard and the clip read the global norm
+of the sharded tree. ``evaluate`` gives the global batch's loss and
+generations on every rank. ``save_checkpoint`` gathers the full state and
+rank 0 writes today's format, so a checkpoint restores under any layout;
+``restore_checkpoint`` slices it again. ``mesh_pp > 1``, and Adafactor under
+fsdp or tp, are ROADMAP Queue 1 item 8b and raise.
 """
 
 from __future__ import annotations
@@ -58,10 +76,15 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from aat_tpu_torch.models import hubert as hub
+from aat_tpu_torch.models import llama as llm
 from aat_tpu_torch.models.aslm import AslmModel
 from aat_tpu_torch.ops.dropout import fold_seed
+from aat_tpu_torch.parallel import comm
+from aat_tpu_torch.parallel import mesh as mesh_lib
 from aat_tpu_torch.training import checkpoint as ckpt_lib
 from aat_tpu_torch.training import optim as optim_lib
 from aat_tpu_torch.training.config import TrainingConfig
@@ -78,9 +101,9 @@ class TrainState:
     opt_state: Any
 
 
-def caption_cross_entropy(logits: torch.Tensor, input_ids: torch.Tensor,
-                          input_ids_attention_mask: torch.Tensor) -> torch.Tensor:
-    """Shifted caption CE over the trailing caption positions, pad-masked,
+def caption_ce_sum(logits: torch.Tensor, input_ids: torch.Tensor,
+                   input_ids_attention_mask: torch.Tensor):
+    """(sum of the shifted caption CE over unpadded targets, their count),
     in float32. Accepts full-sequence logits [B, T, V] or caption-presliced
     logits [B, C−1, V]."""
     caption_len = input_ids.shape[1]
@@ -89,7 +112,15 @@ def caption_cross_entropy(logits: torch.Tensor, input_ids: torch.Tensor,
     mask = input_ids_attention_mask[:, 1:].float()
     ce = F.cross_entropy(pred.float().reshape(-1, pred.shape[-1]), targets.reshape(-1),
                          reduction="none").reshape(targets.shape)
-    return (ce * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return (ce * mask).sum(), mask.sum()
+
+
+def caption_cross_entropy(logits: torch.Tensor, input_ids: torch.Tensor,
+                          input_ids_attention_mask: torch.Tensor) -> torch.Tensor:
+    """Shifted caption CE over the trailing caption positions, pad-masked,
+    in float32 (the mean of :func:`caption_ce_sum`)."""
+    total, count = caption_ce_sum(logits, input_ids, input_ids_attention_mask)
+    return total / torch.clamp_min(count, 1.0)
 
 
 class AATTrainer:
@@ -100,11 +131,10 @@ class AATTrainer:
                  compute_metrics: Optional[Callable] = None,
                  log_fn: Optional[Callable[[Dict[str, float]], None]] = None,
                  tokenizer=None, generation_config=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP Queue 1 item 8, multi-device)")
         self.model = model
         self.config = config
+        self.mesh = self._make_mesh(config, mesh)
+        self._route_models()
         self.tokenizer = tokenizer
         self.generation_config = generation_config
         self.compute_metrics = compute_metrics
@@ -116,12 +146,57 @@ class AATTrainer:
         self.freeze = optim_lib.trainable_mask(
             params, train_audio_encoder=config.train_audio_encoder,
             train_lm_decoder=config.train_lm_decoder)
+        if self.mesh is not None:
+            self.specs = mesh_lib.shard_params(params, self.mesh.shape)
+            params = mesh_lib.place_params(params, self.specs, self.mesh)
         self.tx = self._build_tx(params)
         self.device = optim_lib.tree_leaves(params)[0].device
         self.state = TrainState(0, params, self.tx.init(params))
         # load_best_model_at_end bookkeeping
         self._best_metric: Optional[float] = None
         self._best_checkpoint: Optional[str] = None
+
+    @staticmethod
+    def _make_mesh(config: TrainingConfig, mesh):
+        """The mesh of ``mesh_*`` (JAX's refusal of sp with pp first), or the
+        one given; None for one device."""
+        if config.mesh_sp > 1 and config.mesh_pp > 1:
+            raise ValueError("mesh_sp and mesh_pp are mutually exclusive (as in the JAX "
+                             "trainer)")
+        sizes = dict(dp=config.mesh_dp, fsdp=config.mesh_fsdp, tp=config.mesh_tp,
+                     sp=config.mesh_sp, pp=config.mesh_pp)
+        fsdp_tp = mesh.size("fsdp", "tp") if mesh is not None else sizes["fsdp"] * sizes["tp"]
+        if config.optimizer == "adafactor" and fsdp_tp > 1:
+            raise NotImplementedError("Adafactor's factored statistics under fsdp or tp are "
+                                      f"not ported yet ({mesh_lib.PIPELINE_ITEM})")
+        if mesh is None and any(v != 1 for v in sizes.values()):
+            mesh = mesh_lib.make_mesh(**sizes)
+        return mesh
+
+    def _route_models(self):
+        """Set this trainer's mesh (or None) on the model, clearing any a
+        previous trainer left."""
+        model = self.model
+        model.mesh = self.mesh
+        if self.mesh is None:
+            self._tp_bodies = self._sp_paths = ()
+            return
+        tp = self.mesh.size("tp")
+        enc_cfg = model.audio_encoder_config
+        hubert_like = isinstance(enc_cfg, hub.HubertConfig)
+        self._tp_bodies = tuple(
+            path for path, on in (
+                ("audio_encoder/layers/", hubert_like and hub.tp_partitionable(enc_cfg, tp)),
+                ("lm_decoder/layers/", llm.tp_partitionable(model.lm_config, tp))) if on)
+        self._sp_paths = (("audio_encoder/layers/",)
+                          if hubert_like and self.mesh.size("sp") > 1 else ())
+
+    def _norm(self, tree, specs=None):
+        """The global norm of a gradient tree (or subtree, with its
+        ``specs``), over every shard under a mesh."""
+        if self.mesh is None:
+            return optim_lib.global_norm(tree)
+        return self.mesh.global_norm(tree, self.specs if specs is None else specs)
 
     def _build_tx(self, params):
         """The JAX trainer's choice: the fused guarded AdamW when the guard
@@ -131,16 +206,35 @@ class AATTrainer:
         if cfg.optimizer == "adamw" and cfg.skip_nonfinite_updates:
             return optim_lib.fused_guarded_adamw(
                 self.schedule, params, weight_decay=cfg.weight_decay,
-                clip_norm=cfg.grad_clip_norm, freeze=self.freeze)
+                clip_norm=cfg.grad_clip_norm, freeze=self.freeze, norm=self._norm)
         if cfg.optimizer == "adamw":
             tx = optim_lib.adamw_grouped(self.schedule, params, weight_decay=cfg.weight_decay,
-                                         grad_clip_norm=cfg.grad_clip_norm, freeze=self.freeze)
+                                         grad_clip_norm=cfg.grad_clip_norm, freeze=self.freeze,
+                                         norm=self._norm)
         elif cfg.optimizer == "adafactor":
             tx = optim_lib.adafactor(self.schedule, freeze=self.freeze,
                                      axes=port.adafactor_axes(params))
         else:
             raise ValueError(f"unknown optimizer {cfg.optimizer}")
-        return optim_lib.guard_nonfinite(tx) if cfg.skip_nonfinite_updates else tx
+        return (optim_lib.guard_nonfinite(tx, norm=self._norm) if cfg.skip_nonfinite_updates
+                else tx)
+
+    def _use(self, params, grad: bool = True):
+        """The parameters the forward uses: under a mesh, the sharded leaves
+        gathered (tp shards kept in the tensor-parallel bodies)."""
+        if self.mesh is None:
+            return params
+        return self.mesh.use_params(params, self.specs, self._tp_bodies, grad=grad)
+
+    def _data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data ranks (no gradient; one device: ``x``)."""
+        return x if self.mesh is None else comm.all_reduce(x, self.mesh.group("dp", "fsdp"))
+
+    def _batch_ce(self, logits, batch) -> torch.Tensor:
+        """This rank's share of the global batch's caption CE: its sum over
+        the global count (the shares sum to the one-device loss)."""
+        total, count = caption_ce_sum(logits, batch["input_ids"], batch["input_ids_attention_mask"])
+        return total / torch.clamp_min(self._data_sum(count), 1.0)
 
     # ------------------------------------------------------------------
     # Forward assembly (segmented + whole-utterance)
@@ -224,7 +318,8 @@ class AATTrainer:
         return logits, inputs, bn_stats
 
     def _debug_metrics(self, params, batch, inputs) -> Dict[str, torch.Tensor]:
-        """The reference's compute_loss debug block, on the device."""
+        """The reference's compute_loss debug block, on the device, over the
+        global batch (``params`` whole: the adapter's embedding is read)."""
         with torch.no_grad():
             embeds = inputs["inputs_embeds"]
             am = inputs["audio_embeds_attention_mask"]
@@ -232,19 +327,26 @@ class AATTrainer:
             flat_audio = inputs["audio_embeds"].reshape(-1, embeds.shape[-1]).float()
             audio_m = am.reshape(-1).float()
             audio_norms = torch.linalg.norm(flat_audio, dim=-1)
-            denom_a = torch.clamp_min(audio_m.sum(), 1.0)
+            denom_a = torch.clamp_min(self._data_sum(audio_m.sum()), 1.0)
             text_embeds = embeds[:, audio_len + 2:, :].float()
             text_m = batch["attention_mask"].float()
             text_norms = torch.linalg.norm(text_embeds, dim=-1)
-            denom_t = torch.clamp_min(text_m.sum(), 1.0)
+            denom_t = torch.clamp_min(self._data_sum(text_m.sum()), 1.0)
             emb = params["adapter"]["audio_tokens_embeddings"]["embedding"].float()
+            seq_len = torch.full((), float(inputs["attention_mask"].shape[-1]),
+                                 device=embeds.device)
+            if self.mesh is not None:
+                seq_len = comm.all_reduce(seq_len, self.mesh.group("dp", "fsdp"),
+                                          dist.ReduceOp.MAX)
+            mean = {
+                "debug/audio_embeddings_norm_mean": ((audio_norms * audio_m).sum(), denom_a),
+                "debug/audio_embeddings_mean": ((flat_audio.mean(-1) * audio_m).sum(), denom_a),
+                "debug/text_embeddings_norm_mean": ((text_norms * text_m).sum(), denom_t),
+                "debug/text_embeddings_mean": ((text_embeds.mean(-1) * text_m).sum(), denom_t),
+            }
             return {
-                "debug/seq_len": torch.full((), float(inputs["attention_mask"].shape[-1]),
-                                            device=embeds.device),
-                "debug/audio_embeddings_norm_mean": (audio_norms * audio_m).sum() / denom_a,
-                "debug/audio_embeddings_mean": (flat_audio.mean(-1) * audio_m).sum() / denom_a,
-                "debug/text_embeddings_norm_mean": (text_norms * text_m).sum() / denom_t,
-                "debug/text_embeddings_mean": (text_embeds.mean(-1) * text_m).sum() / denom_t,
+                "debug/seq_len": seq_len,
+                **{k: self._data_sum(total) / denom for k, (total, denom) in mean.items()},
                 "debug/audio_bos_mean": emb[0].mean(),
                 "debug/audio_bos_norm": torch.linalg.norm(emb[0]),
                 "debug/audio_eos_mean": emb[1].mean(),
@@ -263,10 +365,10 @@ class AATTrainer:
         leaves = optim_lib.tree_map(
             lambda p, t: p.detach().requires_grad_(True) if t else p.detach(),
             params, self.freeze)
-        logits, inputs, bn_stats = self._assemble_and_forward(leaves, batch, dropout_seed,
+        used = self._use(leaves)
+        logits, inputs, bn_stats = self._assemble_and_forward(used, batch, dropout_seed,
                                                               train=True)
-        loss = caption_cross_entropy(logits, batch["input_ids"],
-                                     batch["input_ids_attention_mask"])
+        loss = self._batch_ce(logits, batch)
         trainable = [x for x, t in zip(optim_lib.tree_leaves(leaves),
                                        optim_lib.tree_leaves(self.freeze)) if t]
         found = iter(torch.autograd.grad(loss, trainable, allow_unused=True))
@@ -278,16 +380,26 @@ class AATTrainer:
             return torch.zeros_like(p) if g is None else g
 
         grads = optim_lib.tree_map(grad_of, params, self.freeze)
-        metrics = self._debug_metrics(params, batch, inputs)
-        metrics["train/loss"] = loss.detach()
+        if self.mesh is not None:
+            grads = self._reduce_grads(grads)
+        metrics = self._debug_metrics(used, batch, inputs)
+        metrics["train/loss"] = self._data_sum(loss.detach())
         # reference training_step grad norms
-        metrics["train/audio_tokens_emb_grad"] = optim_lib.global_norm(
-            grads["adapter"]["audio_tokens_embeddings"])
+        specs = self.specs if self.mesh is not None else None
+        metrics["train/audio_tokens_emb_grad"] = self._norm(
+            grads["adapter"]["audio_tokens_embeddings"],
+            specs and specs["adapter"]["audio_tokens_embeddings"])
         if self.config.train_audio_encoder and "feature_projection" in grads.get(
                 "audio_encoder", {}):
-            metrics["train/audio_encdoer_grad_norm"] = optim_lib.global_norm(
-                grads["audio_encoder"]["feature_projection"]["projection"])
+            metrics["train/audio_encdoer_grad_norm"] = self._norm(
+                grads["audio_encoder"]["feature_projection"]["projection"],
+                specs and specs["audio_encoder"]["feature_projection"]["projection"])
         return grads, metrics, bn_stats
+
+    def _reduce_grads(self, grads):
+        """Each gradient summed over the ranks that computed distinct parts
+        of it (:meth:`~aat_tpu_torch.parallel.mesh.Mesh.reduce_grads`)."""
+        return self.mesh.reduce_grads(grads, self.specs, self._sp_paths)
 
     def _to_device(self, batch: dict) -> dict:
         out = {}
@@ -483,12 +595,12 @@ class AATTrainer:
     # ------------------------------------------------------------------
 
     def _eval_loss(self, params, batch) -> torch.Tensor:
-        """Caption CE of a device batch at the compute dtype, no dropout
-        (the JAX ``_eval_step``), as a device scalar."""
+        """Caption CE of a device batch (under a mesh: of the global batch)
+        at the compute dtype, no dropout (the JAX ``_eval_step``), as a
+        device scalar."""
         with torch.no_grad():
             logits, _, _ = self._assemble_and_forward(params, batch)
-            return caption_cross_entropy(logits, batch["input_ids"],
-                                         batch["input_ids_attention_mask"])
+            return self._data_sum(self._batch_ce(logits, batch))
 
     def _prefix_inputs(self, params, batch) -> dict:
         """[audio | prefix text] embeds for generation, encoded with the f32
@@ -522,16 +634,29 @@ class AATTrainer:
                 input_ids=batch["prefix_input_ids"], attention_mask=batch["prefix_attention_mask"],
                 segments_count=segments_count)
 
+    def _generation_params(self):
+        """(the parameters as the forward uses them, the whole LM's): decoding
+        runs the whole LM on this rank's rows, so under a mesh it is
+        gathered."""
+        params = self._use(self.state.params, grad=False)
+        if self.mesh is None:
+            return params, params["lm_decoder"]
+        return params, self.mesh.full_params(self.state.params["lm_decoder"],
+                                             self.specs["lm_decoder"])
+
     def generate_for_batch(self, batch, max_new_tokens: Optional[int] = None,
-                           fetch: bool = True):
+                           fetch: bool = True, weights=None):
         """Generation with the reference's eval settings unless
         ``generation_config`` overrides them: beam 3, repetition penalty 2.5,
         no-repeat-4-gram, early stopping, pad = forced eos = eos (the
         tokenizer's, else 2), ``max_new_tokens`` the caption length rounded
-        up to 16. Returns numpy ids, or the device tensor unless ``fetch``."""
+        up to 16. Returns numpy ids, or the device tensor unless ``fetch``.
+        ``weights`` is :meth:`_generation_params`' pair, made once by a
+        caller that generates for many batches."""
         from aat_tpu_torch.training.generate import GenerationConfig, generate
 
-        inputs = self._prefix_inputs(self.state.params, self._to_device(batch))
+        params, lm_params = weights or self._generation_params()
+        inputs = self._prefix_inputs(params, self._to_device(batch))
         if max_new_tokens is None:
             max_new_tokens = int(-(-batch["input_ids"].shape[1] // 16) * 16)
         base = self.generation_config
@@ -544,8 +669,8 @@ class AATTrainer:
             eos_token_id=eos, pad_token_id=eos,
             early_stopping=base.early_stopping if base else True,
             forced_eos_token_id=eos)
-        out = generate(self.state.params["lm_decoder"], self.model.lm_config,
-                       inputs["inputs_embeds"], inputs["attention_mask"], gcfg)
+        out = generate(lm_params, self.model.lm_config, inputs["inputs_embeds"],
+                       inputs["attention_mask"], gcfg)
         return out.cpu().numpy() if fetch else out
 
     def evaluate(self, eval_batches: Iterable[dict],
@@ -554,17 +679,22 @@ class AATTrainer:
         generation (by default when ``compute_metrics`` is set), the
         metrics of the generated ids against the captions (taken from the
         batches as given). The losses and ids come to the host after the
-        loop, with one sync."""
+        loop, with one sync. Under a mesh each rank passes its rows of the
+        global batches and gets the global batches' loss and metrics (ids
+        and captions gathered in data-rank order)."""
         if with_generation is None:
             with_generation = self.compute_metrics is not None
         losses, generated, references, prefixes = [], [], [], []
+        weights = self._generation_params() if with_generation else None
+        params = weights[0] if weights else self._use(self.state.params, grad=False)
         for batch in eval_batches:
             db = self._to_device(batch)
-            losses.append(self._eval_loss(self.state.params, db))
+            losses.append(self._eval_loss(params, db))
             if with_generation:
-                generated.append(self.generate_for_batch(db, fetch=False))
-                references.append(_host(batch["input_ids"]))
-                prefixes.append(_host(batch["prefix_input_ids"]))
+                generated.append(self._data_rows(
+                    self.generate_for_batch(db, fetch=False, weights=weights)))
+                references.append(_host(self._data_rows(db["input_ids"])))
+                prefixes.append(_host(self._data_rows(db["prefix_input_ids"])))
         metrics = {"eval/loss": float("nan")}
         if not losses:
             return metrics
@@ -589,9 +719,53 @@ class AATTrainer:
                 prefix_ids=pad_cat(prefixes)))
         return metrics
 
+    def _data_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``x`` in data-rank order, dim 1 padded
+        with zeros to the widest (one device: ``x``)."""
+        if self.mesh is None:
+            return x
+        group = self.mesh.group("dp", "fsdp")
+        width = int(comm.all_reduce(torch.tensor(x.shape[1], device=x.device), group,
+                                    dist.ReduceOp.MAX))
+        return comm.gather_from_group(F.pad(x, (0, width - x.shape[1])), group, 0)
+
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
+
+    def _writer(self) -> bool:
+        """Whether this process writes files (rank 0 under a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self):
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _full_state(self, state):
+        """A params-shaped tree, or an optimizer state of such trees, with
+        every sharded leaf gathered whole (one device: as it is)."""
+        if self.mesh is None:
+            return state
+        if optim_lib._is_namedtuple(state):
+            return type(state)(*(self._full_state(field) for field in state))
+        if isinstance(state, dict):
+            return self.mesh.full_params(state, self.specs)
+        return state
+
+    def _local_flat(self, flat: dict, template) -> dict:
+        """A checkpoint's flat full tensors cut to this rank's shards, by the
+        specs of ``template`` (the params, or an optimizer state)."""
+        if self.mesh is None:
+            return flat
+
+        def specs_like(state):
+            if optim_lib._is_namedtuple(state):
+                return type(state)(*(specs_like(field) for field in state))
+            return self.specs if isinstance(state, dict) else None
+
+        specs = ckpt_lib.flatten(specs_like(template))
+        return {k: self.mesh.local_shard(v, specs[k]).clone(memory_format=torch.contiguous_format)
+                if k in specs else v for k, v in flat.items()}
 
     def _ckpt_dir(self, step: Optional[int] = None) -> str:
         step = self.state.step if step is None else step
@@ -603,15 +777,19 @@ class AATTrainer:
         schedule is a function of the step), and ``trainer_meta.json`` with
         the freeze flags and, when given, the eval ``metric``."""
         path = os.path.abspath(path or self._ckpt_dir())
-        ckpt_lib.write_params(path, self.state.step, self.state.params)
-        ckpt_lib.write_optimizer(path, self.state.opt_state)
-        meta = {"step": self.state.step, "train_lm_decoder": self.config.train_lm_decoder,
-                "train_audio_encoder": self.config.train_audio_encoder}
-        if metric is not None:
-            meta[self.config.metric_for_best_model] = metric
-        ckpt_lib.write_json(path, ckpt_lib.META_FILE, meta)
-        self._prune_checkpoints()
-        logger.info("saved checkpoint %s", path)
+        params, opt_state = self._full_state(self.state.params), self._full_state(
+            self.state.opt_state)
+        if self._writer():
+            ckpt_lib.write_params(path, self.state.step, params)
+            ckpt_lib.write_optimizer(path, opt_state)
+            meta = {"step": self.state.step, "train_lm_decoder": self.config.train_lm_decoder,
+                    "train_audio_encoder": self.config.train_audio_encoder}
+            if metric is not None:
+                meta[self.config.metric_for_best_model] = metric
+            ckpt_lib.write_json(path, ckpt_lib.META_FILE, meta)
+            self._prune_checkpoints()
+            logger.info("saved checkpoint %s", path)
+        self._barrier()
         return path
 
     def save_pretrained(self, path: str) -> str:
@@ -621,16 +799,19 @@ class AATTrainer:
         (:func:`~aat_tpu_torch.models.build.model_config_dict`)."""
         from aat_tpu_torch.models.build import model_config_dict
 
-        keep = {"adapter": self.state.params["adapter"]}
+        params = self._full_state(self.state.params)
+        keep = {"adapter": params["adapter"]}
         if self.config.train_audio_encoder:
-            keep["audio_encoder"] = self.state.params["audio_encoder"]
+            keep["audio_encoder"] = params["audio_encoder"]
         if self.config.train_lm_decoder:
-            keep["lm_decoder"] = self.state.params["lm_decoder"]
+            keep["lm_decoder"] = params["lm_decoder"]
         path = os.path.abspath(path)
-        ckpt_lib.write_params(path, self.state.step, keep)
-        ckpt_lib.write_json(path, "config.json",
-                            model_config_dict(self.model, self.config, sorted(keep)))
-        logger.info("saved filtered model (%s) to %s", sorted(keep), path)
+        if self._writer():
+            ckpt_lib.write_params(path, self.state.step, keep)
+            ckpt_lib.write_json(path, "config.json",
+                                model_config_dict(self.model, self.config, sorted(keep)))
+            logger.info("saved filtered model (%s) to %s", sorted(keep), path)
+        self._barrier()
         return path
 
     def _prune_checkpoints(self):
@@ -656,7 +837,7 @@ class AATTrainer:
         reference's ``_keys_to_ignore_on_load_missing``; else raises)."""
         path = os.path.abspath(path)
         saved = ckpt_lib.read_params(path, self.device)
-        flat = saved["params"]
+        flat = self._local_flat(saved["params"], self.state.params)
         opt_state = None
         try:
             params = ckpt_lib.unflatten_like(self.state.params, flat)
@@ -681,7 +862,7 @@ class AATTrainer:
         template = self.state.opt_state
         if flat is None or set(flat) != set(ckpt_lib.flatten(template)):
             return None
-        return ckpt_lib.unflatten_like(template, flat)
+        return ckpt_lib.unflatten_like(template, self._local_flat(flat, template))
 
     def _merge_saved_subtrees(self, path: str, flat: dict, partial: bool) -> dict:
         """The saved top-level subtrees merged into this trainer's params."""

@@ -232,11 +232,39 @@ Phases, one line each:
      ``scripts.validate`` on its export; the export read back by
      ``load_pretrained`` as an EfficientNet run with a ``PoolingConfig``,
      its params bit for bit.
+ 17. multi-device training, after phase 16 with the card freed: phase 8's
+     model (hubert-large, the linear projection, SmolLM-135M; seed 0) at
+     f32 compute (the 3xTF32 kernels: reduction order sets the
+     tolerances), 2 steps of ``projection_training_config()`` on one global
+     batch of 4 utterances of 8-20 s. First an NCCL process group at world
+     size 1 on cuda:0: a step through the mesh code (its collectives on
+     NCCL over one rank) equal bit for bit to the plain step (cuDNN
+     deterministic). Then the one-process reference in this process, for
+     dropout and LayerDrop 0.1 and for 0, its results written under the
+     build directory with the initial state, which the ranks load. Then 4
+     ranks sharing cuda:0 over gloo (``parallel.distributed.launch``), one
+     launch per mesh: ``dp4`` (dropout 0.1, masks keyed on global
+     positions), ``dp2 x fsdp2``, ``dp2 x tp2`` (HuBERT's layers as
+     tensor-parallel bodies; SmolLM's 9 heads do not split, so its
+     tp-sharded leaves are gathered) and ``dp2 x sp2`` (Ulysses attention
+     over full T on 8 heads a rank), dropout 0 for the last three. Each
+     rank's losses must be within ``MESH_LOSS_TOL`` (relative) of the
+     reference's, and at most ``MESH_FLIP_SHARE`` of the trainable
+     coordinates apart by more than ``MESH_FLIP`` (AdamW's first step is
+     sign-like: a rounding-level gradient may flip a whole update); kernels 2-5 launched on every
+     rank, through the 3xTF32 entries. Two planted faults must break those
+     bounds: a rank that keeps its own gradients in place of the reduced
+     ones (dp2 x fsdp2) and dp4 masks keyed as the batch's first rows on
+     every rank. The fsdp ranks' peak memory must be below that of a dp
+     control step on the same rows. It prints each rank's flash launches
+     by C entry, peak memory and step walls (4 ranks sharing one H100, not
+     a scaling number), and the collectives gloo ran, naming those built
+     from others.
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
 long-form steps, phase 13's run A and its serve command, phase 14, each
-remat step of phase 15, its optimizer steps and its unfreeze run A, and
-phase 16's three runs) and
+remat step of phase 15, its optimizer steps and its unfreeze run A,
+phase 16's three runs, and each rank's steps in phase 17) and
 read just after; each kernel of the path must have
 launched there, and each path's flash launches must all go through the C
 entries of one dtype (serving's f32 forward through
@@ -248,7 +276,8 @@ are counted apart, as the path ``train_eval_prefix``, from its bf16 part,
 ``dataset``, phase 15's remat steps as ``train_remat`` and
 ``longform_remat``, its optimizer steps as ``train_optimizers`` and its
 unfreeze run as ``train_unfreeze_cli``; phase 16's as ``train_pooling``,
-``train_efficientnet`` and ``train_projections_cli``). Then a
+``train_efficientnet`` and ``train_projections_cli``; phase 17's dp4 rank 0
+as ``train_multidevice``, each rank's launches checked by the rank). Then a
 JSON line of kernel results, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. In the kernel line the flash entries
 report bf16 (the tensor-core kernels, counting only launches through their
@@ -3565,6 +3594,319 @@ def phase_projection_cli(torch, device, rng, smi_line, tmp):
     return launches, calls
 
 
+
+# phase 17: multi-device training, ranks sharing cuda:0 over gloo
+MESH_RUNS = (
+    # name, mesh, the encoder's dropout and LayerDrop, the fault planted in a second run
+    ("dp4", {"dp": 4}, 0.1, "unshifted_dropout"),
+    ("dp2_fsdp2", {"dp": 2, "fsdp": 2}, 0.0, "no_reduce"),
+    ("dp2_tp2", {"dp": 2, "tp": 2}, 0.0, None),
+    ("dp2_sp2", {"dp": 2, "sp": 2}, 0.0, None),
+)
+MESH_RANKS = 4
+MESH_SECONDS = (8.0, 12.0, 16.0, 20.0)  # the global batch's utterances
+MESH_TIMEOUT = 600  # seconds a launch of the ranks may take
+# the bounds against the one-process trainer after 2 steps (f32 compute on
+# the 3xTF32 kernels, so rounding is reduction order only): the loss of each
+# step within MESH_LOSS_TOL of the reference's, relative. AdamW's first
+# update is sign-like (g / (|g| + 1e-8)), so a coordinate whose gradient is
+# at rounding level may move a whole step (lr ~1e-5 here) the other way:
+# such coordinates (|Δ| > MESH_FLIP) may be at most MESH_FLIP_SHARE of the
+# trainable ones. JAX's parameter bar (1e-4) could not bind here, since 2
+# steps move a coordinate by about 2e-6 at most: the flip share is the
+# parameters' bound.
+MESH_LOSS_TOL = 1e-5
+MESH_FLIP = 1e-6
+MESH_FLIP_SHARE = 1e-4
+
+
+def mesh_model(dropout):
+    """hubert-large (its dropout and LayerDrop at ``dropout``), the linear
+    projection and SmolLM-135M: phase 8's model."""
+    from aat_tpu_torch.models import aslm, hubert, llama
+
+    audio_cfg = dataclasses.replace(hubert.hubert_large_config(), hidden_dropout=dropout,
+                                    attention_dropout=dropout, activation_dropout=dropout,
+                                    layerdrop=dropout)
+    lm_cfg = llama.smollm_135m_config()
+    return aslm.AslmModel(
+        aslm.AslmConfig(projection_type="linear", audio_encoder_embeddings_seq_len=1,
+                        audio_encoder_hidden=audio_cfg.hidden_size, lm_hidden=lm_cfg.hidden_size),
+        audio_cfg, lm_cfg)
+
+
+def mesh_config(mesh=None):
+    """``projection_training_config()`` at f32 compute, one microbatch a step."""
+    from aat_tpu_torch.training.config import projection_training_config
+
+    mesh = mesh or {}
+    return dataclasses.replace(
+        projection_training_config(), compute_dtype="float32", gradient_accumulation_steps=1,
+        per_device_train_batch_size=4 // max(1, mesh.get("dp", 1) * mesh.get("fsdp", 1)),
+        mesh_dp=mesh.get("dp", 1), mesh_fsdp=mesh.get("fsdp", 1), mesh_tp=mesh.get("tp", 1),
+        mesh_sp=mesh.get("sp", 1))
+
+
+def mesh_batch(torch, rng):
+    """The global batch: 4 speech-like utterances of 8-20 s (normalized,
+    padded to 20 s) and captions of 32-48 random ids, as CPU tensors."""
+    waves = [speechlike_waveform(rng, d) for d in MESH_SECONDS]
+    waves = [(w - w.mean()) / (w.std() + 1e-7) for w in waves]
+    n, length = len(waves), max(w.size for w in waves)
+    x = np.zeros((n, length), np.float32)
+    wmask = np.zeros((n, length), np.int32)
+    cap_lens = rng.integers(32, 49, n)
+    ids = np.zeros((n, int(cap_lens.max())), np.int64)
+    cmask = np.zeros(ids.shape, np.int32)
+    for i, (w, c) in enumerate(zip(waves, cap_lens)):
+        x[i, : w.size], wmask[i, : w.size] = w, 1
+        ids[i, :c], cmask[i, :c] = rng.integers(3, 49152, c), 1
+    return {"waveforms": torch.from_numpy(x), "waveforms_attention_mask": torch.from_numpy(wmask),
+            "input_ids": torch.from_numpy(ids), "attention_mask": torch.from_numpy(cmask),
+            "input_ids_attention_mask": torch.from_numpy(cmask)}
+
+
+def trainable_flat(trainer):
+    """The full (gathered) trainable parameters by dotted path: the audio
+    encoder and the adapter."""
+    from aat_tpu_torch.training import checkpoint as ckpt_lib
+
+    full = trainer._full_state(trainer.state.params)
+    return {k: v for k, v in ckpt_lib.flatten(full).items() if not k.startswith("lm_decoder.")}
+
+
+def mesh_steps(torch, trainer, batch, steps=2):
+    """``steps`` optimizer steps on ``batch`` with the launch counters reset
+    first → (losses, step walls, peak memory in bytes, launches by wrapper,
+    flash launches by C entry)."""
+    from aat_tpu_torch.parallel import comm
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    calls = reset_entry_calls()
+    comm.calls.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(steps):
+        start = time.perf_counter()
+        losses.append(trainer.training_step([batch])["train/loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    return (losses, walls, torch.cuda.max_memory_allocated(),
+            {name: w.launches for name, w in wrappers.items()},
+            {e: calls[e] for e in FLASH_ENTRIES["float32"]})
+
+
+def param_diffs(torch, got, ref):
+    """max |Δ| over every coordinate, the coordinates beyond ``MESH_FLIP``
+    and the max |Δ| of the others, of two {path: tensor} maps."""
+    worst = rest = 0.0
+    flips = total = 0
+    for k, want in ref.items():
+        d = (got[k].float() - want.to(got[k].device).float()).abs()
+        worst = max(worst, float(d.max()))
+        beyond = d > MESH_FLIP
+        flips += int(beyond.sum())
+        total += d.numel()
+        rest = max(rest, float(torch.where(beyond, 0.0, d).max()))
+    return {"max_abs": worst, "flips": flips, "coords": total, "rest_max_abs": rest}
+
+
+def mesh_rank(rank, world_size, port, run, paths):
+    """One of the 4 ranks on cuda:0 (gloo): a trainer under ``run``'s mesh
+    from the state the parent wrote, 2 steps on this rank's rows of the
+    global batch, then its parameters (gathered) against the parent's
+    one-process result; again with the run's fault planted, and in the
+    fsdp run once more as a dp control with the same local rows (memory)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    from aat_tpu_torch.ops.dropout import ElementShard
+    from aat_tpu_torch.parallel import comm
+    from aat_tpu_torch.parallel.distributed import initialize
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    name, mesh, dropout, fault = run
+    device = initialize(rank, world_size, f"tcp://localhost:{port}", device="cuda:0",
+                        backend="gloo")
+    batch = {k: v.to(device) for k, v in torch.load(paths["batch"], weights_only=True).items()}
+    ref = torch.load(paths[f"ref_{dropout}"], weights_only=True, mmap=True)
+    reports = {}
+    plans = [("sound", mesh, None)] + ([(fault, mesh, fault)] if fault else [])
+    if "fsdp" in mesh:
+        plans.append(("dp_control", {"dp": world_size}, None))
+    for label, layout, planted in plans:
+        init = torch.load(paths["init"], weights_only=True, mmap=True, map_location=device)
+        trainer = AATTrainer(mesh_model(dropout), init, mesh_config(layout))
+        del init
+        gc.collect()
+        torch.cuda.empty_cache()
+        if planted == "no_reduce" and rank == 1:
+            reduce = trainer._reduce_grads
+            trainer._reduce_grads = lambda grads: (reduce(grads), grads)[1]
+        if planted == "unshifted_dropout":
+            trainer.mesh.element_shard = lambda time=None: ElementShard(0, time)
+        # the dp control feeds each rank the fsdp run's rows (memory only)
+        local = (reports["sound"]["local"] if label == "dp_control"
+                 else trainer.mesh.local_batch(batch))
+        steps = 1 if label == "dp_control" else 2
+        losses, walls, peak, launches, calls = mesh_steps(torch, trainer, local, steps)
+        report = {"losses": losses, "walls": walls, "peak": peak, "launches": launches,
+                  "calls": calls, "collectives": dict(comm.calls), "local": local}
+        if label != "dp_control":
+            report.update(param_diffs(torch, trainable_flat(trainer), ref))
+        reports[label] = report
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    for report in reports.values():
+        del report["local"]
+    return reports
+
+
+def nccl_world_one(torch, device, paths, batch):
+    """One NCCL process group at world size 1 on cuda:0: a trainer step
+    through the mesh code (every collective on NCCL, over one rank) equal
+    bit for bit to the plain step."""
+    import torch.distributed as dist
+
+    from aat_tpu_torch.parallel import comm
+    from aat_tpu_torch.parallel import mesh as mesh_lib
+    from aat_tpu_torch.parallel.distributed import free_port, initialize
+    from aat_tpu_torch.training import checkpoint as ckpt_lib
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    initialize(0, 1, f"tcp://localhost:{free_port()}", device=device)
+    backend = dist.get_backend()
+    # bit for bit needs cuDNN's deterministic algorithms (its conv backward
+    # sums in a run-dependent order otherwise), as in phase 12
+    torch.backends.cudnn.deterministic = True
+    try:
+        results = []
+        for mesh in (None, mesh_lib.make_mesh()):
+            init = torch.load(paths["init"], weights_only=True, map_location=device)
+            trainer = AATTrainer(mesh_model(0.1), init, mesh_config(), mesh=mesh)
+            comm.calls.clear()
+            loss = trainer.training_step([{k: v.to(device) for k, v in batch.items()}])
+            results.append((loss["train/loss"], ckpt_lib.flatten(trainer.state.params),
+                            dict(comm.calls)))
+            del trainer, init
+        (loss_p, plain, _), (loss_m, meshed, collectives) = results
+        differ = [k for k in plain if not torch.equal(plain[k], meshed[k])]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    print(f"nccl world 1: backend {backend}, loss plain {loss_p!r} mesh {loss_m!r}, "
+          f"{len(differ)} of {len(plain)} params differ {differ[:4]}, collectives "
+          f"{collectives}", flush=True)
+    check(backend == "nccl", f"the world-1 group ran {backend}, not nccl")
+    check(loss_p == loss_m and not differ, "the NCCL world-1 mesh step differs from the plain step")
+    check(any(k.endswith("(nccl)") for k in collectives), "no collective ran on NCCL")
+    torch.cuda.empty_cache()
+
+
+def phase_multidevice(torch, device, rng, smi_line):
+    """Phase 17 (module docstring). Returns rank 0's launches by wrapper and
+    by C entry in the dp4 run, the path ``train_multidevice``."""
+    import shutil
+    import tempfile
+
+    from aat_tpu_torch.parallel.distributed import launch
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    phase_start = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(dir=os.path.join(REPO, "aat_tpu_torch", "build"))
+    try:
+        model = mesh_model(0.0)
+        init = model.init_params(0, device="cpu")  # phase 8's seeded weights
+        paths = {"init": os.path.join(tmp, "init.pt"), "batch": os.path.join(tmp, "batch.pt")}
+        torch.save(init, paths["init"])
+        batch = mesh_batch(torch, rng)
+        torch.save(batch, paths["batch"])
+        del init
+        nccl_world_one(torch, device, paths, batch)
+        refs = {}
+        for dropout in sorted({run[2] for run in MESH_RUNS}):
+            trainer = AATTrainer(mesh_model(dropout),
+                                 torch.load(paths["init"], weights_only=True, map_location=device),
+                                 mesh_config())
+            dev_batch = {k: v.to(device) for k, v in batch.items()}
+            losses, walls, peak, _, _ = mesh_steps(torch, trainer, dev_batch)
+            paths[f"ref_{dropout}"] = os.path.join(tmp, f"ref_{dropout}.pt")
+            torch.save({k: v.cpu() for k, v in trainable_flat(trainer).items()},
+                       paths[f"ref_{dropout}"])
+            refs[dropout] = losses
+            print(f"multidevice reference (one process, f32, dropout {dropout}): losses "
+                  f"{losses}, step walls {[round(w, 3) for w in walls]} s, peak "
+                  f"{peak / 2**30:.2f} GiB ({smi_line})", flush=True)
+            del trainer, dev_batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() <= held + 2**28,
+              "the parent did not free the card before the ranks start")
+        results = {}
+        for run in MESH_RUNS:
+            name, mesh, dropout, fault = run
+            start = time.perf_counter()
+            reports = launch(mesh_rank, MESH_RANKS, (run, paths), timeout=MESH_TIMEOUT)
+            results[name] = reports
+            sound = [r["sound"] for r in reports]
+            loss_err = max(abs(a - b) / max(1.0, abs(b)) for r in sound
+                           for a, b in zip(r["losses"], refs[dropout]))
+            flips = max(r["flips"] for r in sound)
+            coords = sound[0]["coords"]
+            print(f"multidevice {name} ({MESH_RANKS} ranks sharing one H100 over gloo, "
+                  f"dropout {dropout}; launch {time.perf_counter() - start:.1f} s): losses "
+                  f"{[r['losses'] for r in sound]} vs {refs[dropout]}, loss rel |d| "
+                  f"{loss_err:.3e}; params max |d| {max(r['max_abs'] for r in sound):.3e}, "
+                  f"beyond {MESH_FLIP:g}: {flips} of {coords} ({flips / coords:.2e}), the rest "
+                  f"within {max(r['rest_max_abs'] for r in sound):.3e}; step walls "
+                  f"{[[round(w, 3) for w in r['walls']] for r in sound]} s (4 ranks sharing "
+                  f"one H100, not a scaling number); peak memory per rank "
+                  f"{[round(r['peak'] / 2**30, 2) for r in sound]} GiB ({smi_line})",
+                  flush=True)
+            for rank, r in enumerate(sound):
+                print(f"multidevice {name} rank {rank}: flash launches {r['launches']}, by C "
+                      f"entry {r['calls']}; collectives {r['collectives']}", flush=True)
+                for kernel in TRAIN_KERNELS:
+                    check(r["launches"][kernel] > 0,
+                          f"{name} rank {rank} never launched the {kernel} kernel")
+                check(all(r["calls"][e] > 0 for e in FLASH_ENTRIES["float32"]),
+                      f"{name} rank {rank}: the f32 step missed a 3xTF32 entry")
+            check(loss_err <= MESH_LOSS_TOL, f"{name}: loss off the one-process run")
+            check(flips <= MESH_FLIP_SHARE * coords, f"{name}: too many coordinates moved apart")
+            if fault:
+                planted = [r[fault] for r in reports]
+                f_loss = max(abs(a - b) / max(1.0, abs(b)) for r in planted
+                             for a, b in zip(r["losses"], refs[dropout]))
+                f_flips = max(r["flips"] for r in planted)
+                print(f"multidevice {name} with the fault {fault} planted: loss rel |d| "
+                      f"{f_loss:.3e}, beyond {MESH_FLIP:g}: {f_flips} of {coords}, max |d| "
+                      f"{max(r['max_abs'] for r in planted):.3e}", flush=True)
+                check(f_loss > MESH_LOSS_TOL or f_flips > MESH_FLIP_SHARE * coords,
+                      f"{name}: the bounds did not see the planted fault {fault}")
+        fsdp_peak = max(r["sound"]["peak"] for r in results["dp2_fsdp2"])
+        dp_peak = max(r["dp_control"]["peak"] for r in results["dp2_fsdp2"])
+        print(f"multidevice memory: dp2 x fsdp2 peak {fsdp_peak / 2**30:.2f} GiB per rank, the "
+              f"dp control with the same rows {dp_peak / 2**30:.2f} GiB ({smi_line})", flush=True)
+        check(fsdp_peak < dp_peak, "fsdp's per-rank peak is not below dp's")
+        collectives = sorted({k for reports in results.values() for r in reports
+                              for k in r["sound"]["collectives"]})
+        print(f"multidevice collectives (gloo; routes built from others named): {collectives}",
+              flush=True)
+        rank0 = results["dp4"][0]["sound"]
+        print(f"phase 17 wall {time.perf_counter() - phase_start:.1f} s", flush=True)
+        return rank0["launches"], {**{e: 0 for names in FLASH_ENTRIES.values() for e in names},
+                                   **rank0["calls"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -3680,6 +4022,9 @@ def main():
     del model, params  # SmolLM and its encoder leave the card before Qwen comes
     gc.collect()
     torch.cuda.empty_cache()
+    # 17. multi-device training: 4 gloo ranks on the card, NCCL at world 1
+    pieces["train_multidevice"] = phase_multidevice(torch, device, np.random.default_rng(17),
+                                                    smi_line)
     # 13. the command lines at full width: the readers, train (and resume),
     # validate and serve
     (cli_launches, cli_calls, cli_prefix_launches, cli_prefix_calls, serve_cli_launches,

@@ -184,7 +184,7 @@ def pooled(tparams, tcfg, x, mask, seed, rate, site=None, monkeypatch=None):
         real = taslm.dropout
         wanted = {fold_seed(seed, layer, site) for layer in range(tcfg.pooling.num_layers)}
         monkeypatch.setattr(taslm, "dropout",
-                            lambda s, v, r: real(s, v, r) if s in wanted else v)
+                            lambda s, v, r, *shard: real(s, v, r, *shard) if s in wanted else v)
     cfg = dataclasses.replace(tcfg, dropout=rate)
     model = taslm.AslmModel(cfg, thub.tiny_test_config(), tllm.tiny_test_config())
     with torch.no_grad():
@@ -214,7 +214,8 @@ def test_each_dropout_site(monkeypatch, site):
     assert torch.equal(pooled(tparams, tcfg, x, mask, 11, 0.0, **run), eval_out)
     calls = []
     real = taslm.dropout
-    monkeypatch.setattr(taslm, "dropout", lambda s, v, r: calls.append(s) or real(s, v, r))
+    monkeypatch.setattr(taslm, "dropout",
+                        lambda s, v, r, *shard: calls.append(s) or real(s, v, r, *shard))
     pooled(tparams, tcfg, x, mask, 11, 0.5)
     assert len(calls) == 4 * tcfg.pooling.num_layers and None not in calls
     assert len(set(calls)) == len(calls)

@@ -191,7 +191,10 @@ def test_port_imports_no_jax():
         "aat_tpu_torch.scripts.melspec_precompute", "aat_tpu_torch.scripts.audio_tokenization",
         "aat_tpu_torch.scripts.reduce_seq_len", "aat_tpu_torch.scripts.merge_datasets",
         "aat_tpu_torch.scripts.dataset_info", "aat_tpu_torch.scripts.inspect_embeddings",
-        "aat_tpu_torch.scripts.parity_check",
+        "aat_tpu_torch.scripts.parity_check", "aat_tpu_torch.parallel",
+        "aat_tpu_torch.parallel.distributed", "aat_tpu_torch.parallel.mesh",
+        "aat_tpu_torch.parallel.sequence", "aat_tpu_torch.parallel.comm",
+        "aat_tpu_torch.models.efficientnet",
     ]
     code = (
         "import sys\n"

@@ -156,13 +156,32 @@ def test_train_mode_dropout_is_deterministic():
 
 
 def test_unported_options_raise():
+    """Multi-device training is ported but for the pipeline axis and
+    Adafactor under fsdp / tp (ROADMAP item 8b); sp with pp is refused as
+    JAX refuses it; a mesh must cover the process group exactly."""
+    import torch.distributed as dist
+
+    from aat_tpu_torch.parallel.distributed import free_port
+
     _, tm = models()
     jm, _ = models()
     params = from_jax_params(jax.device_get(jax_params(jm)))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        TConfig(mesh_dp=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TTrainer(tm, params, TConfig(**TRAIN), mesh=object())
+    TConfig(**dict(TRAIN, mesh_dp=2, mesh_fsdp=2, mesh_tp=2, mesh_sp=2))  # no longer refused
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        TTrainer(tm, params, TConfig(**dict(TRAIN, mesh_sp=2, mesh_pp=2)))
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        TTrainer(tm, params, TConfig(**dict(TRAIN, mesh_pp=2)))
+    for axis in ("mesh_fsdp", "mesh_tp"):
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            TTrainer(tm, params, TConfig(**dict(TRAIN, optimizer="adafactor",
+                                                learning_rate=None, **{axis: 2})))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(ValueError, match="2 ranks, the process group 1"):
+            TTrainer(tm, params, TConfig(**dict(TRAIN, mesh_dp=2)))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_raw_waveform_batch_equals_presegmented():
