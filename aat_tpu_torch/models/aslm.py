@@ -20,8 +20,9 @@ The audio encoder is HuBERT / wav2vec2 on segment waveforms
   (``(layer, site)``), where JAX splits a key.
 
 ``AslmModel.mesh`` is the trainer's mesh (:mod:`aat_tpu_torch.parallel`),
-or None: the model passes it to the encoder and the LM (their tensor- and
-sequence-parallel routes, EfficientNet's global-batch statistics), and
+or None: the model passes it to the encoder and the LM (their tensor-,
+sequence- and pipeline-parallel routes, the last in
+``AslmModel.pp_microbatches``; EfficientNet's global-batch statistics), and
 keys the projection's masks on the rows' global positions
 (:class:`~aat_tpu_torch.ops.dropout.ElementShard`), so data parallelism
 draws one device's masks.
@@ -201,6 +202,7 @@ class AslmModel:
         self.lm_config = lm_config
         self.audio_encoder_type = audio_encoder_type
         self.mesh = None  # the trainer's parallel.mesh.Mesh, which it sets and clears
+        self.pp_microbatches = 0  # the pipeline's microbatch count (0: 2·pp), the trainer's
 
     def init_params(self, seed: int, device=None) -> dict:
         """Int-seed init: encoder from ``seed``, adapter from ``seed + 1``,
@@ -226,7 +228,7 @@ class AslmModel:
         frames of padded segments (``segments_mask`` 0) are masked out."""
         frames, frame_mask = hub.hubert_encode(
             params["audio_encoder"], self.audio_encoder_config, waveforms, waveforms_mask,
-            dropout_seed=dropout_seed, mesh=self.mesh)
+            dropout_seed=dropout_seed, mesh=self.mesh, microbatches=self.pp_microbatches)
         if frame_mask is None:
             frame_mask = torch.ones(frames.shape[:2], dtype=torch.bool, device=frames.device)
         if segments_mask is not None:
@@ -355,9 +357,11 @@ class AslmModel:
             logits, _ = llm.llama_forward(
                 params["lm_decoder"], self.lm_config, inputs_embeds=packed,
                 attention_mask=mask, positions=positions.expand(b // pack, pack * t),
-                pack_len=t, logit_caption_len=caption_len, mesh=self.mesh)
+                pack_len=t, logit_caption_len=caption_len, mesh=self.mesh,
+                microbatches=self.pp_microbatches)
             return logits.reshape(b, out_t or t, logits.shape[-1])
         logits, _ = llm.llama_forward(
             params["lm_decoder"], self.lm_config, inputs_embeds=inputs_embeds,
-            attention_mask=attention_mask, logit_caption_len=caption_len, mesh=self.mesh)
+            attention_mask=attention_mask, logit_caption_len=caption_len, mesh=self.mesh,
+            microbatches=self.pp_microbatches)
         return logits

@@ -53,10 +53,20 @@ time before the last layer norm. Every dropout mask is keyed on the
 element's global position (:class:`~aat_tpu_torch.ops.dropout.
 ElementShard`), so data parallelism draws one device's masks.
 
-Left out (TPU layout devices): pipeline parallelism (ROADMAP Queue 1 item
-8b), the chunked and im2col/space-to-depth conv forms, and the pre-pad to
-the flash block multiple (with dropout on, the pre-pad changes the flat
-positions the JAX masks are keyed on).
+Under pipeline parallelism (the mesh's pp axis; JAX's
+``_encoder_pipelined``) the layers arrive stacked, this stage's slice, and
+run in :func:`~aat_tpu_torch.parallel.pipeline.gpipe_apply`'s schedule:
+tensor-parallel bodies inside the stage where :func:`tp_partitionable`
+holds, remat inside it, LayerDrop decided once a layer a step for the
+whole batch on the *global* layer index (a skipped layer is skipped, as in
+the one-device loop), and each microbatch's masks keyed as its first
+global row, so they equal one device's. (JAX folds the microbatch index
+into its keys instead, so its pp masks differ from its own one-device
+run's.) Pipeline and sequence parallelism do not nest.
+
+Left out (TPU layout devices): the chunked and im2col/space-to-depth conv
+forms, and the pre-pad to the flash block multiple (with dropout on, the
+pre-pad changes the flat positions the JAX masks are keyed on).
 """
 
 from __future__ import annotations
@@ -79,6 +89,7 @@ from aat_tpu_torch.ops.dropout import (
     uniform_from_seed,
 )
 from aat_tpu_torch.parallel import comm, sequence
+from aat_tpu_torch.parallel.pipeline import gpipe_apply, layer_seq
 from aat_tpu_torch.utils.port import encoder_from_jax
 
 # the attention seed's salt per tp index (JAX's pipeline bodies, hubert.py:514-519)
@@ -381,28 +392,60 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _run_layer(layer, config: HubertConfig, hidden, frame_mask, seed, shard=None, mesh=None):
-    """One encoder layer, checkpointed when ``config.remat`` and autograd
-    is recording."""
+def run_remat(fn, config, *args):
+    """``fn(*args)``, one layer, checkpointed when ``config.remat`` and
+    autograd is recording: ``"full"`` keeps only its inputs, ``"dots"``
+    (``config.remat_policy``) the outputs of :func:`_dots_policy`'s
+    products too. The layers draw no torch RNG (dropout hashes its seed),
+    so the RNG state need not be saved for the recompute."""
     if not (config.remat and torch.is_grad_enabled()):
-        return _layer(layer, config, hidden, frame_mask, seed, shard, mesh)
+        return fn(*args)
     kw = {}
     if config.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
-    # the layer draws no torch RNG (dropout hashes its seed), so the RNG
-    # state need not be saved for the recompute
-    return torch_checkpoint.checkpoint(_layer, layer, config, hidden, frame_mask, seed, shard,
-                                       mesh, use_reentrant=False, preserve_rng_state=False, **kw)
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                                       **kw)
+
+
+def _run_layer(layer, config: HubertConfig, hidden, frame_mask, seed, shard=None, mesh=None):
+    """One encoder layer, checkpointed when ``config.remat``."""
+    return run_remat(_layer, config, layer, config, hidden, frame_mask, seed, shard, mesh)
+
+
+def _dropped(config: HubertConfig, seed: Optional[int]) -> bool:
+    """Whether LayerDrop skips the layer of ``seed`` (one draw a layer a
+    step, for the whole batch)."""
+    return (seed is not None and config.layerdrop > 0.0
+            and uniform_from_seed(fold_seed(seed, _LAYERDROP_SITE)) < config.layerdrop)
+
+
+def _encoder_pipelined(params, config: HubertConfig, hidden, frame_mask, dropout_seed, mesh,
+                       microbatches: int):
+    """The layer stack GPipe'd over ``mesh``'s pp axis (this stage's
+    stacked layers), LayerDrop on the global layer index."""
+    if frame_mask is None:
+        frame_mask = torch.ones(hidden.shape[:2], dtype=torch.bool, device=hidden.device)
+
+    def layer_fn(h, layer, idx, shard, mask):
+        seed = fold_seed(dropout_seed, idx) if dropout_seed is not None else None
+        if _dropped(config, seed):
+            return h
+        return _run_layer(layer, config, h, mask, seed, shard, mesh)
+
+    return gpipe_apply(layer_fn, params["layers"], hidden, (frame_mask,), mesh,
+                       num_layers=config.num_hidden_layers, microbatches=microbatches)
 
 
 def encoder(params, config: HubertConfig, hidden: torch.Tensor,
             frame_mask: Optional[torch.Tensor],
-            dropout_seed: Optional[int] = None, mesh=None) -> torch.Tensor:
+            dropout_seed: Optional[int] = None, mesh=None,
+            microbatches: int = 0) -> torch.Tensor:
     """Transformer encoder. ``dropout_seed`` selects train mode: hidden
     dropout after the positional conv, per-layer dropout, and LayerDrop
     (one draw per layer per call skips the whole layer for the batch).
-    Under ``mesh``'s sp the layer stack runs on this rank's time slice."""
+    Under ``mesh``'s sp the layer stack runs on this rank's time slice;
+    under its pp it is pipelined in ``microbatches`` (0: 2·pp)."""
     eps = config.layer_norm_eps
     shard = mesh.element_shard() if mesh is not None else None
     if frame_mask is not None:
@@ -415,16 +458,24 @@ def encoder(params, config: HubertConfig, hidden: torch.Tensor,
                          shard)
     t = hidden.shape[1]
     sequence_parallel = mesh is not None and mesh.size("sp") > 1
+    if mesh is not None and mesh.size("pp") > 1:
+        if sequence_parallel:
+            raise ValueError("pipeline and sequence parallelism cannot nest in the encoder")
+        hidden = _encoder_pipelined(params, config, hidden, frame_mask, dropout_seed, mesh,
+                                    microbatches)
+        if config.do_stable_layer_norm:
+            hidden = _layer_norm(hidden, params["encoder_layer_norm"], eps)
+        return hidden
     if sequence_parallel:
         if frame_mask is None:
             frame_mask = torch.ones(hidden.shape[:2], dtype=torch.bool, device=hidden.device)
         hidden = sequence.shard_time(hidden, mesh)
         frame_mask = sequence.shard_time(frame_mask, mesh)
         shard = mesh.element_shard(time=(mesh.index("sp") * hidden.shape[1], t))
-    for idx, layer in enumerate(params["layers"][: config.num_hidden_layers]):
+    n = config.num_hidden_layers
+    for idx, layer in enumerate(layer_seq(params["layers"], n)[:n]):
         seed = fold_seed(dropout_seed, idx) if dropout_seed is not None else None
-        if (seed is not None and config.layerdrop > 0.0
-                and uniform_from_seed(fold_seed(seed, _LAYERDROP_SITE)) < config.layerdrop):
+        if _dropped(config, seed):
             continue
         hidden = _run_layer(layer, config, hidden, frame_mask, seed, shard, mesh)
     if sequence_parallel:
@@ -436,11 +487,12 @@ def encoder(params, config: HubertConfig, hidden: torch.Tensor,
 
 def hubert_encode(params: dict, config: HubertConfig, waveform: torch.Tensor,
                   attention_mask: Optional[torch.Tensor] = None,
-                  dropout_seed: Optional[int] = None, mesh=None):
+                  dropout_seed: Optional[int] = None, mesh=None, microbatches: int = 0):
     """[B, L] waveforms → ([B, T, H] frames, [B, T] bool frame mask or None)
     (``HubertModel.forward`` with mask_time_prob=0). Passing an int32
     ``dropout_seed`` selects train mode; omitting it gives eval mode.
-    ``mesh`` (the trainer's, or None) selects the tp and sp routes."""
+    ``mesh`` (the trainer's, or None) selects the tp, sp and pp routes;
+    ``microbatches`` is the pipeline's count."""
     features = _conv_stack(params, config, waveform)
     frame_mask = None
     if attention_mask is not None:
@@ -454,4 +506,4 @@ def hubert_encode(params: dict, config: HubertConfig, waveform: torch.Tensor,
         hidden = dropout(fold_seed(dropout_seed, 0), hidden, config.feature_projection_dropout,
                          shard)
         seed_enc = fold_seed(dropout_seed, 1)
-    return encoder(params, config, hidden, frame_mask, seed_enc, mesh), frame_mask
+    return encoder(params, config, hidden, frame_mask, seed_enc, mesh, microbatches), frame_mask

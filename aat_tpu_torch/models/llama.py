@@ -13,11 +13,18 @@ Routes of attention: the KV cache (serving prefill and decode), the
 plain no-cache route, and the causal flash route that a no-cache
 ``attention_impl="pallas"`` call takes at T >= 256 (training and the
 eval-loss forward). Also ported: sequence packing (``pack_len``),
-caption-sliced logits (``logit_caption_len``) and, given the trainer's
-mesh (``llama_forward(mesh=...)``), tensor parallelism where
+caption-sliced logits (``logit_caption_len``), remat of the no-cache
+route (``LlamaConfig.remat`` / ``remat_policy``, HuBERT's ``"full"`` and
+``"dots"`` machinery) and, given the trainer's mesh
+(``llama_forward(mesh=...)``), tensor parallelism where
 :func:`tp_partitionable` holds: each layer a Megatron body on this rank's
-heads, kv heads and MLP columns, the out and down products all-reduced.
-Not ported: remat and pipeline parallelism (ROADMAP Queue 1 item 8b).
+heads, kv heads and MLP columns, the out and down products all-reduced;
+and under the mesh's pp axis the no-cache route pipelined
+(:func:`~aat_tpu_torch.parallel.pipeline.gpipe_apply` over this stage's
+stacked layers; the per-row rotary tables, mask bias and key mask follow
+the microbatch split; tp bodies inside where :func:`tp_partitionable`
+holds). The KV-cache route runs a stacked tree's layers as a plain loop
+(JAX's ``layer_seq``): generation gathers the whole LM.
 """
 
 from __future__ import annotations
@@ -29,9 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aat_tpu_torch.models.hubert import np_rng_from
+from aat_tpu_torch.models.hubert import np_rng_from, run_remat
 from aat_tpu_torch.ops import attention as attn_ops
 from aat_tpu_torch.parallel import comm
+from aat_tpu_torch.parallel.pipeline import gpipe_apply, layer_seq
 from aat_tpu_torch.utils.port import to_tensors
 
 
@@ -49,6 +57,8 @@ class LlamaConfig:
     tie_word_embeddings: bool = True
     attention_bias: bool = False
     attention_impl: str = "xla"  # 'xla' | 'pallas' (causal flash kernel)
+    remat: bool = False  # recompute decoder layers in the backward (no-cache route)
+    remat_policy: str = "full"  # 'full' | 'dots' (see HubertConfig)
 
     @property
     def head_dim(self) -> int:
@@ -284,6 +294,25 @@ def causal_mask_bias(attention_mask: torch.Tensor, q_len: int, kv_len: int,
     return torch.where(allowed, 0.0, neg).to(torch.float32)[:, None, :, :]
 
 
+def _layer(layer, config: LlamaConfig, hidden, cos, sin, mask_bias, cache, cache_index,
+           attention_mask, pack_len, mesh):
+    """One decoder layer: pre-norm attention, then the pre-norm MLP."""
+    attn_in = _rms_norm(hidden, layer["input_norm"], config.rms_norm_eps)
+    hidden = hidden + _attention(layer["attention"], config, attn_in, cos, sin, mask_bias, cache,
+                                 cache_index, key_padding_mask=attention_mask,
+                                 pack_len=pack_len, mesh=mesh)
+    mlp_in = _rms_norm(hidden, layer["post_attention_norm"], config.rms_norm_eps)
+    return hidden + _mlp(layer["mlp"], mlp_in, config, mesh)
+
+
+def _run_layer(layer, config: LlamaConfig, hidden, cos, sin, mask_bias, attention_mask,
+               pack_len, mesh):
+    """One layer of the no-cache route, checkpointed when ``config.remat``
+    (HuBERT's :func:`~aat_tpu_torch.models.hubert.run_remat`)."""
+    return run_remat(_layer, config, layer, config, hidden, cos, sin, mask_bias, None, 0,
+                     attention_mask, pack_len, mesh)
+
+
 def llama_forward(params: dict, config: LlamaConfig,
                   input_ids: Optional[torch.Tensor] = None,
                   inputs_embeds: Optional[torch.Tensor] = None,
@@ -292,7 +321,8 @@ def llama_forward(params: dict, config: LlamaConfig,
                   kv_caches: Optional[list] = None,
                   cache_index=0,
                   pack_len: Optional[int] = None,
-                  logit_caption_len: Optional[int] = None, mesh=None):
+                  logit_caption_len: Optional[int] = None, mesh=None,
+                  microbatches: int = 0):
     """Returns (logits [B, T, V] f32, kv_caches).
 
     Prefill: embeds/ids and a [B, T] mask (or a [B, L_cache] mask with
@@ -303,7 +333,9 @@ def llama_forward(params: dict, config: LlamaConfig,
     ``positions``). ``logit_caption_len``: logits only for the shifted
     caption window, ``[B, K·(cl−1), V]`` with K packed utterances per row;
     the hidden state is sliced before the final norm and the vocab GEMM.
-    ``mesh`` (the trainer's, or None) selects the tensor-parallel bodies."""
+    ``mesh`` (the trainer's, or None) selects the tensor-parallel bodies
+    and, without ``kv_caches``, the pipeline (in ``microbatches``, 0:
+    2·pp)."""
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids)
     b, t, _ = inputs_embeds.shape
@@ -325,15 +357,26 @@ def llama_forward(params: dict, config: LlamaConfig,
                                  0 if kv_caches is None else cache_index, pack_len)
 
     hidden = inputs_embeds
-    for i, layer in enumerate(params["layers"][: config.num_hidden_layers]):
-        cache = kv_caches[i] if kv_caches is not None else None
-        attn_in = _rms_norm(hidden, layer["input_norm"], config.rms_norm_eps)
-        hidden = hidden + _attention(layer["attention"], config, attn_in, cos, sin,
-                                     mask_bias, cache, cache_index,
-                                     key_padding_mask=attention_mask, pack_len=pack_len,
-                                     mesh=mesh)
-        mlp_in = _rms_norm(hidden, layer["post_attention_norm"], config.rms_norm_eps)
-        hidden = hidden + _mlp(layer["mlp"], mlp_in, config, mesh)
+    n = config.num_hidden_layers
+    if kv_caches is None and mesh is not None and mesh.size("pp") > 1:
+        # the per-row tables follow the microbatch split
+        cos, sin = (x.expand(b, *x.shape[1:]) for x in (cos, sin))
+        mask_bias = mask_bias.expand(b, *mask_bias.shape[1:])
+
+        def layer_fn(h, layer, idx, shard, cos_mb, sin_mb, bias_mb, mask_mb):
+            return _run_layer(layer, config, h, cos_mb, sin_mb, bias_mb, mask_mb, pack_len, mesh)
+
+        hidden = gpipe_apply(layer_fn, params["layers"], hidden,
+                             (cos, sin, mask_bias, attention_mask), mesh, num_layers=n,
+                             microbatches=microbatches)
+    elif kv_caches is None:
+        for layer in layer_seq(params["layers"], n)[:n]:
+            hidden = _run_layer(layer, config, hidden, cos, sin, mask_bias, attention_mask,
+                                pack_len, mesh)
+    else:
+        for i, layer in enumerate(layer_seq(params["layers"], n)[:n]):
+            hidden = _layer(layer, config, hidden, cos, sin, mask_bias, kv_caches[i],
+                            cache_index, attention_mask, pack_len, mesh)
 
     if logit_caption_len is not None:
         if kv_caches is not None:

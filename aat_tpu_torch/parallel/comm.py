@@ -10,15 +10,18 @@ fsdp gather, whose users see different rows), :func:`gather_from_group`
 (all-gather forward, own chunk backward: the users are replicated) and
 :func:`scatter_to_group` (own chunk forward, all-gather backward).
 :func:`all_reduce_sum` sums with a summed gradient (batch-norm statistics
-over the data ranks), and :func:`all_to_all` is Ulysses' exchange. A
-``group`` of ``None`` is a group of one rank: every function is then the
-identity.
+over the data ranks), :func:`all_to_all` is Ulysses' exchange, and
+:func:`ring_permute` the pipeline's hand-off (JAX's ``lax.ppermute`` over
+``pp``: send to the next rank of the group, receive from the previous one;
+its gradient goes round the reverse ring). A ``group`` of ``None`` is a
+group of one rank: every function is then the identity.
 
 The backend runs each collective on the tensor as it is, except where gloo
 has none for it: gloo's ``reduce_scatter`` is built from its
 ``all_reduce`` and the rank's own chunk, and a CUDA tensor's
-``all_to_all`` goes through host memory (gloo's runs on CPU tensors
-only). :data:`calls` counts each collective by its route.
+``all_to_all`` and point-to-point exchange go through host memory (gloo's
+run on CPU tensors only). :data:`calls` counts each collective by its
+route, and :data:`ring_bytes` the bytes the ring permute sent.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 calls: collections.Counter = collections.Counter()  # {"op (route)": count}
+ring_bytes: collections.Counter = collections.Counter()  # {"forward" | "backward": bytes sent}
 
 
 def _route(op: str, x: torch.Tensor, group) -> str:
@@ -93,6 +97,38 @@ def _all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torc
     if staged:
         out = out.to(x.device)
     return torch.cat(out.unbind(0), concat_dim)  # chunk i came from rank i
+
+
+def _ring(x: torch.Tensor, group, shift: int, direction: str) -> torch.Tensor:
+    """Send ``x`` to the group rank ``shift`` ahead (mod the group's size)
+    and return what the rank ``shift`` behind sent. Every send and receive
+    of the step is posted before any is waited on: a blocking send then
+    receive would deadlock the ring."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    send = x.contiguous()
+    route = _count("ring_permute", send, group)
+    ring_bytes[direction] += send.numel() * send.element_size()
+    staged = route == "gloo through host memory"
+    if staged:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (me + shift) % n), group),
+           dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (me - shift) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return recv.to(x.device) if staged else recv
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _ring(x, group, 1, "forward")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring(g, ctx.group, -1, "backward"), None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -194,6 +230,13 @@ def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def gather_sum_grad(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return x if group is None else _GatherSumGrad.apply(x, group, dim)
+
+
+def ring_permute(x: torch.Tensor, group) -> torch.Tensor:
+    """What the previous rank of ``group`` passed (each rank passes ``x`` to
+    the next, the last to the first); the gradient goes back round the
+    reverse ring."""
+    return x if group is None else _RingPermute.apply(x, group)
 
 
 def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:

@@ -4,21 +4,28 @@
 One process per device. Rank r sits at ``np.unravel_index(r, (dp, fsdp,
 tp, sp, pp))``, JAX's row-major device order, and every set of axes has a
 process group: the ranks that share the coordinates of the other axes,
-in rank order. The pipeline axis is ROADMAP Queue 1 item 8b.
+in rank order.
 
 Parameters are *stored* as the JAX package's ``_spec_for`` shards them
 (:func:`spec_for`, :func:`shard_params`, :func:`place_params`), so each
 rank keeps 1/fsdp (and 1/tp) of a sharded leaf and of its optimizer
-moments. At *use* (:meth:`Mesh.use_params`) a tp-sharded leaf inside a
-tensor-parallel body (the models' layers, where their ``tp_partitionable``
-holds) stays its shard, and every other sharded leaf is all-gathered:
-over fsdp with a reduce-scatter gradient (the fsdp ranks see other
-rows), over tp with the rank's own chunk of the gradient (tp peers
-compute the same loss). So results equal GSPMD's without a
-vocab-parallel cross-entropy. After the backward, :meth:`Mesh.reduce_grads`
-sums each leaf's gradient over the ranks that computed distinct parts of
-it: dp, fsdp where the leaf is not fsdp-sharded, and sp for the leaves
-of the time-sharded encoder stack.
+moments. Under pp the pipelined stacks are stacked (a dict-valued
+``layers``, :mod:`~aat_tpu_torch.parallel.pipeline`): each of their leaves
+is ``[L, ...]`` with the layer dim on ``pp``
+(:func:`~aat_tpu_torch.parallel.pipeline.stacked_leaf_spec`), tp by role
+only where the stack is tp-partitionable, fsdp on a wide axis of the
+matrices. At *use* (:meth:`Mesh.use_params`) a leaf keeps its pp shard (the
+stage's layers), a tp-sharded leaf inside a tensor-parallel body (the
+models' layers, where their ``tp_partitionable`` holds) stays its shard,
+and every other sharded leaf is all-gathered: over fsdp with a
+reduce-scatter gradient (the fsdp ranks see other rows), over tp with the
+rank's own chunk of the gradient (tp peers compute the same loss). So
+results equal GSPMD's without a vocab-parallel cross-entropy. After the
+backward, :meth:`Mesh.reduce_grads` sums each leaf's gradient over the
+ranks that computed distinct parts of it: dp, fsdp where the leaf is not
+fsdp-sharded, and sp for the leaves of the time-sharded encoder stack;
+never over pp (the pipeline's boundary operators leave each pp peer the
+same gradient of every leaf outside the stacks).
 
 A :class:`Spec` has one entry per dimension: ``None``, an axis name, or a
 tuple of names (the vocab axis of an embedding under tp and fsdp, split
@@ -29,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,7 +48,6 @@ from aat_tpu_torch.training.optim import tree_leaves, tree_map, tree_paths
 from aat_tpu_torch.utils import port
 
 AXES = ("dp", "fsdp", "tp", "sp", "pp")
-PIPELINE_ITEM = "ROADMAP Queue 1 item 8b"
 
 # the JAX rules' module names (``mesh.py:_spec_for``)
 COLUMN_PARALLEL = ("/q/", "/k/", "/v/", "/gate/", "/up/", "/intermediate/", "/in_proj/",
@@ -104,17 +110,55 @@ def jax_path(keys: Iterable) -> str:
     return "/" + "".join(f"/{k}/" for k in keys)
 
 
-def shard_params(params, sizes: Dict[str, int]):
+def stacked_prefixes(params) -> list:
+    """The paths (``"audio_encoder/layers/"``) of the dict-valued ``layers``
+    nodes of a tree: the stacked layout of the pipelined stacks."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "layers" and isinstance(v, dict):
+                    out.append(f"{path}{k}/")
+                else:
+                    walk(v, f"{path}{k}/")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}{i}/")
+
+    walk(params, "")
+    return out
+
+
+def shard_params(params, sizes: Dict[str, int], stacked_tp: Optional[Dict[str, bool]] = None):
     """The spec of every leaf of a port parameter tree (anything with a
     ``shape``), in the port's layout: a conv kernel's spec is JAX's for its
     JAX-layout shape, carried through its axis permutation
-    (:func:`aat_tpu_torch.utils.port.encoder_conv_perms`)."""
+    (:func:`aat_tpu_torch.utils.port.encoder_conv_perms`). Under pp a leaf
+    of a stacked ``layers`` (whose layer count pp divides) gets
+    :func:`~aat_tpu_torch.parallel.pipeline.stacked_leaf_spec`, with tp only
+    where ``stacked_tp`` holds for its top-level subtree (JAX
+    ``mesh.shard_params``)."""
+    from aat_tpu_torch.parallel.pipeline import stacked_layer_specs
+
     perms = {"/".join(map(str, p)): perm for p, perm in port.conv_perms(params).items()}
+    pp = sizes.get("pp", 1)
+    stacked = {}  # the stacked leaves' specs, by path
+    for prefix in stacked_prefixes(params) if pp > 1 else ():
+        keys = prefix.strip("/").split("/")
+        subtree = params
+        for k in keys:
+            subtree = subtree[int(k) if isinstance(subtree, list) else k]
+        tp = sizes.get("tp", 1) if (stacked_tp or {}).get(keys[0], False) else 1
+        stacked.update({prefix + p: dims for p, dims in
+                        stacked_layer_specs(subtree, tp, sizes.get("fsdp", 1)).items()})
 
     def spec(path, leaf):
         shape = tuple(leaf.shape)
         perm = perms.get(path)
         keys = path.split("/")
+        if path in stacked and shape[0] % pp == 0:
+            return Spec(stacked[path])
         if perm is None:
             return Spec(spec_for(jax_path(keys), shape, sizes))
         jax_shape = tuple(shape[perm.index(j)] for j in range(len(shape)))
@@ -214,7 +258,7 @@ class Mesh:
             x = self._chunk(x, dim, entry)
         return x
 
-    def _gather(self, x, spec: Spec, keep_tp: bool, grad: bool):
+    def _gather(self, x, spec: Spec, keep_tp: bool, grad: bool, keep_pp: bool = True):
         for dim, entry in enumerate(spec.dims):
             axes = _axes_of(entry)
             if "fsdp" in axes:
@@ -222,14 +266,17 @@ class Mesh:
                     x, self.group("fsdp"), dim)
             if "tp" in axes and not keep_tp:
                 x = comm.gather_from_group(x, self.group("tp"), dim)
+            if "pp" in axes and not keep_pp:
+                x = comm.gather_from_group(x, self.group("pp"), dim)
         return x
 
     def use_params(self, params, specs, tp_bodies: Sequence[str] = (), grad: bool = True):
         """The tree the forward uses: each sharded leaf all-gathered, except
-        that under a path prefix of ``tp_bodies`` a tp-sharded leaf stays
-        its shard and a 1-D leaf of a column-parallel module is cut to this
+        that a stacked leaf keeps its pp shard (the stage's layers) and,
+        under a path prefix of ``tp_bodies``, a tp-sharded leaf stays its
+        shard and a 1-D leaf of a column-parallel module is cut to this
         rank's chunk (gradient all-gathered). ``grad=False`` gathers without
-        building gradients (evaluation, generation, checkpoints)."""
+        building gradients (evaluation, generation)."""
         tp_group = self.group("tp")
 
         def use(path, x, spec):
@@ -244,8 +291,10 @@ class Mesh:
         return tree_map(use, tree_paths(params), params, specs)
 
     def full_params(self, params, specs):
-        """Every leaf gathered whole (no gradient)."""
-        return self.use_params(params, specs, grad=False)
+        """Every leaf gathered whole, the stacks over pp too (no gradient:
+        checkpoints, generation's LM)."""
+        return tree_map(lambda x, spec: None if x is None else self._gather(
+            x, spec, keep_tp=False, grad=False, keep_pp=False), params, specs)
 
     def reduce_grads(self, grads, specs, sp_paths: Sequence[str] = ()):
         """Sum each leaf's gradient over dp, over fsdp where the leaf is not
@@ -277,8 +326,9 @@ class Mesh:
 
     def global_norm(self, tree, specs) -> torch.Tensor:
         """sqrt of the sum of squares of the whole (unsharded) tree: each
-        sharded leaf's shards summed over its axes, each replicated leaf
-        counted once (``None`` leaves are zero)."""
+        sharded leaf's shards summed over its axes (a stacked leaf's over
+        pp: each stage's layers once), each replicated leaf counted once
+        (``None`` leaves are zero)."""
         leaves = tree_leaves(tree)
         sums: Dict[tuple, torch.Tensor] = {}
         for x, spec in zip(leaves, tree_leaves(specs)):
@@ -298,10 +348,7 @@ class Mesh:
 
 def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1) -> Mesh:
     """The mesh of the initialized process group. Its size must be the
-    world size; ``pp > 1`` is not ported yet."""
-    if pp > 1:
-        raise NotImplementedError(f"mesh_pp={pp}: pipeline parallelism is not ported yet "
-                                  f"({PIPELINE_ITEM})")
+    world size."""
     sizes = {"dp": dp, "fsdp": fsdp, "tp": tp, "sp": sp, "pp": pp}
     if any(v < 1 for v in sizes.values()):
         raise ValueError(f"mesh axes must be >= 1, got {sizes}")

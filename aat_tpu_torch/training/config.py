@@ -2,7 +2,8 @@
 ``aat_tpu/training/config.py``): the same fields, defaults and preset
 factories. The ``mesh_*`` fields lay the ranks of an initialized process
 group out as the trainer's mesh (:mod:`aat_tpu_torch.parallel.mesh`);
-the trainer refuses ``mesh_pp > 1`` (ROADMAP Queue 1 item 8b).
+``pp_microbatches`` is the pipeline's microbatch count under ``mesh_pp >
+1`` (:mod:`aat_tpu_torch.parallel.pipeline`).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 weight-decay groups and the freeze mask; ``fused_guarded_adamw``, the
 trainer's optimizer whenever ``skip_nonfinite_updates`` is on (its
 default); the unfused chain ``adamw_grouped`` with ``guard_nonfinite``;
-``adafactor`` (optax's, under the JAX package's settings); and
+``adafactor`` (optax's, under the JAX package's settings, also on
+leaves sharded over a mesh); and
 ``merge_matching_state``, which carries optimizer state across a rebuild
 (the LM unfreeze).
 
@@ -319,8 +320,35 @@ def relative_step(count: torch.Tensor) -> torch.Tensor:
     return torch.clamp_max(torch.rsqrt(count.float() + 1.0), 1e-2)
 
 
+def _spec_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _leaf_mean(x: torch.Tensor, dims, spec, mesh, keepdim: bool = False) -> torch.Tensor:
+    """The mean of ``x`` over ``dims`` (None: all), over the whole leaf: where
+    ``spec`` (the leaf's :class:`~aat_tpu_torch.parallel.mesh.Spec`) shards a
+    reduced dim, the shards' sums are all-reduced over its axes and divided
+    by the whole count, as GSPMD computes it. Unsharded: ``x.mean``."""
+    whole = dims is None
+    dims = tuple(range(x.ndim)) if whole else tuple(dims)
+    axes = sorted({a for d in dims for a in _spec_axes(spec.dims[d])}) if spec is not None else []
+    if mesh is None or not axes or mesh.size(*axes) == 1:
+        return torch.mean(x) if whole else x.mean(dims, keepdim=keepdim)
+    from aat_tpu_torch.parallel import comm
+
+    total = comm.all_reduce(x.sum(dims, keepdim=keepdim), mesh.group(*axes), in_place=True)
+    return total / float(np.prod([x.shape[d] for d in dims]) * mesh.size(*axes))
+
+
+def drop_dim(spec, dim: int):
+    """A Spec without dimension ``dim`` (a statistic reduced over it)."""
+    return type(spec)(tuple(e for i, e in enumerate(spec.dims) if i != dim))
+
+
 def adafactor(learning_rate=None, weight_decay: float = 0.0, freeze: Optional[dict] = None,
-              axes: Optional[dict] = None) -> GradientTransformation:
+              axes: Optional[dict] = None, mesh=None, specs=None) -> GradientTransformation:
     """``optax.adafactor`` under the JAX package's settings (``optim.py:101``),
     op for op in optax 0.2.6's order, per trainable leaf:
 
@@ -341,8 +369,13 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0, freeze: Optional[di
 
     Frozen leaves (``freeze`` False) get no update and no state. ``axes``
     maps a leaf's path to the ``(d1, d0)`` it factors over instead of
-    :func:`factored_dims` of its shape (the conv kernels, whose port layout
-    permutes JAX's axes: ``utils.port.adafactor_axes``)."""
+    :func:`factored_dims` of its shape: the conv kernels, whose port layout
+    permutes JAX's axes (``utils.port.adafactor_axes``), and every leaf
+    that ``mesh`` shards, whose dims are those of its whole shape (a
+    stacked leaf's under pp, JAX's pp math: ``[L, n]`` factored over L and
+    n). With ``mesh`` and its ``specs`` (the params' Spec tree) every mean
+    runs over the whole leaf (:func:`_leaf_mean`): the statistics, the
+    block RMS of the clip and the parameter RMS."""
     relative = learning_rate is None
     axes = axes or {}
 
@@ -378,7 +411,7 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0, freeze: Optional[di
         decay = 1.0 - torch.pow((state.count + 1).float(), -decay_exponent)
         lr_t = _schedule_at(learning_rate, state.count)
 
-        def leaf(g, v_row, v_col, v, p, t, path):
+        def leaf(g, v_row, v_col, v, p, t, path, spec):
             if not t:
                 return None, None, None, None
             if g is None:
@@ -387,25 +420,28 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0, freeze: Optional[di
             dims = dims_of(path, p)
             if dims is not None:
                 d1, d0 = dims
-                v_row = decay * v_row + (1.0 - decay) * g_sq.mean(d0)
-                v_col = decay * v_col + (1.0 - decay) * g_sq.mean(d1)
+                v_row = decay * v_row + (1.0 - decay) * _leaf_mean(g_sq, (d0,), spec, mesh)
+                v_col = decay * v_col + (1.0 - decay) * _leaf_mean(g_sq, (d1,), spec, mesh)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)) ** -0.5
+                row_spec = drop_dim(spec, d0) if spec is not None else None
+                row_factor = (v_row / _leaf_mean(v_row, (reduced_d1,), row_spec, mesh,
+                                                 keepdim=True)) ** -0.5
                 u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
             else:
                 v = decay * v + (1.0 - decay) * g_sq
                 u = g * v ** -0.5
-            u = u / torch.clamp_min(torch.sqrt(torch.mean(u * u)) / clip, 1.0)
+            u = u / torch.clamp_min(torch.sqrt(_leaf_mean(u * u, None, spec, mesh)) / clip, 1.0)
             u = lr_t.to(u.dtype) * u
             if relative:
-                rms = torch.sqrt(torch.mean(p * p))
+                rms = torch.sqrt(_leaf_mean(p * p, None, spec, mesh))
                 u = u * torch.where(rms <= min_rms, min_rms, rms)
             if weight_decay:
                 u = u + weight_decay * p
             return -1.0 * u, v_row, v_col, v
 
         out = tree_map(leaf, grads, state.v_row, state.v_col, state.v, params, train,
-                       tree_paths(params))
+                       tree_paths(params), specs if specs is not None else tree_map(
+                           lambda _: None, params))
         return _pick(train, out, 0), FactoredState(
             state.count + 1, _pick(train, out, 1), _pick(train, out, 2), _pick(train, out, 3))
 

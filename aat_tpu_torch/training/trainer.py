@@ -44,25 +44,38 @@ statistics get zero gradients, so the optimizer leaves them unmoved (they
 are 1-D: no weight decay). Evaluation and the generation prefix normalize
 with the running statistics.
 
-Multi-device training (``mesh_dp/fsdp/tp/sp`` or ``mesh=``, one process
+Multi-device training (``mesh_dp/fsdp/tp/sp/pp`` or ``mesh=``, one process
 per device in an initialized process group, :mod:`aat_tpu_torch.parallel`):
 each rank keeps its shards of the parameters and of the optimizer state
 (``parallel.mesh.shard_params``, the JAX rules) and reads its rows of the
-global batch (``mesh.local_batch``; tp and sp peers read the same rows).
-The trainer sets the mesh on the model (and clears a stale one):
+global batch (``mesh.local_batch``; tp, sp and pp peers read the same
+rows). The trainer sets the mesh on the model (and clears a stale one):
 HuBERT and the LM run their layers as tensor-parallel bodies where their
 ``tp_partitionable`` holds, HuBERT its layer stack on a time slice under
-sp, EfficientNet its batch norm over the global batch, and every dropout
-mask is keyed on global positions. The caption CE divides each rank's sum
-by the global token count (the counts are all-reduced first), so the
-ranks' losses sum to the one-device loss however captions pad; the
-gradients are summed over the ranks that computed distinct parts of them
-(``Mesh.reduce_grads``), and the guard and the clip read the global norm
-of the sharded tree. ``evaluate`` gives the global batch's loss and
-generations on every rank. ``save_checkpoint`` gathers the full state and
-rank 0 writes today's format, so a checkpoint restores under any layout;
-``restore_checkpoint`` slices it again. ``mesh_pp > 1``, and Adafactor under
-fsdp or tp, are ROADMAP Queue 1 item 8b and raise.
+sp, both stacks as a GPipe pipeline under pp (``pp_microbatches``;
+sp with pp is refused, as in JAX), EfficientNet its batch norm over the
+global batch, and every dropout mask is keyed on global positions. The
+caption CE divides each rank's sum by the global token count (the counts
+are all-reduced first), so the ranks' losses sum to the one-device loss
+however captions pad; the gradients are summed over the ranks that
+computed distinct parts of them (``Mesh.reduce_grads``), and the guard,
+the clip and Adafactor's means read the whole sharded leaves and tree.
+``evaluate`` gives the global batch's loss and generations on every rank.
+``save_checkpoint`` gathers the full state and rank 0 writes today's
+format, so a checkpoint restores under any layout; ``restore_checkpoint``
+slices it again.
+
+Under pp the encoder's and the LM's ``layers`` lists are stacked at
+construction, before the freeze mask, the optimizer and placement (JAX's
+stage-resident masters): parameters, gradients and moments live one
+stage slice per rank, and Adafactor factors the stacked leaves (JAX's pp
+math). A pp checkpoint keeps that layout on disk: ``params.pt`` holds
+``audio_encoder.layers.attention.q.kernel`` as one ``[L, ...]`` tensor
+where a one-process checkpoint holds ``audio_encoder.layers.<i>.…``, and
+its moments follow. ``restore_checkpoint`` reads either layout into
+either trainer, the params bit for bit; across layouts the optimizer state
+is re-initialized with a warning, as in JAX. ``save_pretrained`` exports
+the per-layer (interchange) layout.
 """
 
 from __future__ import annotations
@@ -85,6 +98,7 @@ from aat_tpu_torch.models.aslm import AslmModel
 from aat_tpu_torch.ops.dropout import fold_seed
 from aat_tpu_torch.parallel import comm
 from aat_tpu_torch.parallel import mesh as mesh_lib
+from aat_tpu_torch.parallel import pipeline
 from aat_tpu_torch.training import checkpoint as ckpt_lib
 from aat_tpu_torch.training import optim as optim_lib
 from aat_tpu_torch.training.config import TrainingConfig
@@ -133,6 +147,11 @@ class AATTrainer:
                  tokenizer=None, generation_config=None):
         self.model = model
         self.config = config
+        pp = mesh.size("pp") if mesh is not None else config.mesh_pp
+        if pp > 1:
+            for cfg in (model.audio_encoder_config, model.lm_config):
+                if isinstance(cfg, (hub.HubertConfig, llm.LlamaConfig)):
+                    pipeline.check_layers(cfg.num_hidden_layers, pp)
         self.mesh = self._make_mesh(config, mesh)
         self._route_models()
         self.tokenizer = tokenizer
@@ -143,11 +162,21 @@ class AATTrainer:
         self.schedule = None if config.learning_rate is None else warmup_linear_schedule(
             config.learning_rate, config.warmup_steps, config.max_steps or 100000,
             config.start_lr_from)
+        # stage-resident masters: the pipelined stacks are stacked before the
+        # freeze mask, the optimizer and placement
+        params = {k: pipeline.stack_model_layers(v) if k in self._pipelined else v
+                  for k, v in params.items()}
         self.freeze = optim_lib.trainable_mask(
             params, train_audio_encoder=config.train_audio_encoder,
             train_lm_decoder=config.train_lm_decoder)
+        # Adafactor's factored axes, from the whole (unsharded) shapes
+        self._factor_axes = {
+            path: optim_lib.factored_dims(p.shape)
+            for path, p in zip(optim_lib.tree_leaves(optim_lib.tree_paths(params)),
+                               optim_lib.tree_leaves(params)) if p.ndim >= 2}
+        self._factor_axes.update(port.adafactor_axes(params))
         if self.mesh is not None:
-            self.specs = mesh_lib.shard_params(params, self.mesh.shape)
+            self.specs = mesh_lib.shard_params(params, self.mesh.shape, self._stacked_tp)
             params = mesh_lib.place_params(params, self.specs, self.mesh)
         self.tx = self._build_tx(params)
         self.device = optim_lib.tree_leaves(params)[0].device
@@ -160,36 +189,41 @@ class AATTrainer:
     def _make_mesh(config: TrainingConfig, mesh):
         """The mesh of ``mesh_*`` (JAX's refusal of sp with pp first), or the
         one given; None for one device."""
-        if config.mesh_sp > 1 and config.mesh_pp > 1:
-            raise ValueError("mesh_sp and mesh_pp are mutually exclusive (as in the JAX "
-                             "trainer)")
         sizes = dict(dp=config.mesh_dp, fsdp=config.mesh_fsdp, tp=config.mesh_tp,
                      sp=config.mesh_sp, pp=config.mesh_pp)
-        fsdp_tp = mesh.size("fsdp", "tp") if mesh is not None else sizes["fsdp"] * sizes["tp"]
-        if config.optimizer == "adafactor" and fsdp_tp > 1:
-            raise NotImplementedError("Adafactor's factored statistics under fsdp or tp are "
-                                      f"not ported yet ({mesh_lib.PIPELINE_ITEM})")
+        sp_pp = (mesh.size("sp"), mesh.size("pp")) if mesh is not None else (sizes["sp"],
+                                                                                sizes["pp"])
+        if min(sp_pp) > 1:
+            raise ValueError("mesh_sp and mesh_pp are mutually exclusive (as in the JAX "
+                             "trainer)")
         if mesh is None and any(v != 1 for v in sizes.values()):
             mesh = mesh_lib.make_mesh(**sizes)
         return mesh
 
     def _route_models(self):
-        """Set this trainer's mesh (or None) on the model, clearing any a
-        previous trainer left."""
+        """Set this trainer's mesh (or None) and pipeline microbatch count on
+        the model, clearing any a previous trainer left."""
         model = self.model
         model.mesh = self.mesh
+        model.pp_microbatches = 0
+        self._pipelined, self._stacked_tp = (), None
         if self.mesh is None:
             self._tp_bodies = self._sp_paths = ()
             return
         tp = self.mesh.size("tp")
         enc_cfg = model.audio_encoder_config
         hubert_like = isinstance(enc_cfg, hub.HubertConfig)
-        self._tp_bodies = tuple(
-            path for path, on in (
-                ("audio_encoder/layers/", hubert_like and hub.tp_partitionable(enc_cfg, tp)),
-                ("lm_decoder/layers/", llm.tp_partitionable(model.lm_config, tp))) if on)
+        tp_on = {"audio_encoder": hubert_like and hub.tp_partitionable(enc_cfg, tp),
+                 "lm_decoder": llm.tp_partitionable(model.lm_config, tp)}
+        self._tp_bodies = tuple(f"{k}/layers/" for k, on in tp_on.items() if on)
         self._sp_paths = (("audio_encoder/layers/",)
                           if hubert_like and self.mesh.size("sp") > 1 else ())
+        if self.mesh.size("pp") > 1:
+            # the stacks whose widths divide tp are also tp-sharded (the same
+            # predicate gates the tensor-parallel bodies)
+            model.pp_microbatches = self.config.pp_microbatches
+            self._pipelined = ("audio_encoder", "lm_decoder") if hubert_like else ("lm_decoder",)
+            self._stacked_tp = tp_on
 
     def _norm(self, tree, specs=None):
         """The global norm of a gradient tree (or subtree, with its
@@ -212,8 +246,9 @@ class AATTrainer:
                                          grad_clip_norm=cfg.grad_clip_norm, freeze=self.freeze,
                                          norm=self._norm)
         elif cfg.optimizer == "adafactor":
-            tx = optim_lib.adafactor(self.schedule, freeze=self.freeze,
-                                     axes=port.adafactor_axes(params))
+            tx = optim_lib.adafactor(self.schedule, freeze=self.freeze, axes=self._factor_axes,
+                                     mesh=self.mesh,
+                                     specs=self.specs if self.mesh is not None else None)
         else:
             raise ValueError(f"unknown optimizer {cfg.optimizer}")
         return (optim_lib.guard_nonfinite(tx, norm=self._norm) if cfg.skip_nonfinite_updates
@@ -741,29 +776,41 @@ class AATTrainer:
         if self.mesh is not None:
             dist.barrier()
 
+    def _state_specs(self, state):
+        """The Spec tree of a params-shaped tree or an optimizer state:
+        the params' specs, Adafactor's factored statistics without the dim
+        they reduce."""
+        if isinstance(state, optim_lib.FactoredState):
+            def reduced(i):
+                return optim_lib.tree_map(
+                    lambda path, spec: (optim_lib.drop_dim(spec, self._factor_axes[path][i])
+                                        if path in self._factor_axes else spec),
+                    optim_lib.tree_paths(self.specs), self.specs)
+
+            return optim_lib.FactoredState(None, reduced(1), reduced(0), self.specs)
+        if optim_lib._is_namedtuple(state):
+            return type(state)(*(self._state_specs(field) for field in state))
+        return self.specs if isinstance(state, dict) else None
+
     def _full_state(self, state):
         """A params-shaped tree, or an optimizer state of such trees, with
         every sharded leaf gathered whole (one device: as it is)."""
         if self.mesh is None:
             return state
-        if optim_lib._is_namedtuple(state):
-            return type(state)(*(self._full_state(field) for field in state))
-        if isinstance(state, dict):
-            return self.mesh.full_params(state, self.specs)
-        return state
+
+        def gather(x, specs):
+            if optim_lib._is_namedtuple(x):
+                return type(x)(*(gather(field, s) for field, s in zip(x, specs)))
+            return self.mesh.full_params(x, specs) if isinstance(x, dict) else x
+
+        return gather(state, self._state_specs(state))
 
     def _local_flat(self, flat: dict, template) -> dict:
         """A checkpoint's flat full tensors cut to this rank's shards, by the
         specs of ``template`` (the params, or an optimizer state)."""
         if self.mesh is None:
             return flat
-
-        def specs_like(state):
-            if optim_lib._is_namedtuple(state):
-                return type(state)(*(specs_like(field) for field in state))
-            return self.specs if isinstance(state, dict) else None
-
-        specs = ckpt_lib.flatten(specs_like(template))
+        specs = ckpt_lib.flatten(self._state_specs(template))
         return {k: self.mesh.local_shard(v, specs[k]).clone(memory_format=torch.contiguous_format)
                 if k in specs else v for k, v in flat.items()}
 
@@ -805,6 +852,8 @@ class AATTrainer:
             keep["audio_encoder"] = params["audio_encoder"]
         if self.config.train_lm_decoder:
             keep["lm_decoder"] = params["lm_decoder"]
+        # the interchange layout: a one-process consumer reads a pp run's export
+        keep = {k: pipeline.unstack_model_layers(v) for k, v in keep.items()}
         path = os.path.abspath(path)
         if self._writer():
             ckpt_lib.write_params(path, self.state.step, keep)
@@ -834,10 +883,14 @@ class AATTrainer:
         trees); params only (the optimizer state re-initialised, with a
         warning when it was asked for); an export with some subtrees
         (``partial``: the missing ones kept from this trainer's build, the
-        reference's ``_keys_to_ignore_on_load_missing``; else raises)."""
+        reference's ``_keys_to_ignore_on_load_missing``; else raises). The
+        saved layers are first stacked or unstacked to this trainer's layout
+        (a pp checkpoint in a one-process trainer, or the reverse), where
+        the moments no longer fit and are re-initialised."""
         path = os.path.abspath(path)
         saved = ckpt_lib.read_params(path, self.device)
-        flat = self._local_flat(saved["params"], self.state.params)
+        flat = self._local_flat(pipeline.flat_to_layout(saved["params"], self.state.params),
+                                self.state.params)
         opt_state = None
         try:
             params = ckpt_lib.unflatten_like(self.state.params, flat)

@@ -10,7 +10,11 @@ takes a full ASLM tree (``audio_encoder``, ``adapter``, ``lm_decoder``) as
 numpy arrays (``jax.device_get`` of the JAX tree); :func:`to_jax_params` is
 its inverse, as numpy. :func:`checkpoint_from_jax` does the same for a
 whole training state (params, the optimizer's state, step) and writes it
-as a port checkpoint.
+as a port checkpoint. A JAX pipeline run's trees, whose encoder and LM
+``layers`` are stacked (one ``[L, ...]`` leaf a name, the conv kernels
+outside them), convert leaf for leaf into the port's stacked layout,
+which a port pp trainer resumes as it is and any other trainer restores
+across layouts (``AATTrainer.restore_checkpoint``).
 
 It also reads Hugging Face checkpoints from a local directory into the
 port's trees (the counterparts of the JAX package's ``port_hubert``,

@@ -260,11 +260,38 @@ Phases, one line each:
      by C entry, peak memory and step walls (4 ranks sharing one H100, not
      a scaling number), and the collectives gloo ran, naming those built
      from others.
+ 18. pipeline-parallel training, right after phase 17 on its model, batch
+     and one-process references (the card freed again): 4 gloo ranks on
+     cuda:0, one launch per mesh: ``dp2 x pp2`` (12 encoder and 15 LM
+     layers a stage, 2 microbatches, dropout and LayerDrop 0.1, held to
+     the dropout reference: each microbatch's masks are keyed as its
+     first global row), ``pp2 x tp2`` (4 microbatches; HuBERT's stacks
+     tp-sharded Megatron bodies, SmolLM's pp only), ``fsdp2 x pp2`` and
+     ``dp2 x pp2`` under Adafactor (relative step), whose one update is
+     held to ``optim.adafactor`` applied to the *stacked* tree of the
+     one-process trainer's first-step gradients (JAX's pp math factors
+     the stacked leaves). Bounds: phase 17's on every rank, and the
+     step's gradient-norm metrics within ``MESH_NORM_TOL`` of the
+     reference's; kernels 2-5 launched on every rank through the 3xTF32
+     entries, and ring permutes run. The two planted boundary faults (the
+     result leaving through an all-reduce with a summed gradient, the
+     input entering without the sum of the stages' gradients) must break
+     the bounds by 10 times or more. Each ``dp2 x pp2`` rank's stacked
+     parameter and moment bytes must be exactly half of the whole
+     stacks'. The ``dp2 x pp2`` launch also evaluates the initial weights
+     with beam generation (eval loss and ids equal to the one-process
+     evaluation's, generated on the same 2 rows a data rank holds; where
+     ids differ, the first differing beam selection must be a near tie,
+     phase 12's rule), writes a checkpoint (stacked on disk) that a
+     one-process trainer restores bit for bit, and restores a one-process
+     checkpoint bit for bit. It prints each rank's step walls, peak
+     memory, ring-permute counts and bytes (4 ranks sharing one H100
+     through host memory, not a scaling number).
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
 long-form steps, phase 13's run A and its serve command, phase 14, each
 remat step of phase 15, its optimizer steps and its unfreeze run A,
-phase 16's three runs, and each rank's steps in phase 17) and
+phase 16's three runs, and each rank's steps in phases 17 and 18) and
 read just after; each kernel of the path must have
 launched there, and each path's flash launches must all go through the C
 entries of one dtype (serving's f32 forward through
@@ -277,7 +304,8 @@ are counted apart, as the path ``train_eval_prefix``, from its bf16 part,
 ``longform_remat``, its optimizer steps as ``train_optimizers`` and its
 unfreeze run as ``train_unfreeze_cli``; phase 16's as ``train_pooling``,
 ``train_efficientnet`` and ``train_projections_cli``; phase 17's dp4 rank 0
-as ``train_multidevice``, each rank's launches checked by the rank). Then a
+as ``train_multidevice`` and phase 18's dp2 x pp2 rank 0 as
+``train_pipeline``, each rank's launches checked by the rank). Then a
 JSON line of kernel results, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. In the kernel line the flash entries
 report bf16 (the tensor-core kernels, counting only launches through their
@@ -3635,8 +3663,9 @@ def mesh_model(dropout):
         audio_cfg, lm_cfg)
 
 
-def mesh_config(mesh=None):
-    """``projection_training_config()`` at f32 compute, one microbatch a step."""
+def mesh_config(mesh=None, **overrides):
+    """``projection_training_config()`` at f32 compute, one microbatch a step
+    (``overrides``: other fields, such as the pipeline's microbatches)."""
     from aat_tpu_torch.training.config import projection_training_config
 
     mesh = mesh or {}
@@ -3644,7 +3673,7 @@ def mesh_config(mesh=None):
         projection_training_config(), compute_dtype="float32", gradient_accumulation_steps=1,
         per_device_train_batch_size=4 // max(1, mesh.get("dp", 1) * mesh.get("fsdp", 1)),
         mesh_dp=mesh.get("dp", 1), mesh_fsdp=mesh.get("fsdp", 1), mesh_tp=mesh.get("tp", 1),
-        mesh_sp=mesh.get("sp", 1))
+        mesh_sp=mesh.get("sp", 1), mesh_pp=mesh.get("pp", 1), **overrides)
 
 
 def mesh_batch(torch, rng):
@@ -3667,18 +3696,23 @@ def mesh_batch(torch, rng):
 
 
 def trainable_flat(trainer):
-    """The full (gathered) trainable parameters by dotted path: the audio
-    encoder and the adapter."""
+    """The full (gathered) trainable parameters by dotted path, in the
+    per-layer layout: the audio encoder and the adapter."""
+    from aat_tpu_torch.parallel.pipeline import unstack_model_layers
     from aat_tpu_torch.training import checkpoint as ckpt_lib
 
-    full = trainer._full_state(trainer.state.params)
+    full = {k: unstack_model_layers(v) for k, v in
+            trainer._full_state(trainer.state.params).items()}
     return {k: v for k, v in ckpt_lib.flatten(full).items() if not k.startswith("lm_decoder.")}
+
+
+GRAD_NORM_METRICS = ("train/audio_tokens_emb_grad", "train/audio_encdoer_grad_norm")
 
 
 def mesh_steps(torch, trainer, batch, steps=2):
     """``steps`` optimizer steps on ``batch`` with the launch counters reset
     first → (losses, step walls, peak memory in bytes, launches by wrapper,
-    flash launches by C entry)."""
+    flash launches by C entry, each step's gradient-norm metrics)."""
     from aat_tpu_torch.parallel import comm
 
     wrappers = kernel_wrappers()
@@ -3688,30 +3722,40 @@ def mesh_steps(torch, trainer, batch, steps=2):
     comm.calls.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, walls = [], []
+    losses, walls, norms = [], [], []
     for _ in range(steps):
         start = time.perf_counter()
-        losses.append(trainer.training_step([batch])["train/loss"])
+        metrics = trainer.training_step([batch])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - start)
+        losses.append(metrics["train/loss"])
+        norms.append([metrics[k] for k in GRAD_NORM_METRICS])
     return (losses, walls, torch.cuda.max_memory_allocated(),
             {name: w.launches for name, w in wrappers.items()},
-            {e: calls[e] for e in FLASH_ENTRIES["float32"]})
+            {e: calls[e] for e in FLASH_ENTRIES["float32"]}, norms)
 
 
 def param_diffs(torch, got, ref):
     """max |Δ| over every coordinate, the coordinates beyond ``MESH_FLIP``
-    and the max |Δ| of the others, of two {path: tensor} maps."""
+    (and the leaves, layer indices dropped, with the most of them) and the
+    max |Δ| of the others, of two {path: tensor} maps."""
     worst = rest = 0.0
     flips = total = 0
+    by_leaf = {}
     for k, want in ref.items():
         d = (got[k].float() - want.to(got[k].device).float()).abs()
         worst = max(worst, float(d.max()))
         beyond = d > MESH_FLIP
-        flips += int(beyond.sum())
+        n = int(beyond.sum())
+        flips += n
         total += d.numel()
         rest = max(rest, float(torch.where(beyond, 0.0, d).max()))
-    return {"max_abs": worst, "flips": flips, "coords": total, "rest_max_abs": rest}
+        if n:
+            leaf = ".".join(p for p in k.split(".") if not p.isdigit())
+            by_leaf[leaf] = by_leaf.get(leaf, 0) + n
+    top = dict(sorted(by_leaf.items(), key=lambda kv: -kv[1])[:4])
+    return {"max_abs": worst, "flips": flips, "coords": total, "rest_max_abs": rest,
+            "flips_by_leaf": top}
 
 
 def mesh_rank(rank, world_size, port, run, paths):
@@ -3754,7 +3798,7 @@ def mesh_rank(rank, world_size, port, run, paths):
         local = (reports["sound"]["local"] if label == "dp_control"
                  else trainer.mesh.local_batch(batch))
         steps = 1 if label == "dp_control" else 2
-        losses, walls, peak, launches, calls = mesh_steps(torch, trainer, local, steps)
+        losses, walls, peak, launches, calls, _ = mesh_steps(torch, trainer, local, steps)
         report = {"losses": losses, "walls": walls, "peak": peak, "launches": launches,
                   "calls": calls, "collectives": dict(comm.calls), "local": local}
         if label != "dp_control":
@@ -3810,8 +3854,9 @@ def nccl_world_one(torch, device, paths, batch):
 
 
 def phase_multidevice(torch, device, rng, smi_line):
-    """Phase 17 (module docstring). Returns rank 0's launches by wrapper and
-    by C entry in the dp4 run, the path ``train_multidevice``."""
+    """Phases 17 and 18 (module docstring). Returns the paths
+    ``train_multidevice`` (rank 0's launches by wrapper and by C entry in
+    the dp4 run) and ``train_pipeline`` (phase 18's)."""
     import shutil
     import tempfile
 
@@ -3830,17 +3875,17 @@ def phase_multidevice(torch, device, rng, smi_line):
         torch.save(batch, paths["batch"])
         del init
         nccl_world_one(torch, device, paths, batch)
-        refs = {}
+        refs, norm_refs = {}, {}
         for dropout in sorted({run[2] for run in MESH_RUNS}):
             trainer = AATTrainer(mesh_model(dropout),
                                  torch.load(paths["init"], weights_only=True, map_location=device),
                                  mesh_config())
             dev_batch = {k: v.to(device) for k, v in batch.items()}
-            losses, walls, peak, _, _ = mesh_steps(torch, trainer, dev_batch)
+            losses, walls, peak, _, _, norms = mesh_steps(torch, trainer, dev_batch)
             paths[f"ref_{dropout}"] = os.path.join(tmp, f"ref_{dropout}.pt")
             torch.save({k: v.cpu() for k, v in trainable_flat(trainer).items()},
                        paths[f"ref_{dropout}"])
-            refs[dropout] = losses
+            refs[dropout], norm_refs[dropout] = losses, norms
             print(f"multidevice reference (one process, f32, dropout {dropout}): losses "
                   f"{losses}, step walls {[round(w, 3) for w in walls]} s, peak "
                   f"{peak / 2**30:.2f} GiB ({smi_line})", flush=True)
@@ -3901,10 +3946,445 @@ def phase_multidevice(torch, device, rng, smi_line):
               flush=True)
         rank0 = results["dp4"][0]["sound"]
         print(f"phase 17 wall {time.perf_counter() - phase_start:.1f} s", flush=True)
-        return rank0["launches"], {**{e: 0 for names in FLASH_ENTRIES.values() for e in names},
-                                   **rank0["calls"]}
+        del results
+        # 18. the pipeline axis, on the same references
+        return {"train_multidevice": (
+                    rank0["launches"], {**{e: 0 for names in FLASH_ENTRIES.values()
+                                           for e in names}, **rank0["calls"]}),
+                "train_pipeline": phase_pipeline_parallel(torch, device, tmp, paths, refs,
+                                                          norm_refs, batch, smi_line)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 18: pipeline-parallel training, ranks sharing cuda:0 over gloo
+PP_RUNS = (
+    # name, mesh, the encoder's dropout and LayerDrop, the pipeline's
+    # microbatches (0: 2·pp, clamped to the rank's rows), optimizer, steps,
+    # and what else the launch runs
+    ("dp2_pp2", {"dp": 2, "pp": 2}, 0.1, 2, "adamw", 2, ("faults", "eval", "checkpoint")),
+    ("pp2_tp2", {"tp": 2, "pp": 2}, 0.0, 4, "adamw", 2, ()),
+    ("fsdp2_pp2", {"fsdp": 2, "pp": 2}, 0.0, 0, "adamw", 2, ()),
+    ("dp2_pp2_adafactor", {"dp": 2, "pp": 2}, 0.0, 0, "adafactor", 1, ()),
+)
+# the pipeline's two planted boundary faults: the result leaving through an
+# all-reduce whose gradient is summed too (the gradients below it times pp),
+# and the input entering without the sum of the stages' gradients (the
+# gradients above it on stage 0 only)
+PP_FAULTS = ("pipeline_exit_sum", "pipeline_entry_identity")
+# the step's gradient-norm metrics against the one-process run's, relative:
+# AdamW's update is blind to a gradient scaled as a whole, its norm is not
+MESH_NORM_TOL = 1e-4
+ADAFACTOR = dict(optimizer="adafactor", learning_rate=None)
+# the Adafactor run's parameter bounds, in units of the one-process update's
+# own spread over another batch split: Adafactor's update follows the
+# gradient's rounding (on an H100, 62,846 of the 322 M coordinates of a
+# sound dp2 x pp2 update moved apart by more than 1e-6, past the share bound
+# of 1e-4, in the encoder's stacked kernels and its attention k bias, whose
+# gradient is zero but for rounding)
+ADAFACTOR_SPREAD = 4
+
+
+SOUND_BOUNDARY = {}  # the pipeline's own boundary operators, kept by pp_faulty
+
+
+def pp_faulty(fault):
+    """Plant ``fault`` (None: none) in this process's pipeline, in place of
+    any planted before (the ranks' only)."""
+    from aat_tpu_torch.parallel import comm, pipeline
+
+    SOUND_BOUNDARY.setdefault("ops", (pipeline._enter, pipeline._exit))
+    pipeline._enter, pipeline._exit = SOUND_BOUNDARY["ops"]
+    if fault == "pipeline_exit_sum":
+        pipeline._exit = comm.all_reduce_sum
+    elif fault == "pipeline_entry_identity":
+        pipeline._enter = lambda x, group: x
+
+
+def stacked_bytes(tree, stacks):
+    """Bytes of the stacked ``layers`` of each of ``stacks`` in ``tree``
+    (``None`` leaves, frozen moments, count nothing)."""
+    from aat_tpu_torch.training import checkpoint as ckpt_lib
+
+    return {k: sum(v.numel() * v.element_size()
+                   for v in ckpt_lib.flatten(tree[k]["layers"]).values()) for k in stacks}
+
+
+def capture_ids(store):
+    """A ``compute_metrics`` that keeps the generated ids."""
+    def compute(generated_ids, inputs_ids, prefix_ids):
+        store["ids"] = generated_ids
+        return {}
+
+    return compute
+
+
+def eval_batch(batch):
+    """The global batch with a text prefix: each caption's first two ids."""
+    ids = batch["input_ids"]
+    return {**batch, "prefix_input_ids": ids[:, :2],
+            "prefix_attention_mask": ids[:, :2].new_ones(ids[:, :2].shape)}
+
+
+def pp_rank(rank, world_size, port, run, paths):
+    """One of the 4 ranks on cuda:0 (gloo): a pp trainer under ``run``'s mesh
+    from the state the parent wrote, ``steps`` steps on this rank's rows,
+    its parameters (gathered) against the parent's one-process result,
+    the step's gradient norms, ring permutes and stage residency; in the
+    dp2 × pp2 run also an evaluation on the initial weights, a checkpoint
+    each way and the two planted faults."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    from aat_tpu_torch.parallel import comm
+    from aat_tpu_torch.parallel.distributed import initialize
+    from aat_tpu_torch.parallel.pipeline import unstack_model_layers
+    from aat_tpu_torch.training import checkpoint as ckpt_lib
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    name, mesh, dropout, microbatches, optimizer, steps, extras = run
+    device = initialize(rank, world_size, f"tcp://localhost:{port}", device="cuda:0",
+                        backend="gloo")
+    batch = {k: v.to(device) for k, v in torch.load(paths["batch"], weights_only=True).items()}
+    ref = torch.load(paths[f"ref_{name}"], weights_only=True, mmap=True)
+    config = mesh_config(mesh, pp_microbatches=microbatches, output_dir=paths["dir"],
+                         **(ADAFACTOR if optimizer == "adafactor" else {}))
+
+    def trainer_of(cfg=config):
+        init = torch.load(paths["init"], weights_only=True, mmap=True, map_location=device)
+        trainer = AATTrainer(mesh_model(dropout), init, cfg)
+        del init
+        gc.collect()
+        torch.cuda.empty_cache()
+        return trainer
+
+    def release(trainer):
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    reports = {}
+    plans = [("sound", None)] + [(f, f) for f in (PP_FAULTS if "faults" in extras else ())]
+    for label, fault in plans:
+        pp_faulty(fault)
+        trainer = trainer_of()
+        local = trainer.mesh.local_batch(batch)
+        report = {}
+        if label == "sound" and "eval" in extras:
+            seen = {}
+            trainer.compute_metrics = capture_ids(seen)
+            local_eval = trainer.mesh.local_batch(eval_batch(batch))
+            start = time.perf_counter()
+            report["eval_loss"] = trainer.evaluate([local_eval], with_generation=True)["eval/loss"]
+            report["eval_wall"] = time.perf_counter() - start
+            report["eval_ids"] = seen["ids"]
+            prefix = trainer._prefix_inputs(trainer._use(trainer.state.params, grad=False),
+                                            trainer._to_device(local_eval))
+            report["prefix"] = {k: prefix[k].cpu() for k in ("inputs_embeds", "attention_mask")}
+            trainer.compute_metrics = None
+        comm.ring_bytes.clear()
+        losses, walls, peak, launches, calls, norms = mesh_steps(torch, trainer, local, steps)
+        report.update(losses=losses, walls=walls, peak=peak, launches=launches, calls=calls,
+                      norms=norms, ring={k: v for k, v in comm.calls.items()
+                                         if k.startswith("ring_permute")},
+                      ring_bytes=dict(comm.ring_bytes), coords=dict(trainer.mesh.coords))
+        report.update(param_diffs(torch, trainable_flat(trainer), ref))
+        if label == "sound":
+            stacks = ("audio_encoder", "lm_decoder")
+            full = trainer._full_state(trainer.state.params)
+            state = trainer.state.opt_state
+            moments = getattr(state, "mu", None) or getattr(state, "inner_state").v_row
+            full_moments = (trainer._full_state(state).mu if hasattr(state, "mu")
+                            else trainer._full_state(state).inner_state.v_row)
+            report["residency"] = {
+                "params": (stacked_bytes(trainer.state.params, stacks), stacked_bytes(full, stacks)),
+                "moments": (stacked_bytes(moments, ("audio_encoder",)),
+                            stacked_bytes(full_moments, ("audio_encoder",)))}
+            del full, full_moments
+            if "checkpoint" in extras:
+                start = time.perf_counter()
+                trainer.save_checkpoint(paths["pp_checkpoint"])
+                report["save_wall"] = time.perf_counter() - start
+        reports[label] = report
+        release(trainer)
+    pp_faulty(None)
+    if "checkpoint" in extras:
+        # the parent's one-process checkpoint, restored under this mesh
+        trainer = trainer_of()
+        trainer.restore_checkpoint(paths["one_checkpoint"])
+        saved = ckpt_lib.read_params(paths["one_checkpoint"], "cpu")["params"]
+        full = ckpt_lib.flatten({k: unstack_model_layers(v) for k, v in
+                                 trainer._full_state(trainer.state.params).items()})
+        reports["sound"]["restored"] = (sorted(full) == sorted(saved)) and all(
+            torch.equal(full[k].cpu(), saved[k]) for k in saved)
+        release(trainer)
+    return reports
+
+
+def one_process_eval(torch, device, paths, batch):
+    """The one-process evaluation of the initial weights on the global
+    batch's eval loss, and generation on each data rank's 2 rows as the
+    dp2 ranks generate them → (loss, ids by data rank, the trainer)."""
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    init = torch.load(paths["init"], weights_only=True, map_location=device)
+    trainer = AATTrainer(mesh_model(0.1), init, mesh_config(output_dir=paths["dir"]))
+    dev = {k: v.to(device) for k, v in eval_batch(batch).items()}
+    loss = trainer.evaluate([dev])["eval/loss"]
+    ids = [trainer.generate_for_batch({k: v[2 * d:2 * d + 2] for k, v in dev.items()})
+           for d in range(2)]
+    return loss, ids, trainer
+
+
+def stacked_adafactor_reference(torch, device, paths, batch):
+    """JAX's pp math in one process: ``optim.adafactor`` (relative step, the
+    freeze mask, the guard as the trainer wraps it) applied to the stacked
+    tree of the one-process trainer's first-step gradients, from the same
+    initial parameters and batch → (the step's loss, its gradient norms,
+    the trainable parameters after the update, per-layer layout, and the
+    update's own spread: the same update from the gradients of the two
+    half batches, weighted by their caption tokens, against it
+    (:func:`param_diffs`)). Adafactor's update is proportional to the
+    gradient, not sign-like as AdamW's first step, so rounding of the
+    gradients' long sums moves coordinates where its factored scale is
+    small; the spread measures how far in this process."""
+    from aat_tpu_torch.parallel.pipeline import stack_model_layers, unstack_model_layers
+    from aat_tpu_torch.training import checkpoint as ckpt_lib
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.trainer import AATTrainer
+    from aat_tpu_torch.utils import port
+
+    init = torch.load(paths["init"], weights_only=True, map_location=device)
+    trainer = AATTrainer(mesh_model(0.0), init, mesh_config(**ADAFACTOR))
+    dev = {k: v.to(device) for k, v in batch.items()}
+    seed = trainer.dropout_seed(0, 0)
+    grads, metrics, _ = trainer._grad_step(trainer.state.params, dev, seed)
+    halves, tokens = None, 0.0
+    for rows in (slice(0, 2), slice(2, 4)):
+        part = {k: v[rows] for k, v in dev.items()}
+        g, _, _ = trainer._grad_step(trainer.state.params, part, seed)
+        n = float(part["input_ids_attention_mask"][:, 1:].sum())
+        g = optim.tree_map(lambda x: None if x is None else x * n, g)
+        halves = g if halves is None else optim.tree_map(
+            lambda a, b: None if a is None else a + b, halves, g)
+        tokens += n
+    halves = optim.tree_map(lambda x: None if x is None else x / tokens, halves)
+    stacks = ("audio_encoder", "lm_decoder")
+
+    def stacked(tree):
+        return {k: stack_model_layers(v) if k in stacks else v for k, v in tree.items()}
+
+    start = stacked(trainer.state.params)
+    freeze = optim.trainable_mask(start, train_audio_encoder=True, train_lm_decoder=False)
+    axes = {path: optim.factored_dims(p.shape)
+            for path, p in zip(optim.tree_leaves(optim.tree_paths(start)),
+                               optim.tree_leaves(start)) if p.ndim >= 2}
+    axes.update(port.adafactor_axes(start))
+    tx = optim.guard_nonfinite(optim.adafactor(None, freeze=freeze, axes=axes))
+
+    def updated(g):
+        """The trainable params after the update from ``g``, per-layer layout."""
+        params = optim.tree_map(torch.clone, start)
+        # the frozen LM has no gradient: a tree of None in the stacked structure
+        g = {**stacked({k: v for k, v in g.items() if k != "lm_decoder"}),
+             "lm_decoder": optim.tree_map(lambda _: None, params["lm_decoder"])}
+        with torch.no_grad():
+            updates, _ = tx.update(g, tx.init(params), params)
+            optim.apply_updates(params, updates)
+        full = ckpt_lib.flatten({k: unstack_model_layers(v) for k, v in params.items()})
+        return {k: v for k, v in full.items() if not k.startswith("lm_decoder.")}
+
+    out = updated(grads)
+    spread = param_diffs(torch, updated(halves), out)
+    loss = float(metrics["train/loss"])
+    norms = [float(metrics[k]) for k in GRAD_NORM_METRICS]
+    out = {k: v.cpu() for k, v in out.items()}
+    del trainer, start, grads, halves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, norms, out, spread
+
+
+def rel_err(got, want):
+    return max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
+
+
+def phase_pipeline_parallel(torch, device, tmp, paths, refs, norm_refs, batch, smi_line):
+    """Phase 18 (module docstring), in phase 17's directory with its
+    one-process references. Returns rank 0's launches by wrapper and by C
+    entry in the dp2 × pp2 run, the path ``train_pipeline``."""
+    from aat_tpu_torch.parallel.distributed import launch
+    from aat_tpu_torch.parallel.pipeline import flat_to_layout
+    from aat_tpu_torch.training import checkpoint as ckpt_lib
+    from aat_tpu_torch.training.trainer import AATTrainer
+
+    phase_start = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    paths["dir"] = tmp
+    # the references: phase 17's one-process runs, the stacked Adafactor
+    # update, the one-process evaluation and a one-process checkpoint
+    expected = {}
+    for name, mesh, dropout, *_ in PP_RUNS:
+        paths[f"ref_{name}"] = paths[f"ref_{dropout}"]
+        expected[name] = (refs[dropout], norm_refs[dropout])
+    loss, norms, ref, spread = stacked_adafactor_reference(torch, device, paths, batch)
+    paths["ref_dp2_pp2_adafactor"] = os.path.join(tmp, "ref_adafactor.pt")
+    torch.save(ref, paths["ref_dp2_pp2_adafactor"])
+    expected["dp2_pp2_adafactor"] = ([loss], [norms])
+    del ref
+    eval_loss, eval_ids, one = one_process_eval(torch, device, paths, batch)
+    paths["one_checkpoint"] = one.save_checkpoint(os.path.join(tmp, "one_checkpoint"))
+    paths["pp_checkpoint"] = os.path.join(tmp, "pp_checkpoint")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"pipeline references ({time.perf_counter() - phase_start:.1f} s): stacked Adafactor "
+          f"loss {loss!r} norms {norms}, its own spread over two half batches: beyond "
+          f"{MESH_FLIP:g} {spread['flips']} of {spread['coords']}, max |d| "
+          f"{spread['max_abs']:.3e}, by leaf {spread['flips_by_leaf']}; one-process eval loss "
+          f"{eval_loss!r}", flush=True)
+    check(torch.cuda.memory_allocated() <= held + 2**28,
+          "the parent did not free the card before the ranks start")
+
+    results = {}
+    for run in PP_RUNS:
+        name, mesh, dropout, microbatches, optimizer, steps, extras = run
+        start = time.perf_counter()
+        reports = launch(pp_rank, MESH_RANKS, (run, paths), timeout=MESH_TIMEOUT)
+        results[name] = reports
+        want_losses, want_norms = expected[name]
+        sound = [r["sound"] for r in reports]
+        loss_err = max(rel_err(r["losses"], want_losses) for r in sound)
+        norm_err = max(rel_err(a, b) for r in sound for a, b in zip(r["norms"], want_norms))
+        flips, coords = max(r["flips"] for r in sound), sound[0]["coords"]
+        m = microbatches or 2 * mesh["pp"]
+        print(f"pipeline {name} ({MESH_RANKS} ranks sharing one H100 over gloo, dropout and "
+              f"LayerDrop {dropout}, microbatches {m} requested, {optimizer}, {steps} steps; "
+              f"launch {time.perf_counter() - start:.1f} s): losses "
+              f"{[r['losses'] for r in sound]} vs {want_losses}, loss rel |d| {loss_err:.3e}; "
+              f"grad-norm metrics rel |d| {norm_err:.3e}; params max |d| "
+              f"{max(r['max_abs'] for r in sound):.3e}, beyond {MESH_FLIP:g}: {flips} of "
+              f"{coords} ({flips / coords:.2e}), the rest within "
+              f"{max(r['rest_max_abs'] for r in sound):.3e}; step walls "
+              f"{[[round(w, 3) for w in r['walls']] for r in sound]} s (4 ranks sharing one "
+              f"H100 through host memory, not a scaling number); peak memory per rank "
+              f"{[round(r['peak'] / 2**30, 2) for r in sound]} GiB ({smi_line})", flush=True)
+        for rank, r in enumerate(sound):
+            print(f"pipeline {name} rank {rank} {r['coords']}: ring permutes {r['ring']}, bytes "
+                  f"{r['ring_bytes']}; flash launches {r['launches']}, by C entry {r['calls']}; "
+                  f"stacked bytes {r['residency']}", flush=True)
+            for kernel in TRAIN_KERNELS:
+                check(r["launches"][kernel] > 0,
+                      f"{name} rank {rank} never launched the {kernel} kernel")
+            check(all(r["calls"][e] > 0 for e in FLASH_ENTRIES["float32"]),
+                  f"{name} rank {rank}: the f32 step missed a 3xTF32 entry")
+            check(sum(r["ring"].values()) > 0, f"{name} rank {rank}: no ring permute ran")
+            if set(mesh) == {"dp", "pp"}:  # the stacks sharded over pp alone
+                for what, (local, whole) in r["residency"].items():
+                    for stack, n in local.items():
+                        check(2 * n == whole[stack] and n > 0,
+                              f"{name} rank {rank}: {what} of {stack} not half the whole stack")
+        check(loss_err <= MESH_LOSS_TOL, f"{name}: loss off the one-process run")
+        check(norm_err <= MESH_NORM_TOL, f"{name}: gradient norms off the one-process run")
+        # Adafactor's update follows the gradient's rounding: its bound is the
+        # one-process update's own spread over another batch split
+        allowed = max(MESH_FLIP_SHARE * coords,
+                      ADAFACTOR_SPREAD * spread["flips"] if optimizer == "adafactor" else 0)
+        print(f"pipeline {name}: coordinates beyond {MESH_FLIP:g} by leaf "
+              f"{sound[0]['flips_by_leaf']}, at most {allowed:.0f} allowed", flush=True)
+        check(flips <= allowed, f"{name}: too many coordinates moved apart")
+        if optimizer == "adafactor":
+            check(max(r["max_abs"] for r in sound) <= ADAFACTOR_SPREAD * spread["max_abs"],
+                  f"{name}: a coordinate moved further than the one-process update's spread")
+        for fault in PP_FAULTS if "faults" in extras else ():
+            planted = [r[fault] for r in reports]
+            f_loss = max(rel_err(r["losses"], want_losses) for r in planted)
+            f_norm = max(rel_err(a, b) for r in planted for a, b in zip(r["norms"], want_norms))
+            f_flips = max(r["flips"] for r in planted)
+            ratio = max(f_loss / MESH_LOSS_TOL, f_norm / MESH_NORM_TOL,
+                        f_flips / (MESH_FLIP_SHARE * coords))
+            print(f"pipeline {name} with the fault {fault} planted: loss rel |d| {f_loss:.3e}, "
+                  f"grad-norm metrics rel |d| {f_norm:.3e}, beyond {MESH_FLIP:g}: {f_flips} of "
+                  f"{coords}, max |d| {max(r['max_abs'] for r in planted):.3e}; {ratio:.1f} times "
+                  "the widest bound", flush=True)
+            check(ratio >= 10, f"{name}: the bounds did not see the planted fault {fault} "
+                               "by 10 times")
+        if "eval" in extras:
+            width = max(i.shape[1] for i in eval_ids + [r["eval_ids"] for r in sound])
+
+            def padded(ids):
+                return np.pad(ids, ((0, 0), (0, width - ids.shape[1])))
+
+            want = np.concatenate([padded(i) for i in eval_ids])
+            same = [bool(np.array_equal(padded(r["eval_ids"]), want)) for r in sound]
+            e_err = max(abs(r["eval_loss"] - eval_loss) / max(1.0, abs(eval_loss))
+                        for r in sound)
+            print(f"pipeline {name} evaluate (initial weights, beam generation): eval loss rel "
+                  f"|d| {e_err:.3e}, ids equal to one process on each rank {same}, walls "
+                  f"{[round(r['eval_wall'], 2) for r in sound]} s", flush=True)
+            check(e_err <= MESH_LOSS_TOL, f"{name}: eval loss off the one-process evaluation")
+            if not all(same):
+                explain_pp_ids(torch, device, paths, batch, sound, eval_ids)
+        if "checkpoint" in extras:
+            single = AATTrainer(mesh_model(0.1), torch.load(paths["init"], weights_only=True,
+                                                            map_location=device),
+                                mesh_config(output_dir=tmp))
+            single.restore_checkpoint(paths["pp_checkpoint"])
+            saved = ckpt_lib.read_params(paths["pp_checkpoint"], "cpu")["params"]
+            want = flat_to_layout(saved, single.state.params)
+            got = ckpt_lib.flatten(single.state.params)
+            restored = sorted(got) == sorted(want) and all(torch.equal(got[k].cpu(), want[k])
+                                                         for k in want)
+            on_disk = tuple(saved["audio_encoder.layers.attention.q.kernel"].shape)
+            print(f"pipeline {name} checkpoints: the pp save (stacked on disk, q kernel "
+                  f"{on_disk}; {max(r['save_wall'] for r in sound):.1f} s) restored in one "
+                  f"process bit for bit: {restored}; the one-process save restored under pp "
+                  f"bit for bit on every rank: {[r['restored'] for r in sound]}", flush=True)
+            check(on_disk[0] == single.model.audio_encoder_config.num_hidden_layers,
+                  "the pp checkpoint is not stacked on disk")
+            check(restored, "a one-process trainer did not restore the pp checkpoint")
+            check(all(r["restored"] for r in sound), "a pp rank did not restore the "
+                                                     "one-process checkpoint")
+            del single, saved, want, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    rank0 = results["dp2_pp2"][0]["sound"]
+    print(f"phase 18 wall {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return rank0["launches"], {**{e: 0 for names in FLASH_ENTRIES.values() for e in names},
+                               **rank0["calls"]}
+
+
+def explain_pp_ids(torch, device, paths, batch, sound, eval_ids):
+    """Where the pp ranks' generated ids differ from one process's: both
+    generations replayed in this process from each route's prefix
+    embeddings, the first differing beam selection of each differing row
+    must be a near tie of the one-process scores (phase 12's rule)."""
+    _, _, trainer = one_process_eval(torch, device, paths, batch)
+    dev = {k: v.to(device) for k, v in eval_batch(batch).items()}
+    real_prefix = trainer._prefix_inputs
+    for r in sound:
+        if r["coords"]["pp"]:
+            continue
+        d = r["coords"]["dp"]
+        rows = {k: v[2 * d:2 * d + 2] for k, v in dev.items()}
+        want, plain_calls = beam_choices(lambda: trainer.generate_for_batch(rows))
+        trainer._prefix_inputs = lambda params, b: {k: v.to(device) for k, v in r["prefix"].items()}
+        try:
+            got, pp_calls = beam_choices(lambda: trainer.generate_for_batch(rows))
+        finally:
+            trainer._prefix_inputs = real_prefix
+        check(np.array_equal(got, r["eval_ids"][2 * d:2 * d + 2, :got.shape[1]]),
+              "the replayed pp generation differs from the rank's")
+        for row in range(2):
+            if np.array_equal(got[row], want[row]):
+                continue
+            split = first_split(pp_calls, plain_calls, row)
+            print(f"pipeline ids differ on data rank {d} row {row}: first split {split}",
+                  flush=True)
+            check(split is not None and split[2] <= split[3],
+                  "the pp generation's first differing beam selection is not a near tie")
 
 
 def main():
@@ -4022,9 +4502,9 @@ def main():
     del model, params  # SmolLM and its encoder leave the card before Qwen comes
     gc.collect()
     torch.cuda.empty_cache()
-    # 17. multi-device training: 4 gloo ranks on the card, NCCL at world 1
-    pieces["train_multidevice"] = phase_multidevice(torch, device, np.random.default_rng(17),
-                                                    smi_line)
+    # 17-18. multi-device and pipeline-parallel training: 4 gloo ranks on the
+    # card, NCCL at world 1
+    pieces.update(phase_multidevice(torch, device, np.random.default_rng(17), smi_line))
     # 13. the command lines at full width: the readers, train (and resume),
     # validate and serve
     (cli_launches, cli_calls, cli_prefix_launches, cli_prefix_calls, serve_cli_launches,

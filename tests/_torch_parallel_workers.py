@@ -15,6 +15,7 @@ from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.models import llama as tllm
 from aat_tpu_torch.models.aslm import AslmConfig, AslmModel
 from aat_tpu_torch.parallel.distributed import initialize
+from aat_tpu_torch.parallel.pipeline import stack_model_layers, unstack_model_layers
 from aat_tpu_torch.training import checkpoint as ckpt_lib
 from aat_tpu_torch.training.config import TrainingConfig
 from aat_tpu_torch.training.trainer import AATTrainer
@@ -28,13 +29,20 @@ def start_rank(rank: int, world_size: int, port: int) -> torch.device:
     return initialize(rank, world_size, f"tcp://localhost:{port}", device="cpu")
 
 
-def tiny_model(dropout: float = 0.0, seed: int = 0, lm=None):
-    """JAX's ``tests/test_multichip.py::_tiny_trainer`` model, in the port."""
+def tiny_model(dropout: float = 0.0, seed: int = 0, lm=None, layers: int = 2,
+               layerdrop: float = 0.0, tied: bool = False):
+    """JAX's ``tests/test_multichip.py::_tiny_trainer`` model, in the port;
+    ``layers`` encoder and LM layers, the encoder's LayerDrop at
+    ``layerdrop``, the LM's head ``tied`` to its embeddings or not."""
     config = AslmConfig(projection_type="linear", audio_encoder_hidden=32, lm_hidden=32,
                         projection_hidden=48)
     audio_cfg = dataclasses.replace(thub.tiny_test_config(), hidden_dropout=dropout,
-                                    attention_dropout=dropout)
-    model = AslmModel(config, audio_cfg, lm or tllm.tiny_test_config())
+                                    attention_dropout=dropout, num_hidden_layers=layers,
+                                    layerdrop=layerdrop)
+    lm = lm or tllm.tiny_test_config()
+    lm = dataclasses.replace(lm, num_hidden_layers=layers,
+                             tie_word_embeddings=lm.tie_word_embeddings or tied)
+    model = AslmModel(config, audio_cfg, lm)
     return model, model.init_params(seed, device="cpu")
 
 
@@ -46,7 +54,7 @@ def tiny_config(mesh=None, output_dir: str = "/nonexistent", **kw) -> TrainingCo
         learning_rate=1e-3, warmup_steps=2, max_steps=10, gradient_accumulation_steps=1,
         train_audio_encoder=True, train_lm_decoder=True, compute_dtype="float32",
         mesh_dp=mesh.get("dp", 1), mesh_fsdp=mesh.get("fsdp", 1), mesh_tp=mesh.get("tp", 1),
-        mesh_sp=mesh.get("sp", 1), eval_steps=0, save_steps=0, logging_steps=1000,
+        mesh_sp=mesh.get("sp", 1), mesh_pp=mesh.get("pp", 1), eval_steps=0, save_steps=0, logging_steps=1000,
         output_dir=output_dir)
     return TrainingConfig(**{**fields, **kw})
 
@@ -91,25 +99,41 @@ def flat_numpy(tree) -> dict:
     return {k: v.detach().cpu().numpy().copy() for k, v in ckpt_lib.flatten(tree).items()}
 
 
+def interchange(params: dict) -> dict:
+    """A params tree with its stacked layers (a pp trainer's) unstacked."""
+    return {k: unstack_model_layers(v) for k, v in params.items()}
+
+
 def run_steps(trainer: AATTrainer, batch: dict, steps: int = 2):
-    """(losses, the full params as numpy) after ``steps`` steps on the
-    rank's rows of ``batch``."""
+    """(losses, the full params as numpy, in the per-layer layout) after
+    ``steps`` steps on the rank's rows of ``batch``."""
     local = trainer.mesh.local_batch(batch) if trainer.mesh is not None else batch
     losses = [trainer.training_step([local])["train/loss"] for _ in range(steps)]
-    return losses, flat_numpy(trainer._full_state(trainer.state.params))
+    return losses, flat_numpy(interchange(trainer._full_state(trainer.state.params)))
 
 
 def train_rank(rank, world_size, port, mesh, batch_name, dropout=0.0, ragged=False,
-               steps=2, fault=None, config_kw=None):
+               steps=2, fault=None, config_kw=None, model_kw=None):
     """One rank of a mesh trainer: ``steps`` steps on its rows of the global
     batch → (losses, the full params). ``fault`` plants a defect the
     equivalence bounds must see: ``"no_reduce"`` (rank 1 takes part in the
-    gradient reduction but keeps its own gradients) or
+    gradient reduction but keeps its own gradients),
     ``"unshifted_dropout"`` (every rank keys its masks as rows 0.., as if it
-    held the batch's first rows)."""
+    held the batch's first rows), ``"pipeline_exit_sum"`` (the pipeline's
+    result leaves through an all-reduce whose gradient is summed too) or
+    ``"pipeline_entry_identity"`` (its input enters without the sum of the
+    stages' gradients)."""
     start_rank(rank, world_size, port)
-    model, params = tiny_model(dropout)
+    model, params = tiny_model(dropout, **(model_kw or {}))
     trainer = AATTrainer(model, params, tiny_config(mesh, **(config_kw or {})))
+    if fault == "pipeline_exit_sum":
+        from aat_tpu_torch.parallel import comm, pipeline
+
+        pipeline._exit = comm.all_reduce_sum
+    if fault == "pipeline_entry_identity":
+        from aat_tpu_torch.parallel import pipeline
+
+        pipeline._enter = lambda x, group: x
     if fault == "no_reduce" and rank == 1:
         reduce = trainer._reduce_grads
         trainer._reduce_grads = lambda grads: (reduce(grads), grads)[1]
@@ -120,11 +144,37 @@ def train_rank(rank, world_size, port, mesh, batch_name, dropout=0.0, ragged=Fal
     return run_steps(trainer, BATCHES[batch_name](ragged=ragged), steps)
 
 
-def reference_run(batch_name, dropout=0.0, ragged=False, steps=2, config_kw=None):
-    """The one-process trainer on the global batch."""
-    model, params = tiny_model(dropout)
-    return run_steps(AATTrainer(model, params, tiny_config(**(config_kw or {}))),
-                     BATCHES[batch_name](ragged=ragged), steps)
+def reference_run(batch_name, dropout=0.0, ragged=False, steps=2, config_kw=None,
+                  model_kw=None, stacked=False):
+    """The one-process trainer on the global batch; with ``stacked``, on its
+    parameters with the encoder's and the LM's layers stacked (the tree a
+    pp trainer's optimizer sees: Adafactor factors the stacked leaves)."""
+    model, params = tiny_model(dropout, **(model_kw or {}))
+    trainer = AATTrainer(model, params, tiny_config(**(config_kw or {})))
+    if stacked:
+        stack_trainer(trainer)
+    return run_steps(trainer, BATCHES[batch_name](ragged=ragged), steps)
+
+
+def stack_trainer(trainer: AATTrainer) -> None:
+    """Stack a one-process trainer's encoder and LM layers in place, and
+    rebuild its freeze mask, Adafactor axes and optimizer on that tree."""
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.trainer import TrainState
+    from aat_tpu_torch.utils import port
+
+    params = {k: stack_model_layers(v) if k != "adapter" else v
+              for k, v in trainer.state.params.items()}
+    cfg = trainer.config
+    trainer.freeze = optim.trainable_mask(params, train_audio_encoder=cfg.train_audio_encoder,
+                                          train_lm_decoder=cfg.train_lm_decoder)
+    trainer._factor_axes = {
+        path: optim.factored_dims(p.shape)
+        for path, p in zip(optim.tree_leaves(optim.tree_paths(params)),
+                           optim.tree_leaves(params)) if p.ndim >= 2}
+    trainer._factor_axes.update(port.adafactor_axes(params))
+    trainer.tx = trainer._build_tx(params)
+    trainer.state = TrainState(0, params, trainer.tx.init(params))
 
 
 def grad_norms(trainer: AATTrainer, batch: dict) -> list:
@@ -264,7 +314,8 @@ def eval_trainer(mesh=None):
 
 def evaluate_run(trainer: AATTrainer, batches):
     """One training step, then ``evaluate`` with generation, and the
-    generated ids of each batch (all data ranks' rows)."""
+    generated ids of each batch (all data ranks' rows; under pp through
+    the whole LM, gathered)."""
     local = [trainer.mesh.local_batch(b) if trainer.mesh is not None else b for b in batches]
     trainer.training_step([local[0]])
     metrics = trainer.evaluate(local, with_generation=True)
@@ -326,20 +377,22 @@ def bn_rank(rank, world_size, port, images):
             {k: v.numpy() for k, v in ckpt_lib.flatten(stats).items()})
 
 
-def reuse_rank(rank, world_size, port):
-    """A dp2 trainer, then a one-device trainer built from the same model:
-    the model's mesh is cleared and its step runs the plain route (no
-    collective). A mesh larger than the world raises."""
+def reuse_rank(rank, world_size, port, mesh=None):
+    """A trainer on ``mesh`` (dp2 by default), then a one-device trainer
+    built from the same model: the model's mesh (and pipeline microbatch
+    count) is cleared and its step runs the plain route (no collective). A
+    mesh larger than the world raises."""
     from aat_tpu_torch.parallel import comm
 
     start_rank(rank, world_size, port)
     model, params = tiny_model()
-    mesh_trainer = AATTrainer(model, params, tiny_config({"dp": 2}))
+    mesh_trainer = AATTrainer(model, params, tiny_config(mesh or {"dp": 2},
+                                                         pp_microbatches=2))
     mesh_trainer.training_step([mesh_trainer.mesh.local_batch(equiv_batch())])
     routed = model.mesh
     _, fresh = tiny_model()
     single = AATTrainer(model, fresh, tiny_config())
-    cleared = model.mesh
+    cleared = model.mesh is None and model.pp_microbatches == 0
     before = sum(comm.calls.values())
     loss = single.training_step([equiv_batch(rows=2)])["train/loss"]
     collectives = sum(comm.calls.values()) - before
@@ -348,7 +401,7 @@ def reuse_rank(rank, world_size, port):
         refused = None
     except ValueError as exc:
         refused = str(exc)
-    return routed is mesh_trainer.mesh, cleared is None, loss, collectives, refused
+    return routed is mesh_trainer.mesh, cleared, loss, collectives, refused
 
 
 WORDS = [f"w{i}" for i in range(12)]
@@ -506,3 +559,159 @@ def record_dropout(mesh=None) -> dict:
 def dropout_record_rank(rank, world_size, port, mesh):
     start_rank(rank, world_size, port)
     return record_dropout(mesh)
+
+
+def toy_pipeline_problem(rows: int, layers: int, width: int = 8, seed: int = 11):
+    """Seeded numpy operands of a toy layer stack: stacked weights and
+    biases, an input batch, an upstream scale, a row mask and the loss
+    weights."""
+    rng = np.random.default_rng(seed)
+    return {"w": rng.normal(0, 0.4, (layers, width, width)).astype(np.float32),
+            "b": rng.normal(0, 0.1, (layers, width)).astype(np.float32),
+            "x": rng.normal(0, 1.0, (rows, 3, width)).astype(np.float32),
+            "scale": np.float32(1.5),
+            "mask": (rng.uniform(size=(rows, 3)) > 0.2).astype(np.float32),
+            "c": rng.normal(0, 1.0, (rows, 3, width)).astype(np.float32)}
+
+
+def toy_layer(h, layer, idx, shard, mask):
+    """One toy layer: a product, a bias, tanh, the row mask and the global
+    layer index (so a stage that ran another stage's index shows)."""
+    return torch.tanh(h @ layer["w"] + layer["b"]) * mask[..., None] + 0.01 * idx
+
+
+def toy_pipeline(problem: dict, mesh=None, microbatches: int = 0, stage_layers=None,
+                 layer_fn=toy_layer):
+    """The toy stack on this rank's rows through ``gpipe_apply`` under
+    ``mesh``, or on all rows as a plain loop without one → (output, loss,
+    grads of the stage's stacked leaves, of the upstream scale and of the
+    input), as numpy; the loss is this rank's rows' share."""
+    from aat_tpu_torch.parallel import pipeline
+
+    layers = problem["w"].shape[0]
+    rows = (lambda x: mesh.local_rows(x)) if mesh is not None else (lambda x: x)
+    sl = stage_layers or slice(0, layers)
+    stacked = {k: torch.tensor(problem[k][sl], requires_grad=True) for k in ("w", "b")}
+    scale = torch.tensor(problem["scale"], requires_grad=True)
+    x = torch.tensor(rows(problem["x"]), requires_grad=True)
+    mask = torch.tensor(rows(problem["mask"]))
+    if mesh is None:
+        y = x * scale
+        for i in range(layers):
+            y = layer_fn(y, {k: v[i] for k, v in stacked.items()}, i, None, mask)
+    else:
+        y = pipeline.gpipe_apply(layer_fn, stacked, x * scale, (mask,), mesh, num_layers=layers,
+                                 microbatches=microbatches)
+    loss = (y * torch.tensor(rows(problem["c"]))).square().sum()
+    loss.backward()
+    return (y.detach().numpy(), float(loss.detach()), {k: v.grad.numpy() for k, v in stacked.items()},
+            float(scale.grad), x.grad.numpy())
+
+
+def gpipe_rank(rank, world_size, port, sizes, rows, layers, microbatches, fault=None):
+    """The toy stack pipelined on ``sizes`` → (pp coordinate, data rank,
+    :func:`toy_pipeline`'s results, the microbatch count, the ring steps
+    and bytes each way, the microbatches' ElementShard rows)."""
+    from aat_tpu_torch.parallel import comm, pipeline
+    from aat_tpu_torch.parallel import mesh as mesh_lib
+
+    start_rank(rank, world_size, port)
+    mesh = mesh_lib.make_mesh(**sizes)
+    if fault == "pipeline_exit_sum":
+        pipeline._exit = comm.all_reduce_sum
+    if fault == "pipeline_entry_identity":
+        pipeline._enter = lambda x, group: x
+    per = layers // mesh.size("pp")
+    s = mesh.coords["pp"]
+    blocks = set()
+
+    def recording(h, lp, idx, shard, mask):
+        blocks.add(shard.row_block)
+        return toy_layer(h, lp, idx, shard, mask)
+
+    comm.calls.clear()
+    comm.ring_bytes.clear()
+    out = toy_pipeline(toy_pipeline_problem(rows, layers), mesh, microbatches,
+                       slice(s * per, (s + 1) * per), recording)
+    ring = {k: v for k, v in comm.calls.items() if k.startswith("ring_permute")}
+    used = pipeline.microbatch_count(microbatches or 2 * mesh.size("pp"), rows // mesh.data_world)
+    return s, mesh.data_rank, out, used, ring, dict(comm.ring_bytes), sorted(blocks)
+
+
+def ring_rank(rank, world_size, port):
+    """``ring_permute`` of a rank-tagged tensor and its gradient: → (what
+    arrived, the gradient of ``sum(arrived · w_rank)`` with respect to what
+    this rank sent)."""
+    from aat_tpu_torch.parallel import comm
+
+    start_rank(rank, world_size, port)
+    import torch.distributed as dist
+
+    x = torch.full((3,), float(rank + 1), requires_grad=True)
+    y = comm.ring_permute(x, dist.group.WORLD)
+    (y * torch.arange(3.0) * (10 * rank + 1)).sum().backward()
+    return y.detach().numpy(), x.grad.numpy()
+
+
+def residency_rank(rank, world_size, port, mesh, optimizer):
+    """A pp trainer's stage-resident state → ({stack: layers of this
+    rank's params, mu or v_row leaves}, the full params' layer counts)."""
+    start_rank(rank, world_size, port)
+    kw = {"optimizer": "adafactor", "learning_rate": None} if optimizer == "adafactor" else {}
+    model, params = tiny_model(layers=4)
+    trainer = AATTrainer(model, params, tiny_config(mesh, **kw))
+    trainer.training_step([trainer.mesh.local_batch(equiv_batch())])
+    state = trainer.state.opt_state
+    inner = getattr(state, "inner_state", state)
+    moments = inner.mu if hasattr(inner, "mu") else inner.v_row
+    out = {}
+    for stack in ("audio_encoder", "lm_decoder"):
+        leaves = ckpt_lib.flatten(trainer.state.params[stack]["layers"])
+        stats = ckpt_lib.flatten(moments[stack]["layers"])
+        out[stack] = (sorted({int(v.shape[0]) for v in leaves.values()}),
+                      sorted({int(v.shape[0]) for v in stats.values()}))
+    full = trainer._full_state(trainer.state.params)
+    return out, {k: sorted({int(v.shape[0]) for v in ckpt_lib.flatten(full[k]["layers"]).values()})
+                 for k in ("audio_encoder", "lm_decoder")}
+
+
+def adafactor_rank(rank, world_size, port, sizes, params, specs, grads, learning_rates):
+    """The port's Adafactor on this rank's shards of whole leaves
+    (``params``: {name: array}, ``specs``: {name: dims}), ``len(grads)``
+    steps of whole gradients, for each of ``learning_rates`` → [{name:
+    this rank's shard after them}]."""
+    from aat_tpu_torch.parallel import mesh as mesh_lib
+    from aat_tpu_torch.training import optim
+
+    start_rank(rank, world_size, port)
+    mesh = mesh_lib.make_mesh(**sizes)
+    spec = {k: mesh_lib.Spec(tuple(v)) for k, v in specs.items()}
+    axes = {k: optim.factored_dims(np.shape(v)) for k, v in params.items() if np.ndim(v) >= 2}
+    out = []
+    for learning_rate in learning_rates:
+        local = {k: mesh.local_shard(torch.as_tensor(v), spec[k]).clone()
+                 for k, v in params.items()}
+        tx = optim.adafactor(learning_rate, axes=axes, mesh=mesh, specs=spec)
+        state = tx.init(local)
+        for step in grads:
+            g = {k: mesh.local_shard(torch.as_tensor(v), spec[k]) for k, v in step.items()}
+            updates, state = tx.update(g, state, local)
+            optim.apply_updates(local, updates)
+        out.append({k: v.numpy() for k, v in local.items()})
+    return out
+
+
+def restore_rank(rank, world_size, port, mesh, path, export=None):
+    """A trainer on ``mesh`` restores the checkpoint at ``path`` → (its step,
+    its full params and optimizer state as flat numpy, in its layout, and
+    the keys of its ``save_pretrained`` export at ``export``, if given)."""
+    start_rank(rank, world_size, port)
+    model, params = tiny_model(seed=5)
+    trainer = AATTrainer(model, params, tiny_config(mesh))
+    trainer.restore_checkpoint(path)
+    keys = None
+    if export is not None:
+        trainer.save_pretrained(export)
+        keys = sorted(ckpt_lib.read_params(export, "cpu")["params"])
+    return (trainer.state.step, flat_numpy(trainer._full_state(trainer.state.params)),
+            flat_numpy(trainer._full_state(trainer.state.opt_state)), keys)

@@ -121,9 +121,10 @@ def test_prng_key_inits_equal_jax(key):
 
 
 def assert_same_fields(port_cfg, jax_cfg):
-    """Every field of the port's config equals JAX's (JAX has more: the
-    pipeline fields the port does not carry); a nested config (the
-    ``PoolingConfig`` of ``AslmConfig``) field by field."""
+    """Every field of the port's config equals JAX's (JAX has more: its
+    ``sp_mesh`` / ``pp_mesh`` / ``pp_microbatches`` routing fields, which the
+    port keeps on the model, ``AslmModel.mesh`` and ``pp_microbatches``); a
+    nested config (the ``PoolingConfig`` of ``AslmConfig``) field by field."""
     for field in dataclasses.fields(port_cfg):
         value = getattr(port_cfg, field.name)
         if dataclasses.is_dataclass(value):
@@ -161,6 +162,14 @@ def test_build_refuses_pretrained_and_full_configs_match_jax():
         with pytest.raises(FileNotFoundError, match="local checkpoint directory"):
             build(TConfig(), pretrained=True, device="cpu")
     assert_same_fields(tllm.qwen15_18b_config(), jllm.qwen15_18b_config())
+    # the decoder's remat fields, in both packages
+    for cfg in (tllm.qwen15_18b_config(), tllm.smollm_135m_config(), tllm.tiny_test_config()):
+        assert (cfg.remat, cfg.remat_policy) == (False, "full")
+    remat = dataclasses.replace(tllm.tiny_test_config(), remat=True, remat_policy="dots")
+    assert_same_fields(remat, dataclasses.replace(jllm.tiny_test_config(), remat=True,
+                                                  remat_policy="dots"))
+    assert {f.name for f in dataclasses.fields(tllm.LlamaConfig)} == {
+        f.name for f in dataclasses.fields(jllm.LlamaConfig)} - {"pp_mesh", "pp_microbatches"}
     q = tllm.qwen15_18b_config()
     assert (q.hidden_size // q.num_attention_heads, q.num_key_value_heads) == (128, 16)
 
@@ -194,7 +203,7 @@ def test_port_imports_no_jax():
         "aat_tpu_torch.scripts.parity_check", "aat_tpu_torch.parallel",
         "aat_tpu_torch.parallel.distributed", "aat_tpu_torch.parallel.mesh",
         "aat_tpu_torch.parallel.sequence", "aat_tpu_torch.parallel.comm",
-        "aat_tpu_torch.models.efficientnet",
+        "aat_tpu_torch.models.efficientnet", "aat_tpu_torch.parallel.pipeline",
     ]
     code = (
         "import sys\n"

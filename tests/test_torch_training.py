@@ -156,9 +156,10 @@ def test_train_mode_dropout_is_deterministic():
 
 
 def test_unported_options_raise():
-    """Multi-device training is ported but for the pipeline axis and
-    Adafactor under fsdp / tp (ROADMAP item 8b); sp with pp is refused as
-    JAX refuses it; a mesh must cover the process group exactly."""
+    """Every multi-device option is ported: pp, and Adafactor under fsdp or
+    tp, reach the mesh (which needs a process group); sp with pp is refused
+    as JAX refuses it, and so is a pp that does not divide a stack's
+    layers; a mesh must cover the process group exactly."""
     import torch.distributed as dist
 
     from aat_tpu_torch.parallel.distributed import free_port
@@ -169,17 +170,19 @@ def test_unported_options_raise():
     TConfig(**dict(TRAIN, mesh_dp=2, mesh_fsdp=2, mesh_tp=2, mesh_sp=2))  # no longer refused
     with pytest.raises(ValueError, match="mutually exclusive"):
         TTrainer(tm, params, TConfig(**dict(TRAIN, mesh_sp=2, mesh_pp=2)))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        TTrainer(tm, params, TConfig(**dict(TRAIN, mesh_pp=2)))
-    for axis in ("mesh_fsdp", "mesh_tp"):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            TTrainer(tm, params, TConfig(**dict(TRAIN, optimizer="adafactor",
-                                                learning_rate=None, **{axis: 2})))
+    # the tiny stacks have 2 layers: pp 4 does not divide them
+    with pytest.raises(ValueError, match="num_hidden_layers=2 is not divisible by mesh_pp=4"):
+        TTrainer(tm, params, TConfig(**dict(TRAIN, mesh_pp=4)))
+    for kw in (dict(mesh_pp=2), dict(optimizer="adafactor", learning_rate=None, mesh_fsdp=2),
+               dict(optimizer="adafactor", learning_rate=None, mesh_tp=2)):
+        with pytest.raises(RuntimeError, match="initialized process group"):
+            TTrainer(tm, params, TConfig(**dict(TRAIN, **kw)))
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
     try:
-        with pytest.raises(ValueError, match="2 ranks, the process group 1"):
-            TTrainer(tm, params, TConfig(**dict(TRAIN, mesh_dp=2)))
+        for axis in ("mesh_dp", "mesh_pp"):
+            with pytest.raises(ValueError, match="2 ranks, the process group 1"):
+                TTrainer(tm, params, TConfig(**dict(TRAIN, **{axis: 2})))
     finally:
         dist.destroy_process_group()
 
