@@ -264,7 +264,7 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict_
   const float* kb = k + b * a.k_sb + hk * a.k_sh;
   const float* vb = v + b * a.v_sb + hk * a.v_sh;
   const int* mb = a.key_mask + b * a.s_len;
-  const uint32_t seed_and_head = a.seed + (uint32_t)bh * kGolden;
+  const uint32_t seed_and_head = head_key(a.seed, b, a.heads_total, h);
   const int k_end = CAUSAL ? min(a.s_len, q0 + kRows) : a.s_len;
   const int n_tiles = (k_end + kTile - 1) / kTile;
 
@@ -431,7 +431,7 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict
   const float* dob = dout + b * a.t_len * o_st + h * D;
   const float* lb = a.lse + bh * a.t_len;
   const float* db = delta + bh * a.t_len;
-  const uint32_t seed_and_head = a.seed + (uint32_t)bh * kGolden;
+  const uint32_t seed_and_head = head_key(a.seed, b, a.heads_total, h);
   // query tiles above the diagonal see none of these keys (kRows is a
   // multiple of kTile)
   const int q_begin = CAUSAL ? k0 : 0;
@@ -563,12 +563,12 @@ extern "C" int aat_flash_bwd_dq_tf32x3(const void* q, const void* k, const void*
                                        long long q_sh, long long k_sb, long long k_ss,
                                        long long k_sh, long long v_sb, long long v_ss,
                                        long long v_sh, float sm_scale, int causal, int pack_len,
-                                       int seed, float rate, float inv_keep,
-                                       cudaStream_t stream) {
+                                       int seed, float rate, float inv_keep, int heads_total,
+                                       int head_offset, cudaStream_t stream) {
   if (B == 0 || T_len == 0 || S == 0 || H == 0) return 0;
   const BwdArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
-                  v_sb, v_ss, v_sh, sm_scale, pack_len, (unsigned int)seed,
-                  aat_flash::keep_min(rate), inv_keep};
+                  v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
+                  aat_flash::keep_min(rate), inv_keep, heads_total};
   return dispatch(D, causal, [&](auto variant) {
     using V = decltype(variant);
     auto kernel = flash_bwd_dq_tf32x3_kernel<V::width, V::causal>;
@@ -597,11 +597,12 @@ extern "C" int aat_flash_bwd_dkv_tf32x3(const void* q, const void* k, const void
                                         long long k_sb, long long k_ss, long long k_sh,
                                         long long v_sb, long long v_ss, long long v_sh,
                                         float sm_scale, int causal, int pack_len, int seed,
-                                        float rate, float inv_keep, cudaStream_t stream) {
+                                        float rate, float inv_keep, int heads_total,
+                                        int head_offset, cudaStream_t stream) {
   if (B == 0 || T_len == 0 || S == 0 || H == 0) return 0;
   const BwdArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
-                  v_sb, v_ss, v_sh, sm_scale, pack_len, (unsigned int)seed,
-                  aat_flash::keep_min(rate), inv_keep};
+                  v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
+                  aat_flash::keep_min(rate), inv_keep, heads_total};
   return dispatch(D, causal, [&](auto variant) {
     using V = decltype(variant);
     const long long rows = (long long)B * T_len * H;

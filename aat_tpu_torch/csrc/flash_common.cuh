@@ -25,6 +25,25 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
+// The dropout hash's key of one head: seed + (b·heads_total + head_offset +
+// h)·golden, with h the launch's q-head. heads_total is the number of heads
+// of a batch row the masks are keyed on and head_offset the place of the
+// launch's head 0 among them; (H, 0) keys the launch on its own heads, and a
+// tensor-parallel head shard passes its global place, so it draws one
+// device's masks. The C entries fold head_offset·golden into the seed
+// (offset_seed) and the kernels add (b·heads_total + h)·golden (head_key):
+// the same bits, and the kernels' code as fast as with the launch's own
+// heads (an offset kept apart in the arguments slowed the causal bf16
+// forward at D = 128 by 40% on an H100, chip_smoke.ab_flash_entries).
+inline unsigned int offset_seed(int seed, int head_offset) {
+  return (unsigned int)seed + (unsigned int)head_offset * kGolden;
+}
+
+__device__ __forceinline__ uint32_t head_key(uint32_t seed, long long b, int heads_total,
+                                             int h) {
+  return seed + (uint32_t)(b * heads_total + h) * kGolden;
+}
+
 // Score mask of the causal path: the triangle and, with pack_len > 0, the
 // block-diagonal same-utterance constraint (`_causal_mask`, :152).
 __device__ __forceinline__ bool causal_allowed(int q_pos, int k_pos, int pack_len) {
@@ -44,6 +63,7 @@ struct BwdArgs {
   unsigned int seed;
   unsigned int keep_min;  // 0: no dropout; else keep where hash >= keep_min
   float inv_keep;
+  int heads_total;  // head_key's heads of a batch row
 };
 
 template <int D, bool CAUSAL>

@@ -76,6 +76,7 @@ struct MmaArgs {
   unsigned int seed;
   unsigned int keep_min;  // 0: no dropout; else keep where hash >= keep_min
   float inv_keep;
+  int heads_total;  // head_key's heads of a batch row
 };
 
 template <int D, bool CAUSAL>
@@ -97,7 +98,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * a.k_sb + hk * a.k_sh;
   const bf16* vb = v + b * a.v_sb + hk * a.v_sh;
   const int* mb = a.key_mask + b * a.s_len;
-  const uint32_t seed_and_head = a.seed + (uint32_t)(b * a.n_heads + h) * kGolden;
+  const uint32_t seed_and_head = head_key(a.seed, b, a.heads_total, h);
   const int k_end = CAUSAL ? min(a.s_len, q0 + kBQ) : a.s_len;
   const int n_tiles = (k_end + kBK - 1) / kBK;
 
@@ -301,11 +302,11 @@ extern "C" int aat_flash_fwd_mma(const void* q, const void* k, const void* v,
                                  long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                  long long v_sb, long long v_ss, long long v_sh, float sm_scale,
                                  int causal, int pack_len, int seed, float rate, float inv_keep,
-                                 cudaStream_t stream) {
+                                 int heads_total, int head_offset, cudaStream_t stream) {
   if (B == 0 || T_len == 0 || H == 0) return 0;
   const MmaArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
-                  v_sb, v_ss, v_sh, sm_scale, pack_len, (unsigned int)seed,
-                  aat_flash::keep_min(rate), inv_keep};
+                  v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
+                  aat_flash::keep_min(rate), inv_keep, heads_total};
   if (D == 64) return launch_d<64>(q, k, v, out, B, causal, a, stream);
   if (D == 128) return launch_d<128>(q, k, v, out, B, causal, a, stream);
   return (int)cudaErrorInvalidValue;

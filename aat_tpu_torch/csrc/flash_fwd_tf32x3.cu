@@ -17,7 +17,8 @@
 //   - the normaliser sums the undropped probabilities, is floored at 1e-30
 //     and applied as a reciprocal;
 //   - dropout keeps a probability where the position hash of (q, k) under
-//     seed + (b*H + h)*0x9e3779b9 is >= rate, scaling kept ones by
+//     seed + (b*heads_total + head_offset + h)*0x9e3779b9 (head_key; (H, 0)
+//     keys the launch's own heads) is >= rate, scaling kept ones by
 //     1/(1-rate) (flash_common.cuh's hash, tested as the integer compare
 //     keep_bits of mma_common.cuh);
 //   - GQA: q-head h reads kv-head h / (H / KVH);
@@ -102,6 +103,7 @@ struct Tf32Args {
   unsigned int seed;
   unsigned int keep_min;  // 0: no dropout; else keep where hash >= keep_min
   float inv_keep;
+  int heads_total;  // head_key's heads of a batch row
 };
 
 template <int D, bool CAUSAL>
@@ -125,7 +127,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float* kb = k + b * a.k_sb + hk * a.k_sh;
   const float* vb = v + b * a.v_sb + hk * a.v_sh;
   const int* mb = a.key_mask + b * a.s_len;
-  const uint32_t seed_and_head = a.seed + (uint32_t)(b * a.n_heads + h) * kGolden;
+  const uint32_t seed_and_head = head_key(a.seed, b, a.heads_total, h);
   const int k_end = CAUSAL ? min(a.s_len, q0 + kBQ) : a.s_len;
   const int n_tiles = (k_end + kBK - 1) / kBK;
 
@@ -343,11 +345,11 @@ extern "C" int aat_flash_fwd_tf32x3(const void* q, const void* k, const void* v,
                                     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                     long long v_sb, long long v_ss, long long v_sh, float sm_scale,
                                     int causal, int pack_len, int seed, float rate, float inv_keep,
-                                    cudaStream_t stream) {
+                                    int heads_total, int head_offset, cudaStream_t stream) {
   if (B == 0 || T_len == 0 || H == 0) return 0;
   const Tf32Args a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
-                   v_sb, v_ss, v_sh, sm_scale, pack_len, (unsigned int)seed,
-                   aat_flash::keep_min(rate), inv_keep};
+                   v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
+                   aat_flash::keep_min(rate), inv_keep, heads_total};
   if (D == 64) return launch_d<64>(q, k, v, out, B, causal, a, stream);
   if (D == 128) return launch_d<128>(q, k, v, out, B, causal, a, stream);
   return (int)cudaErrorInvalidValue;

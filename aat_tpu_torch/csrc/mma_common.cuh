@@ -202,7 +202,7 @@ __device__ __forceinline__ void load_rows_f32_padded(float* dst, const float* sr
 }
 
 // The keep decision for score (q_pos, k_pos) of one batch·head
-// (`_keep_from_positions`, :115; seed_and_head = seed + (b·H + h)·golden,
+// (`_keep_from_positions`, :115; seed_and_head = head_key(...),
 // positions absolute, s_stride the unpadded key length) as an integer
 // compare: u = (hash >> 8)·2^-24 >= rate  <=>  (hash >> 8) >=
 // ceil(rate·2^24)  <=>  hash >= keep_min with keep_min = ceil(rate·2^24)·2^8

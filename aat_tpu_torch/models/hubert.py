@@ -38,13 +38,12 @@ Multi-device (``mesh``, the trainer's :class:`~aat_tpu_torch.parallel.
 mesh.Mesh`, which ``AslmModel`` passes in): under tensor parallelism, where
 :func:`tp_partitionable` holds, each layer is a Megatron body on this
 rank's heads and feed-forward columns (the parameters arrive as shards),
-the out and output products partial, all-reduced, then their bias; the
-attention and activation dropout seeds are salted by the tp index
-(``0x3C6EF35F``, and ``fold_seed`` of the activation seed). That is the
-recipe of JAX's pipeline bodies, the only place JAX applies it: its tp
-without pp runs on global arrays and draws one device's masks, which a
-head shard cannot draw here (the kernels key a head on its index within
-the launch, and the offset to the global index changes with the row).
+the out and output products partial, all-reduced, then their bias. The
+attention dropout keys this rank's heads on their global index
+(:func:`tp_head_keys`, the kernels' ``head_keys``) and the activation
+dropout its columns on their global place (``ElementShard.cols``), so tp
+draws one device's masks, as JAX's tp without pp does on its global
+arrays. (JAX's pipeline bodies salt both seeds by the tp index instead.)
 Under sequence parallelism the feature extractor and the
 positional conv run whole on every sp rank, the layer stack runs on this
 rank's time slice with Ulysses attention
@@ -82,18 +81,15 @@ import torch.utils.checkpoint as torch_checkpoint
 
 from aat_tpu_torch.ops.attention import attention_bthd
 from aat_tpu_torch.ops.dropout import (
+    ElementShard,
     dropout,
     fold_seed,
     shift_head_seed,
-    to_int32,
     uniform_from_seed,
 )
 from aat_tpu_torch.parallel import comm, sequence
 from aat_tpu_torch.parallel.pipeline import gpipe_apply, layer_seq
 from aat_tpu_torch.utils.port import encoder_from_jax
-
-# the attention seed's salt per tp index (JAX's pipeline bodies, hubert.py:514-519)
-TP_SEED_SALT = 0x3C6EF35F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,6 +295,13 @@ def _pos_conv_embedding(params, config: HubertConfig, hidden: torch.Tensor) -> t
     return F.gelu(x).transpose(1, 2)
 
 
+def tp_head_keys(nh: int, mesh) -> Tuple[int, int]:
+    """The attention dropout's ``(heads_total, head_offset)`` on this tp
+    rank's ``nh`` heads: their place among the layer's heads, so the rank
+    draws one device's masks."""
+    return nh * mesh.size("tp"), mesh.index("tp") * nh
+
+
 def _attention(params, config: HubertConfig, x, frame_mask, dropout_seed=None, shard=None,
                mesh=None):
     """Self-attention; under tp on this rank's heads (the q/k/v/out
@@ -313,14 +316,14 @@ def _attention(params, config: HubertConfig, x, frame_mask, dropout_seed=None, s
     v = _dense(x, params["v"]).reshape(b, t, nh, hd)
     key_mask = (frame_mask.to(torch.int32) if frame_mask is not None
                 else torch.ones((b, t), dtype=torch.int32, device=x.device))
-    seed = dropout_seed
+    seed, head_keys = dropout_seed, None
     if seed is not None and config.attention_dropout > 0.0:
-        if shard is not None:
-            seed = shift_head_seed(seed, shard.row_block * b, nh)
         if tp_group is not None:
-            seed = to_int32(seed + mesh.index("tp") * TP_SEED_SALT)
+            head_keys = tp_head_keys(nh, mesh)
+        if shard is not None:
+            seed = shift_head_seed(seed, shard.row_block * b, head_keys[0] if head_keys else nh)
     kw = dict(sm_scale=hd ** -0.5, use_kernel=config.attention_impl == "pallas",
-              dropout_rate=config.attention_dropout, dropout_seed=seed)
+              dropout_rate=config.attention_dropout, dropout_seed=seed, head_keys=head_keys)
     if mesh is not None and mesh.size("sp") > 1:
         ctx = sequence.ulysses_attention_bthd(q, k, v, key_mask, mesh, **kw)
     else:
@@ -342,12 +345,14 @@ def _feed_forward(params, x, config: HubertConfig, dropout_seed=None, shard=None
         return _dense_row_parallel(y, params["output"], tp_group)
     # HF HubertFeedForward: intermediate_dropout (activation_dropout), then
     # output_dropout (hidden_dropout). Under tp the activation is this
-    # rank's columns, so its seed is salted by the tp index; the output is
-    # replicated and keeps one mask.
-    s_act = fold_seed(dropout_seed, 0)
+    # rank's columns, keyed on their global place; the output is replicated
+    # and keeps one mask.
+    act_shard = shard
     if tp_group is not None:
-        s_act = fold_seed(s_act, mesh.index("tp"))
-    y = dropout(s_act, y, config.activation_dropout, shard)
+        width = y.shape[-1]
+        act_shard = (shard or ElementShard())._replace(
+            cols=(mesh.index("tp") * width, width * mesh.size("tp")))
+    y = dropout(fold_seed(dropout_seed, 0), y, config.activation_dropout, act_shard)
     return dropout(fold_seed(dropout_seed, 1), _dense_row_parallel(y, params["output"], tp_group),
                    config.hidden_dropout, shard)
 

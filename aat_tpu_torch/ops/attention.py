@@ -34,12 +34,17 @@ have plain versions of their own (:func:`flash_backward_dq_reference`,
 each kernel alone. Train-mode attention dropout
 is the position hash of :mod:`aat_tpu_torch.ops.dropout`, keyed on the
 flattened batch·head index, so kernel and plain routes drop the same
-probabilities for the same int32 seed.
+probabilities for the same int32 seed. ``head_keys = (heads_total,
+head_offset)`` places the launch's H heads among ``heads_total`` heads of a
+batch row, from ``head_offset`` on, and keys head h of row b on b·heads_total
++ head_offset + h: a tensor-parallel head shard draws the masks of those
+heads of one device's launch. The default ``(H, 0)`` keys the launch's own
+heads.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -77,15 +82,28 @@ def _allowed(key_mask, t: int, s: int, causal: bool, pack_len: Optional[int]):
     return allowed
 
 
-def _keep_mask(seed: int, b: int, h: int, t: int, s: int, rate: float, device):
-    """[B, H, T, S] attention-dropout keep mask, head index b·H + h."""
-    seeds = head_seeds(seed, b * h, device).reshape(b, h, 1, 1)
+def _head_keys(h: int, head_keys: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """``(heads_total, head_offset)`` of a launch of ``h`` heads: ``(h, 0)``
+    when None; raises unless the launch's heads lie among the total."""
+    if head_keys is None:
+        return h, 0
+    total, offset = (int(x) for x in head_keys)
+    if offset < 0 or offset + h > total:
+        raise ValueError(f"head keys {head_keys} do not hold a launch of {h} heads")
+    return total, offset
+
+
+def _keep_mask(seed: int, b: int, h: int, t: int, s: int, rate: float, device,
+               head_keys: Optional[Tuple[int, int]] = None):
+    """[B, H, T, S] attention-dropout keep mask, head index b·heads_total +
+    head_offset + h (``head_keys``, default ``(H, 0)``: b·H + h)."""
+    seeds = head_seeds(seed, b * h, device, h, _head_keys(h, head_keys)).reshape(b, h, 1, 1)
     return keep_from_positions(seeds, torch.arange(t, device=device)[:, None],
                                torch.arange(s, device=device)[None, :], s, rate)
 
 
 def _plain_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_seed,
-                   pack_len, need_lse):
+                   pack_len, need_lse, head_keys=None):
     """``_reference_attention`` on ``[B, T, H, D]`` operands, plus the row
     log-sum-exp ``[B, H, T]`` when ``need_lse``."""
     b, t, h, _ = q.shape
@@ -102,7 +120,7 @@ def _plain_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_se
         lse = torch.logsumexp(scores, dim=-1)
         lse = torch.where(live[..., 0], lse, torch.full_like(lse, NEG_INF))
     if dropout_rate > 0.0 and dropout_seed is not None:
-        keep = _keep_mask(dropout_seed, b, h, t, s, dropout_rate, q.device)
+        keep = _keep_mask(dropout_seed, b, h, t, s, dropout_rate, q.device, head_keys)
         probs = torch.where(keep, probs / (1.0 - dropout_rate), torch.zeros_like(probs))
     probs = probs.to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
@@ -112,7 +130,8 @@ def _plain_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_se
 def reference_attention_bthd(q, k, v, key_mask, sm_scale: Optional[float] = None,
                              causal: bool = False, dropout_rate: float = 0.0,
                              dropout_seed: Optional[int] = None,
-                             pack_len: Optional[int] = None) -> torch.Tensor:
+                             pack_len: Optional[int] = None,
+                             head_keys: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Plain masked attention on ``[B, T, H, D]`` operands (the JAX
     ``_reference_attention`` / ``attention_bthd`` plain-branch semantics):
     f32 scores, masked to -1e30, softmax, fully masked rows zeroed, the
@@ -121,20 +140,21 @@ def reference_attention_bthd(q, k, v, key_mask, sm_scale: Optional[float] = None
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return _plain_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate,
-                          dropout_seed, pack_len, need_lse=False)[0]
+                          dropout_seed, pack_len, need_lse=False, head_keys=head_keys)[0]
 
 
 def flash_forward_reference(q, k, v, key_mask, sm_scale: float, causal: bool = False,
                             dropout_rate: float = 0.0, dropout_seed: int = 0,
-                            pack_len: Optional[int] = None):
+                            pack_len: Optional[int] = None,
+                            head_keys: Optional[Tuple[int, int]] = None):
     """Plain version of the forward kernel: ``(out [B, T, H, D], lse
     [B, H, T] f32)``. A fully masked row has lse -1e30."""
     return _plain_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate,
-                          dropout_seed, pack_len, need_lse=True)
+                          dropout_seed, pack_len, need_lse=True, head_keys=head_keys)
 
 
 def _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
-              dropout_seed, pack_len):
+              dropout_seed, pack_len, head_keys=None):
     """The backward's shared core (``_ds_block`` semantics), ``[B, H, T, S]``
     f32: p = exp(q_s·k - lse) with q_s = round(q·sm_scale), delta =
     rowsum(dout·out), ds = p·(dp - delta) with dp masked and scaled by the
@@ -151,7 +171,7 @@ def _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vr.float())
     p_v = p
     if dropout_rate > 0.0:
-        keep = _keep_mask(dropout_seed, b, h, t, s, dropout_rate, q.device)
+        keep = _keep_mask(dropout_seed, b, h, t, s, dropout_rate, q.device, head_keys)
         inv = 1.0 / (1.0 - dropout_rate)
         p_v = torch.where(keep, p * inv, torch.zeros_like(p))
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
@@ -177,31 +197,34 @@ def _plain_dkv(q, k, v, dout, ds, p_v, qs):
 
 def flash_backward_reference(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                              causal: bool = False, dropout_rate: float = 0.0,
-                             dropout_seed: int = 0, pack_len: Optional[int] = None):
+                             dropout_seed: int = 0, pack_len: Optional[int] = None,
+                             head_keys: Optional[Tuple[int, int]] = None):
     """Plain version of the backward kernels: ``(dq, dk, dv)`` in the
     layouts and dtypes of q, k, v; dk/dv summed over the q-heads that share
     a kv head; ds rounded to the input dtype before each product, p_v to
     dout's."""
     ds, p_v, qs, kr = _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
-                                dropout_rate, dropout_seed, pack_len)
+                                dropout_rate, dropout_seed, pack_len, head_keys)
     return (_plain_dq(q, k, ds, kr, sm_scale), *_plain_dkv(q, k, v, dout, ds, p_v, qs))
 
 
 def flash_backward_dq_reference(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                                 causal: bool = False, dropout_rate: float = 0.0,
-                                dropout_seed: int = 0, pack_len: Optional[int] = None):
+                                dropout_seed: int = 0, pack_len: Optional[int] = None,
+                                head_keys: Optional[Tuple[int, int]] = None):
     """Plain version of the split route's dq kernel: dq alone."""
     ds, _, _, kr = _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
-                             dropout_rate, dropout_seed, pack_len)
+                             dropout_rate, dropout_seed, pack_len, head_keys)
     return _plain_dq(q, k, ds, kr, sm_scale)
 
 
 def flash_backward_dkv_reference(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                                  causal: bool = False, dropout_rate: float = 0.0,
-                                 dropout_seed: int = 0, pack_len: Optional[int] = None):
+                                 dropout_seed: int = 0, pack_len: Optional[int] = None,
+                                 head_keys: Optional[Tuple[int, int]] = None):
     """Plain version of the split route's dk/dv kernel: ``(dk, dv)``."""
     ds, p_v, qs, _ = _plain_ds(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
-                               dropout_rate, dropout_seed, pack_len)
+                               dropout_rate, dropout_seed, pack_len, head_keys)
     return _plain_dkv(q, k, v, dout, ds, p_v, qs)
 
 
@@ -249,15 +272,17 @@ def _strides(q, k, v):
             v.stride(0), v.stride(1), v.stride(2))
 
 
-def _dropout_args(dropout_rate: float, dropout_seed: int):
+def _dropout_args(dropout_rate: float, dropout_seed: int, h: int, head_keys):
+    """seed, rate, inv_keep, heads_total, head_offset of a C entry."""
     rate = float(dropout_rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"flash kernel dropout rate must lie in [0, 1), got {rate}")
-    return (to_int32(int(dropout_seed)), rate, 1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
+    return (to_int32(int(dropout_seed)), rate, 1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
+            *_head_keys(h, head_keys))
 
 
 def _launch_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_seed,
-                    pack_len, need_lse):
+                    pack_len, need_lse, head_keys):
     mask = _check_operands(q, k, v, key_mask)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -270,30 +295,32 @@ def _launch_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_s
         out.data_ptr(), lse.data_ptr() if need_lse else None, b, t, s, h, kvh, d,
         *_strides(q, k, v),
         float(sm_scale), int(causal), int(pack_len or 0),
-        *_dropout_args(dropout_rate, dropout_seed))
+        *_dropout_args(dropout_rate, dropout_seed, h, head_keys))
     return (out, lse) if need_lse else out
 
 
 def flash_forward_kernel(q, k, v, key_mask, sm_scale: float, dropout_rate: float = 0.0,
-                         dropout_seed: int = 0, need_lse: bool = False):
+                         dropout_seed: int = 0, need_lse: bool = False,
+                         head_keys: Optional[Tuple[int, int]] = None):
     """Launch the dense forward, ``aat_flash_fwd_mma`` in bf16 and
     ``aat_flash_fwd_tf32x3`` in f32 (replaces the TPU kernel
     aat_tpu/ops/attention.py:186 ``_fwd_kernel``) → out ``[B, T, H, D]`` in
     q's dtype, or ``(out, lse [B, H, T] f32)`` with ``need_lse``."""
     result = _launch_forward(q, k, v, key_mask, sm_scale, False, dropout_rate,
-                             dropout_seed, None, need_lse)
+                             dropout_seed, None, need_lse, head_keys)
     flash_forward_kernel.launches += 1
     return result
 
 
 def flash_forward_causal_kernel(q, k, v, key_mask, sm_scale: float,
                                 dropout_rate: float = 0.0, dropout_seed: int = 0,
-                                pack_len: Optional[int] = None, need_lse: bool = False):
+                                pack_len: Optional[int] = None, need_lse: bool = False,
+                                head_keys: Optional[Tuple[int, int]] = None):
     """Launch the causal forward, ``aat_flash_fwd_mma`` in bf16 and
     ``aat_flash_fwd_tf32x3`` in f32 (replaces the TPU kernel
     aat_tpu/ops/attention.py:245 ``_fwd_tri_kernel``)."""
     result = _launch_forward(q, k, v, key_mask, sm_scale, True, dropout_rate,
-                             dropout_seed, pack_len, need_lse)
+                             dropout_seed, pack_len, need_lse, head_keys)
     flash_forward_causal_kernel.launches += 1
     return result
 
@@ -316,18 +343,19 @@ def _backward_operands(q, k, v, key_mask, out, lse, dout):
     return mask, out, lse, dout
 
 
-def _backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len):
+def _backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len,
+                   head_keys):
     """The C entries' arguments after the output pointers, up to the
     stream, which :func:`kernels.launch` appends."""
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     return (b, t, s, h, kvh, d, *_strides(q, k, v),
             float(sm_scale), int(causal), int(pack_len or 0),
-            *_dropout_args(dropout_rate, dropout_seed))
+            *_dropout_args(dropout_rate, dropout_seed, h, head_keys))
 
 
 def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
-                        dropout_seed, pack_len):
+                        dropout_seed, pack_len, head_keys):
     """``aat_flash_bwd_dq_mma`` in bf16, ``aat_flash_bwd_dq_tf32x3`` in f32
     → dq ``[B, T, H, D]`` in q's dtype."""
     mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
@@ -337,12 +365,13 @@ def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dro
         q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-        *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
+        *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len,
+                        head_keys))
     return dq
 
 
 def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
-                         dropout_rate, dropout_seed, pack_len):
+                         dropout_rate, dropout_seed, pack_len, head_keys):
     """``aat_flash_bwd_dkv_mma`` in bf16, ``aat_flash_bwd_dkv_tf32x3`` in
     f32 → ``(dk, dv)`` in k's layout and dtype: the kernel writes them per
     q-head in f32, and the q-heads that share a kv head (GQA) are summed
@@ -359,7 +388,8 @@ def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dk_rep.data_ptr(), dv_rep.data_ptr(),
         delta.data_ptr(),
-        *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len))
+        *_backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_len,
+                        head_keys))
     rep = h // kvh
     dk = dk_rep.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype)
     dv = dv_rep.reshape(b, s, kvh, rep, d).sum(3).to(v.dtype)
@@ -367,54 +397,58 @@ def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
 
 
 def _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
-                     dropout_seed, pack_len):
+                     dropout_seed, pack_len, head_keys):
     args = (q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
-            dropout_seed, pack_len)
+            dropout_seed, pack_len, head_keys)
     return (_launch_backward_dq(*args), *_launch_backward_dkv(*args))
 
 
 def flash_backward_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: float,
-                          dropout_rate: float = 0.0, dropout_seed: int = 0):
+                          dropout_rate: float = 0.0, dropout_seed: int = 0,
+                          head_keys: Optional[Tuple[int, int]] = None):
     """Launch the dq and dk/dv kernels, dense, on the tensor cores (bf16,
     and f32 as 3xTF32) (replaces the TPU kernel
     aat_tpu/ops/attention.py:764 ``_bwd_fused_kernel``) → ``(dq, dk, dv)``."""
     grads = _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, False,
-                             dropout_rate, dropout_seed, None)
+                             dropout_rate, dropout_seed, None, head_keys)
     flash_backward_kernel.launches += 1
     return grads
 
 
 def flash_backward_causal_kernel(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                                  dropout_rate: float = 0.0, dropout_seed: int = 0,
-                                 pack_len: Optional[int] = None):
+                                 pack_len: Optional[int] = None,
+                                 head_keys: Optional[Tuple[int, int]] = None):
     """Launch the dq and dk/dv kernels, causal (replaces the TPU kernel
     aat_tpu/ops/attention.py:709 ``_bwd_fused_tri_kernel``)."""
     grads = _launch_backward(q, k, v, key_mask, out, lse, dout, sm_scale, True,
-                             dropout_rate, dropout_seed, pack_len)
+                             dropout_rate, dropout_seed, pack_len, head_keys)
     flash_backward_causal_kernel.launches += 1
     return grads
 
 
 def flash_backward_dq_long(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                            causal: bool = False, dropout_rate: float = 0.0,
-                           dropout_seed: int = 0, pack_len: Optional[int] = None):
+                           dropout_seed: int = 0, pack_len: Optional[int] = None,
+                           head_keys: Optional[Tuple[int, int]] = None):
     """Launch the dq kernel, the dq half of the split route for key
     lengths above ``FUSED_BWD_MAX_S``, dense or causal (replaces the TPU
     kernel aat_tpu/ops/attention.py:562 ``_bwd_dq_kernel``) → dq."""
     dq = _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
-                             dropout_rate, dropout_seed, pack_len)
+                             dropout_rate, dropout_seed, pack_len, head_keys)
     flash_backward_dq_long.launches += 1
     return dq
 
 
 def flash_backward_dkv_long(q, k, v, key_mask, out, lse, dout, sm_scale: float,
                             causal: bool = False, dropout_rate: float = 0.0,
-                            dropout_seed: int = 0, pack_len: Optional[int] = None):
+                            dropout_seed: int = 0, pack_len: Optional[int] = None,
+                            head_keys: Optional[Tuple[int, int]] = None):
     """Launch the dk/dv kernel, the dk/dv half of the split route,
     dense or causal (replaces the TPU kernel aat_tpu/ops/attention.py:595
     ``_bwd_dkv_kernel``) → ``(dk, dv)``."""
     grads = _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
-                                 dropout_rate, dropout_seed, pack_len)
+                                 dropout_rate, dropout_seed, pack_len, head_keys)
     flash_backward_dkv_long.launches += 1
     return grads
 
@@ -431,36 +465,36 @@ for _wrapper in (flash_forward_kernel, flash_forward_causal_kernel,
 
 
 def flash_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_seed,
-                  pack_len, need_lse):
+                  pack_len, need_lse, head_keys=None):
     """The forward: plain version on a CPU tensor, kernel on a CUDA one.
     Returns out, or ``(out, lse)`` with ``need_lse``."""
     if q.device.type == "cpu":
         out, lse = _plain_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate,
-                                  dropout_seed, pack_len, need_lse)
+                                  dropout_seed, pack_len, need_lse, head_keys)
         return (out, lse) if need_lse else out
     if causal:
         return flash_forward_causal_kernel(q, k, v, key_mask, sm_scale, dropout_rate,
-                                           dropout_seed, pack_len, need_lse)
+                                           dropout_seed, pack_len, need_lse, head_keys)
     return flash_forward_kernel(q, k, v, key_mask, sm_scale, dropout_rate, dropout_seed,
-                                need_lse)
+                                need_lse, head_keys)
 
 
 def flash_backward(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
-                   dropout_seed, pack_len):
+                   dropout_seed, pack_len, head_keys=None):
     """The backward: the plain version on a CPU tensor, kernels on a CUDA
     one. There, key lengths above ``FUSED_BWD_MAX_S`` take the split route,
     a dq pass and a dk/dv pass (the JAX ``_flash_backward`` dispatch)."""
     args = (q, k, v, key_mask, out, lse, dout, sm_scale, causal, dropout_rate,
-            dropout_seed, pack_len)
+            dropout_seed, pack_len, head_keys)
     if q.device.type == "cpu":
         return flash_backward_reference(*args)
     if k.shape[1] > FUSED_BWD_MAX_S:
         return (flash_backward_dq_long(*args), *flash_backward_dkv_long(*args))
     if causal:
         return flash_backward_causal_kernel(q, k, v, key_mask, out, lse, dout, sm_scale,
-                                            dropout_rate, dropout_seed, pack_len)
+                                            dropout_rate, dropout_seed, pack_len, head_keys)
     return flash_backward_kernel(q, k, v, key_mask, out, lse, dout, sm_scale,
-                                 dropout_rate, dropout_seed)
+                                 dropout_rate, dropout_seed, head_keys)
 
 
 class _FlashCore(torch.autograd.Function):
@@ -470,30 +504,31 @@ class _FlashCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_seed,
-                pack_len):
+                pack_len, head_keys):
         out, lse = flash_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate,
-                                 dropout_seed, pack_len, need_lse=True)
+                                 dropout_seed, pack_len, True, head_keys)
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        ctx.config = (sm_scale, causal, dropout_rate, dropout_seed, pack_len)
+        ctx.config = (sm_scale, causal, dropout_rate, dropout_seed, pack_len, head_keys)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
-        sm_scale, causal, dropout_rate, dropout_seed, pack_len = ctx.config
-        dq, dk, dv = flash_backward(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
-                                    dropout_rate, dropout_seed, pack_len)
-        return dq, dk, dv, None, None, None, None, None, None
+        dq, dk, dv = flash_backward(q, k, v, key_mask, out, lse, dout, *ctx.config)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_bthd(q, k, v, key_mask, causal: bool = False,
                          sm_scale: Optional[float] = None, dropout_rate: float = 0.0,
                          dropout_seed: Optional[int] = None,
-                         pack_len: Optional[int] = None) -> torch.Tensor:
+                         pack_len: Optional[int] = None,
+                         head_keys: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Flash attention: q ``[B, T, H, D]``, k/v ``[B, S, KVH, D]``, key_mask
     ``[B, S]`` → ``[B, T, H, D]`` in q's dtype. Dropout applies only with a
     seed (no seed: eval mode). ``pack_len``: rows are packed utterances of
-    that many tokens, attention blocked across them (causal only)."""
+    that many tokens, attention blocked across them (causal only).
+    ``head_keys``: the dropout hash's ``(heads_total, head_offset)``
+    (module docstring)."""
     if pack_len is not None and not causal:
         raise ValueError("sequence packing (pack_len) requires causal attention")
     if sm_scale is None:
@@ -501,9 +536,10 @@ def flash_attention_bthd(q, k, v, key_mask, causal: bool = False,
     rate = float(dropout_rate) if dropout_seed is not None else 0.0
     seed = int(dropout_seed) if dropout_seed is not None else 0
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashCore.apply(q, k, v, key_mask, sm_scale, causal, rate, seed, pack_len)
+        return _FlashCore.apply(q, k, v, key_mask, sm_scale, causal, rate, seed, pack_len,
+                                head_keys)
     return flash_forward(q, k, v, key_mask, sm_scale, causal, rate, seed, pack_len,
-                         need_lse=False)
+                         need_lse=False, head_keys=head_keys)
 
 
 def flash_attention(q, k, v, key_mask, causal: bool = False,
@@ -520,14 +556,15 @@ def flash_attention(q, k, v, key_mask, causal: bool = False,
 
 def attention_bthd(q, k, v, key_mask, causal: bool = False,
                    sm_scale: Optional[float] = None, use_kernel: bool = True,
-                   dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+                   dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+                   head_keys: Optional[Tuple[int, int]] = None):
     """``[B, T, H, D]`` attention with the JAX dispatch: the flash route at
     ``T >= MIN_PALLAS_SEQ_LEN`` when ``use_kernel``, the plain route
     otherwise (at segment lengths, T~12, one batched softmax beats a
     kernel launch per tile). Both routes drop the same probabilities for
-    the same seed."""
+    the same seed and ``head_keys``."""
     if use_kernel and q.shape[1] >= MIN_PALLAS_SEQ_LEN:
         return flash_attention_bthd(q, k, v, key_mask, causal, sm_scale, dropout_rate,
-                                    dropout_seed)
+                                    dropout_seed, head_keys=head_keys)
     return reference_attention_bthd(q, k, v, key_mask, sm_scale, causal, dropout_rate,
-                                    dropout_seed)
+                                    dropout_seed, head_keys=head_keys)

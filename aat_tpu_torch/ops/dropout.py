@@ -91,41 +91,56 @@ def keep_from_positions(seed_and_head: torch.Tensor, q_pos: torch.Tensor,
     return _uniform24(mix32(x ^ (seed_and_head & _M32))) >= _as(rate, torch.float32)
 
 
-def head_seeds(seed: int, n_heads_flat: int, device=None) -> torch.Tensor:
+def head_seeds(seed: int, n_heads_flat: int, device=None, n_heads: Optional[int] = None,
+               head_keys: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``seed + bh·GOLDEN`` (mod 2**32) for the flattened batch·head index
-    ``bh`` in ``[0, n_heads_flat)``, as int64."""
+    ``bh`` in ``[0, n_heads_flat)``, as int64. With ``head_keys =
+    (heads_total, head_offset)``, the ``n_heads`` heads of a batch row are
+    heads ``head_offset, head_offset + 1, ...`` of ``heads_total`` and
+    ``bh`` is their global index b·heads_total + head_offset + h."""
     bh = torch.arange(n_heads_flat, dtype=torch.int64, device=device)
+    if head_keys is not None:
+        total, offset = head_keys
+        bh = bh // n_heads * total + offset + bh % n_heads
     return ((seed & _M32) + bh * GOLDEN) & _M32
 
 
 class ElementShard(NamedTuple):
     """Where a rank's tensor sits in the global one its masks are keyed on
     (multi-device training): dim 0 is block ``row_block`` of equal row
-    blocks, and with ``time = (t0, t_full)`` dim 1 holds positions ``t0,
+    blocks; with ``time = (t0, t_full)`` dim 1 holds positions ``t0,
     t0 + 1, ...`` of ``t_full`` (positions at or past ``t_full`` are
-    padding)."""
+    padding); with ``cols = (c0, c_full)`` the last dim holds columns ``c0,
+    c0 + 1, ...`` of ``c_full`` (a tensor-parallel column shard)."""
 
     row_block: int = 0
     time: Optional[Tuple[int, int]] = None
+    cols: Optional[Tuple[int, int]] = None
 
 
 def _flat_index(shape, shard: Optional[ElementShard], device) -> torch.Tensor:
-    """The element's flat index in the global tensor, int64, modulo 2**32."""
+    """The element's flat index in the global tensor, int64, modulo 2**32:
+    each dim's global coordinate (its local one plus the shard's offset)
+    in row-major order over the global extents."""
     n = 1
     for d in shape:
         n *= d
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
     if shard is None:
-        return idx
-    if shard.time is None:
-        return (idx + shard.row_block * n) & _M32
-    t0, t_full = shard.time
-    rows, t_local, inner = shape[0], shape[1], n // (shape[0] * shape[1])
-    b = torch.arange(rows, dtype=torch.int64, device=device) + shard.row_block * rows
-    t = torch.arange(t_local, dtype=torch.int64, device=device) + t0
-    base = (b[:, None] * t_full + t[None, :]) * inner
-    within = torch.arange(inner, dtype=torch.int64, device=device).reshape(shape[2:])
-    return (base.reshape(rows, t_local, *([1] * (len(shape) - 2))) + within) & _M32
+        return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    if (shard.time is not None and len(shape) < 2) or (
+            shard.cols is not None and len(shape) < (3 if shard.time else 2)):
+        raise ValueError(f"{shard} does not place a tensor of shape {tuple(shape)}")
+    # (offset, global extent) of every dim; dim 0's extent is never used
+    place = [(shard.row_block * shape[0], shape[0])] + [(0, d) for d in shape[1:]]
+    if shard.time is not None:
+        place[1] = shard.time
+    if shard.cols is not None:
+        place[-1] = shard.cols
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    for dim, (size, (offset, extent)) in enumerate(zip(shape, place)):
+        coord = torch.arange(size, dtype=torch.int64, device=device) + offset
+        idx = idx[..., None] * extent + coord.reshape((1,) * dim + (size,))
+    return idx & _M32
 
 
 def shift_head_seed(seed: int, rows_before: int, heads: int) -> int:

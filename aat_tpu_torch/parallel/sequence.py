@@ -14,13 +14,17 @@ CUDA) over the full T for its H/sp heads.
 The attention dropout hash keys on the kernel-local head index, so the
 seed is salted by the sp index (``0x27D4EB2F``, as JAX salts it): each
 head group's masks are distinct from the other ranks', and not those of a
-one-device run. The other dropout sites key on global positions
-(:class:`~aat_tpu_torch.ops.dropout.ElementShard`) and match one device.
+one-device run. Under tensor parallelism too, the tp rank's global head
+keys pass through under the salt, scaled to the launch's H/sp heads, so
+the tp ranks of one sp index draw distinct masks (with tp = 1 the launch
+keys its own heads, JAX's recipe). The other dropout sites key on global
+positions (:class:`~aat_tpu_torch.ops.dropout.ElementShard`) and match one
+device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,15 +57,18 @@ def gather_time(x: torch.Tensor, mesh, t: int) -> torch.Tensor:
 def ulysses_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_mask: torch.Tensor, mesh, *, sm_scale: Optional[float] = None,
                            use_kernel: bool = True, dropout_rate: float = 0.0,
-                           dropout_seed: Optional[int] = None) -> torch.Tensor:
+                           dropout_seed: Optional[int] = None,
+                           head_keys: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Attention over time-sharded operands: q/k/v ``[B, T/sp, H, D]`` and
     the key mask ``[B, T/sp]`` of this rank's slice → ``[B, T/sp, H, D]``.
     H must divide by sp (tensor parallelism has already cut it to this
-    rank's heads). With sp = 1 this is plain ``attention_bthd``."""
+    rank's heads, whose dropout keys are ``head_keys``). With sp = 1 this is
+    plain ``attention_bthd``."""
     group = mesh.group("sp")
     if group is None:
         return attention_bthd(q, k, v, key_mask, sm_scale=sm_scale, use_kernel=use_kernel,
-                              dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+                              dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                              head_keys=head_keys)
     sp = mesh.size("sp")
     if q.shape[2] % sp:
         raise ValueError(f"{q.shape[2]} heads do not split over sp={sp}")
@@ -71,6 +78,8 @@ def ulysses_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seed = dropout_seed
     if seed is not None and dropout_rate > 0.0:
         seed = to_int32(seed + mesh.index("sp") * SP_SEED_SALT)
+    if head_keys is not None:
+        head_keys = (head_keys[0] // sp, head_keys[1] // sp)
     ctx = attention_bthd(qh, kh, vh, full_mask, sm_scale=sm_scale, use_kernel=use_kernel,
-                         dropout_rate=dropout_rate, dropout_seed=seed)
+                         dropout_rate=dropout_rate, dropout_seed=seed, head_keys=head_keys)
     return comm.all_to_all(ctx, group, 1, 2)  # back to [B, T/sp, H, D]

@@ -47,7 +47,16 @@ Phases, one line each:
      hash must take the true key); in bf16 and f32 the dk/dv kernel with
      T = D = 128 and dout the identity (dv == 0) and the dq kernel with
      S = D = 128, k = v the identity and out = 0 (dq == 0). Each must equal
-     the plain version's ``_keep_mask`` on every allowed position;
+     the plain version's ``_keep_mask`` on every allowed position. Then the
+     head keys of a tensor-parallel shard, through all six C entries, bf16
+     and f32, dense and causal, D = 64 and 128, 8 q-heads over 2 kv heads
+     at T = 300 with the same identity readings (dk/dv one q-head of each
+     kv group at a time): two launches on half the heads each, with
+     ``head_keys = (8, 0)`` and ``(8, 4)``, must read exactly the global
+     launch's masks of their heads, bit for bit, and the plain version's
+     halves too; the global launch reads ``_keep_mask``, and a half keyed
+     on its own heads (the keys a tp shard took before ``head_keys``) must
+     not;
   8. training at full width: ``projection_training_config()`` (bf16
      compute over f32 masters, hubert-large train-mode dropout and
      LayerDrop, frozen LM, fused guarded AdamW), 3 optimizer steps of 2
@@ -246,16 +255,20 @@ Phases, one line each:
      launch per mesh: ``dp4`` (dropout 0.1, masks keyed on global
      positions), ``dp2 x fsdp2``, ``dp2 x tp2`` (HuBERT's layers as
      tensor-parallel bodies; SmolLM's 9 heads do not split, so its
-     tp-sharded leaves are gathered) and ``dp2 x sp2`` (Ulysses attention
-     over full T on 8 heads a rank), dropout 0 for the last three. Each
+     tp-sharded leaves are gathered; dropout and LayerDrop 0.1, its head
+     and column shards' masks keyed on their global places) and ``dp2 x
+     sp2`` (Ulysses attention over full T on 8 heads a rank), dropout 0
+     for ``dp2 x fsdp2`` and ``dp2 x sp2``. Each
      rank's losses must be within ``MESH_LOSS_TOL`` (relative) of the
      reference's, and at most ``MESH_FLIP_SHARE`` of the trainable
      coordinates apart by more than ``MESH_FLIP`` (AdamW's first step is
      sign-like: a rounding-level gradient may flip a whole update); kernels 2-5 launched on every
-     rank, through the 3xTF32 entries. Two planted faults must break those
-     bounds: a rank that keeps its own gradients in place of the reduced
-     ones (dp2 x fsdp2) and dp4 masks keyed as the batch's first rows on
-     every rank. The fsdp ranks' peak memory must be below that of a dp
+     rank, through the 3xTF32 entries. Three planted faults must break those
+     bounds (the factor past them printed): a rank that keeps its own
+     gradients in place of the reduced ones (dp2 x fsdp2), dp4 masks keyed
+     as the batch's first rows on every rank, and dp2 x tp2 attention
+     masks keyed on each rank's own heads (``tp_local_heads``). The fsdp
+     ranks' peak memory must be below that of a dp
      control step on the same rows. It prints each rank's flash launches
      by C entry, peak memory and step walls (4 ranks sharing one H100, not
      a scaling number), and the collectives gloo ran, naming those built
@@ -265,8 +278,10 @@ Phases, one line each:
      cuda:0, one launch per mesh: ``dp2 x pp2`` (12 encoder and 15 LM
      layers a stage, 2 microbatches, dropout and LayerDrop 0.1, held to
      the dropout reference: each microbatch's masks are keyed as its
-     first global row), ``pp2 x tp2`` (4 microbatches; HuBERT's stacks
-     tp-sharded Megatron bodies, SmolLM's pp only), ``fsdp2 x pp2`` and
+     first global row), ``pp2 x tp2`` (4 microbatches, dropout and
+     LayerDrop 0.1; HuBERT's stacks tp-sharded Megatron bodies keying
+     their masks on global heads and columns, SmolLM's pp only),
+     ``fsdp2 x pp2`` and
      ``dp2 x pp2`` under Adafactor (relative step), whose one update is
      held to ``optim.adafactor`` applied to the *stacked* tree of the
      one-process trainer's first-step gradients (JAX's pp math factors
@@ -813,6 +828,7 @@ def phase_keep_mask(torch, device, rng):
                   f"positions {stray}", flush=True)
             check(differ == 0 and plain_differ == 0 and stray == 0,
                   f"the {dtype_name} keep mask read through an identity v differs from _keep_mask")
+    head_keys_keep_checks(torch, device, ("fwd",))
 
 
 def phase_backward_keep_mask(torch, device, rng):
@@ -881,6 +897,220 @@ def phase_backward_keep_mask(torch, device, rng):
             check(differ == 0 and plain_differ == 0 and stray == 0,
                   f"the {dtype_name} {kernel} kernel's keep mask read through identity operands "
                   "differs from _keep_mask")
+    head_keys_keep_checks(torch, device, ("dq", "dkv"))
+
+
+# the head-key checks: q-heads over kv heads, launched whole and in two
+# halves; their operands' generator (of its own: the later phases draw as
+# before)
+HEAD_KEYS_LAYOUT = (8, 2)
+HEAD_KEYS_SEED = 15
+HEAD_KEYS_ENTRIES = {"fwd": ("aat_flash_fwd_mma", "aat_flash_fwd_tf32x3"),
+                     "dq": ("aat_flash_bwd_dq_mma", "aat_flash_bwd_dq_tf32x3"),
+                     "dkv": ("aat_flash_bwd_dkv_mma", "aat_flash_bwd_dkv_tf32x3")}
+
+
+def read_keep(torch, route, ops, causal, head_keys, kernel, rate, seed):
+    """[B, H, T, S] bool: where a launch (``kernel``) or the plain version
+    with ``head_keys`` kept a key, read through identity operands: ``fwd``
+    with v = I (S = D), out == 0 where dropped; ``dq`` with k = v = I
+    (S = D) and out = 0, dq == 0; ``dkv`` with T = D and dout = I on one
+    q-head of each kv group at a time (dv sums the group), dv == 0. Only
+    the kernels launch through the C entries; the backward's out and lse
+    come from the plain forward."""
+    from aat_tpu_torch.ops import attention as att
+
+    q, k, v = ops["q"], ops["k"], ops["v"]
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    mask = torch.ones((b, s), dtype=torch.int32, device=q.device)
+    kw = dict(dropout_rate=rate, dropout_seed=seed, head_keys=head_keys)
+    if route == "fwd":
+        if kernel:
+            fwd = att.flash_forward_causal_kernel if causal else att.flash_forward_kernel
+            out = fwd(q, k, v, mask, scale, **kw)
+        else:
+            out = att.reference_attention_bthd(q, k, v, mask, scale, causal, **kw)
+        return (out != 0).permute(0, 2, 1, 3)
+    out, lse = att.flash_forward_reference(q, k, v, mask, scale, causal, **kw)
+
+    def grads(dout, out):
+        if kernel:
+            bwd = att.flash_backward_causal_kernel if causal else att.flash_backward_kernel
+            return bwd(q, k, v, mask, out, lse, dout, scale, **kw)
+        return att.flash_backward_reference(q, k, v, mask, out, lse, dout, scale, causal, **kw)
+
+    if route == "dq":
+        return (grads(ops["dout"], torch.zeros_like(out))[0] != 0).permute(0, 2, 1, 3)
+    rep = h // kvh
+    kept = torch.zeros((b, h, t, s), dtype=torch.bool, device=q.device)
+    for r in range(rep):
+        dout = torch.zeros_like(q)
+        dout[:, :, r::rep] = torch.eye(d, device=q.device, dtype=q.dtype)[None, :, None, :]
+        kept[:, r::rep] = (grads(dout, out)[2] != 0).permute(0, 2, 3, 1)
+    return kept
+
+
+def head_keys_keep_checks(torch, device, routes):
+    """A tensor-parallel shard's head keys in the kernels: for each of
+    ``routes`` (``fwd``, ``dq``, ``dkv``: the six C entries over bf16 and
+    f32), dense and causal, D = 64 and 128, B = 2, 8 q-heads over 2 kv
+    heads, 300 rows against S = D keys (dk/dv: T = D queries against 300
+    keys), rate 0.5: the global launch's keep mask (read by
+    :func:`read_keep`) must equal the plain version's, and ``_keep_mask``
+    on the allowed positions (zero elsewhere); each half of the heads,
+    launched with ``head_keys = (8, 0)`` and ``(8, 4)`` and its kv head,
+    must read the global launch's masks of its heads bit for bit, the
+    plain version's halves too; and the second half keyed on its own heads
+    (the keys a tp shard took before ``head_keys``) must read other
+    masks."""
+    from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.runtime.kernels import library
+
+    h, kvh = HEAD_KEYS_LAYOUT
+    b, n, rate, seed = 2, 300, 0.5, 24680
+    rng = np.random.default_rng(HEAD_KEYS_SEED)
+    calls = library().calls
+    before = dict(calls)
+    for route, dtype_name in ((r, x) for r in routes for x in ("bfloat16", "float32")):
+        dtype = getattr(torch, dtype_name)
+        seen = []
+        for d, causal in ((d, c) for d in (64, 128) for c in (False, True)):
+            def gauss(*shape):
+                return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
+                    device=device, dtype=dtype)
+
+            eye = torch.eye(d, device=device, dtype=dtype)[None, :, None, :].expand(
+                b, d, kvh, d).contiguous()
+            if route == "fwd":
+                ops = {"q": gauss(b, n, h, d), "k": gauss(b, d, kvh, d), "v": eye}
+            elif route == "dq":
+                ops = {"q": gauss(b, n, h, d), "k": eye, "v": eye, "dout": gauss(b, n, h, d)}
+            else:
+                ops = {"q": gauss(b, d, h, d), "k": gauss(b, n, kvh, d), "v": gauss(b, n, kvh, d)}
+            args = (route, ops, causal)
+            whole = read_keep(torch, *args, None, True, rate, seed)
+            plain = read_keep(torch, *args, None, False, rate, seed)
+            t, s = whole.shape[2:]
+            allowed = att._allowed(torch.ones((b, s), dtype=torch.int32, device=device), t, s,
+                                   causal, None).expand(b, h, t, s)
+            keep = att._keep_mask(seed, b, h, t, s, rate, device)
+            off_global = (int((whole != plain).sum()) + int((whole[allowed] != keep[allowed]).sum())
+                          + int(whole[~allowed].sum()))
+            off_half = off_plain = 0
+            for part in range(2):
+                hs, ks = slice(part * h // 2, (part + 1) * h // 2), slice(part * kvh // 2,
+                                                                        (part + 1) * kvh // 2)
+                sub = {name: x[:, :, ks if name in ("k", "v") else hs] for name, x in ops.items()}
+                head_keys = (h, part * h // 2)
+                off_half += int((read_keep(torch, route, sub, causal, head_keys, True, rate, seed)
+                                 != whole[:, hs]).sum())
+                off_plain += int((read_keep(torch, route, sub, causal, head_keys, False, rate,
+                                            seed) != whole[:, hs]).sum())
+            local = read_keep(torch, route, sub, causal, None, True, rate, seed)
+            off_local = int((local != whole[:, h // 2:]).sum())
+            torch.cuda.synchronize()
+            seen.append((d, causal, int(allowed.sum()), off_global, off_half, off_plain,
+                         off_local))
+            check(off_global == 0, f"{route} {dtype_name} D={d} causal={causal}: the global "
+                  f"launch's keep mask is off the plain version's at {off_global}")
+            check(off_half == 0 and off_plain == 0,
+                  f"{route} {dtype_name} D={d} causal={causal}: the half-head launches with head "
+                  f"keys differ from the global launch's heads at {off_half} (plain {off_plain})")
+            check(off_local > 0, f"{route} {dtype_name} D={d} causal={causal}: a half keyed on "
+                  "its own heads reads the global masks, so the check cannot see local keys")
+        print(f"head keys: {route} {dtype_name} [{b},{n},{h}/{kvh} heads], rate {rate}, halves "
+              f"(8, 0) and (8, 4): (D, causal, allowed positions, global off plain and "
+              f"_keep_mask, halves off the global launch, plain halves off, own-head keys off) "
+              f"{seen}", flush=True)
+    for route in routes:
+        for entry in HEAD_KEYS_ENTRIES[route]:
+            check(calls[entry] > before[entry], f"the head-key checks never launched {entry}")
+
+
+# rows 2-7 of PERF.md's kernel table at the main path's bf16 shapes:
+# (launch, [B, T, H, KVH, D], causal, dropout rate), and their operands'
+# generator
+AB_SEED = 16
+AB_ROWS = {2: ("fwd", (1, 8499, 16, 16, 64), False, 0.1),
+           3: ("fwd", (1, 8540, 16, 16, 128), True, 0.0),
+           4: ("bwd", (2, 999, 16, 16, 64), False, 0.1),
+           5: ("bwd", (2, 1050, 9, 3, 64), True, 0.0),
+           6: ("dq", (1, 8499, 16, 16, 64), False, 0.1),
+           7: ("dkv", (1, 8499, 16, 16, 64), False, 0.1)}
+
+
+def ab_flash_entries(torch, device, others, rounds=3, iters=20):
+    """Not run by ``main``: the bf16 flash C entries of this checkout's
+    build against builds of other ``csrc/`` directories (``others``:
+    label → directory; one whose ``flash_fwd_mma.cu`` has no
+    ``head_offset`` is taken to lack the two head-key arguments), timed in
+    turns (every build, then every build in reverse order) ``rounds``
+    times at ``AB_ROWS``' shapes with the wrappers' own arguments, on the
+    same operands. Returns ``{row: {label: ms}}`` (``"this"`` for this
+    checkout), each a list of ``2 · rounds`` means over ``iters`` launches
+    (CUDA events)."""
+    import ctypes
+
+    from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.runtime import kernels
+
+    libs = {"this": (kernels.library()._lib, True)}
+    for label, csrc in others.items():
+        sources = sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cu"))
+        path = os.path.join(kernels.BUILD_DIR, f"libaat_kernels_ab_{label}.so")
+        kernels._build(path, sources)
+        with open(os.path.join(csrc, "flash_fwd_mma.cu")) as f:
+            keys = "head_offset" in f.read()
+        lib = ctypes.CDLL(path)
+        for name, argtypes in kernels._SIGNATURES.items():
+            getattr(lib, name).argtypes = (argtypes if keys or not name.startswith("aat_flash")
+                                           else argtypes[:-3] + argtypes[-1:])
+            getattr(lib, name).restype = ctypes.c_int
+        libs[label] = (lib, keys)
+    order = list(libs) + list(libs)[::-1]
+    rng = np.random.default_rng(AB_SEED)
+    results = {}
+    for row, (kind, (b, t, h, kvh, d), causal, rate) in AB_ROWS.items():
+        def gauss(*shape):
+            return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+
+        q, k, v, dout = (gauss(b, t, n, d) for n in (h, kvh, kvh, h))
+        mask = torch.ones((b, t), dtype=torch.int32, device=device)
+        scale = d ** -0.5
+        fwd = att.flash_forward_causal_kernel if causal else att.flash_forward_kernel
+        out, lse = fwd(q, k, v, mask, scale, dropout_rate=rate, dropout_seed=7, need_lse=True)
+        tail = att._backward_args(q, k, v, scale, causal, rate, 7, None, None)
+        dq = torch.empty_like(q)
+        dk, dv = (torch.empty((b, t, h, d), dtype=torch.float32, device=device) for _ in range(2))
+        delta = torch.empty((b, h, t), dtype=torch.float32, device=device)
+        ptr = [x.data_ptr() for x in (q, k, v, mask)]
+        grad_in = [out.data_ptr(), dout.data_ptr(), lse.data_ptr()]
+        calls = {"fwd": [("aat_flash_fwd_mma", ptr + [out.data_ptr(), lse.data_ptr()])],
+                 "dq": [("aat_flash_bwd_dq_mma", ptr + grad_in + [dq.data_ptr()])],
+                 "dkv": [("aat_flash_bwd_dkv_mma", ptr + grad_in + [
+                     dk.data_ptr(), dv.data_ptr(), delta.data_ptr()])]}
+        calls["bwd"] = calls["dq"] + calls["dkv"]
+
+        def run(lib, keys):
+            def go():
+                for name, head in calls[kind]:
+                    args = head + list(tail if keys else tail[:-2])
+                    err = getattr(lib, name)(*args, kernels.stream_handle(device))
+                    check(err == 0, f"{name}: CUDA error {err}")
+            return go
+
+        times = {label: [] for label in libs}
+        with torch.cuda.device(device):
+            for _ in range(rounds):
+                for label in order:
+                    times[label].append(cuda_ms(torch, run(*libs[label]), iters, 2))
+        results[row] = times
+        del q, k, v, dout, out, lse, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+    return results
 
 
 def flagship_model(torch, device, seed=0):
@@ -2317,14 +2547,14 @@ def planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out, ref_out
 
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    seed32, rate32, inv_keep = att._dropout_args(rate, seed)
+    seed32, rate32, inv_keep, *head_keys = att._dropout_args(rate, seed, h, None)
 
     def launch(key_mask, inv):
         result = torch.empty_like(q)
         kernels.launch("aat_flash_fwd_mma", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        key_mask.data_ptr(), result.data_ptr(), None, b, t, s, h, kvh, d,
                        *att._strides(q, k, v), float(scale), int(causal), 0, seed32, rate32,
-                       inv)
+                       inv, *head_keys)
         return result
 
     check(torch.equal(launch(mask, inv_keep), out),
@@ -2355,11 +2585,11 @@ def planted_backward_faults(torch, args, kw, grads, refs):
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     base = att._backward_args(q, k, v, scale, kw["causal"], kw["dropout_rate"],
-                              kw["dropout_seed"], None)
-    inv_keep = base[-1]
+                              kw["dropout_seed"], None, None)
+    inv_keep = base[-3]  # then heads_total and head_offset
 
     def launch(key_mask, inv):
-        rest = (*base[:-1], inv)
+        rest = (*base[:-3], inv, *base[-2:])
         dq = torch.empty_like(out)
         dk, dv = (torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
                   for _ in range(2))
@@ -3628,7 +3858,7 @@ MESH_RUNS = (
     # name, mesh, the encoder's dropout and LayerDrop, the fault planted in a second run
     ("dp4", {"dp": 4}, 0.1, "unshifted_dropout"),
     ("dp2_fsdp2", {"dp": 2, "fsdp": 2}, 0.0, "no_reduce"),
-    ("dp2_tp2", {"dp": 2, "tp": 2}, 0.0, None),
+    ("dp2_tp2", {"dp": 2, "tp": 2}, 0.1, "tp_local_heads"),
     ("dp2_sp2", {"dp": 2, "sp": 2}, 0.0, None),
 )
 MESH_RANKS = 4
@@ -3769,12 +3999,14 @@ def mesh_rank(rank, world_size, port, run, paths):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(2)
+    from aat_tpu_torch.models import hubert
     from aat_tpu_torch.ops.dropout import ElementShard
     from aat_tpu_torch.parallel import comm
     from aat_tpu_torch.parallel.distributed import initialize
     from aat_tpu_torch.training.trainer import AATTrainer
 
     name, mesh, dropout, fault = run
+    tp_head_keys = hubert.tp_head_keys
     device = initialize(rank, world_size, f"tcp://localhost:{port}", device="cuda:0",
                         backend="gloo")
     batch = {k: v.to(device) for k, v in torch.load(paths["batch"], weights_only=True).items()}
@@ -3794,6 +4026,9 @@ def mesh_rank(rank, world_size, port, run, paths):
             trainer._reduce_grads = lambda grads: (reduce(grads), grads)[1]
         if planted == "unshifted_dropout":
             trainer.mesh.element_shard = lambda time=None: ElementShard(0, time)
+        # each tp rank keys its heads as a launch of its own (no salt either)
+        hubert.tp_head_keys = ((lambda nh, mesh: (nh, 0)) if planted == "tp_local_heads"
+                               else tp_head_keys)
         # the dp control feeds each rank the fsdp run's rows (memory only)
         local = (reports["sound"]["local"] if label == "dp_control"
                  else trainer.mesh.local_batch(batch))
@@ -3807,6 +4042,7 @@ def mesh_rank(rank, world_size, port, run, paths):
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
+    hubert.tp_head_keys = tp_head_keys
     for report in reports.values():
         del report["local"]
     return reports
@@ -3930,9 +4166,11 @@ def phase_multidevice(torch, device, rng, smi_line):
                 f_loss = max(abs(a - b) / max(1.0, abs(b)) for r in planted
                              for a, b in zip(r["losses"], refs[dropout]))
                 f_flips = max(r["flips"] for r in planted)
+                factor = max(f_loss / MESH_LOSS_TOL, f_flips / (MESH_FLIP_SHARE * coords))
                 print(f"multidevice {name} with the fault {fault} planted: loss rel |d| "
                       f"{f_loss:.3e}, beyond {MESH_FLIP:g}: {f_flips} of {coords}, max |d| "
-                      f"{max(r['max_abs'] for r in planted):.3e}", flush=True)
+                      f"{max(r['max_abs'] for r in planted):.3e}; {factor:.3g} times past the "
+                      "bounds", flush=True)
                 check(f_loss > MESH_LOSS_TOL or f_flips > MESH_FLIP_SHARE * coords,
                       f"{name}: the bounds did not see the planted fault {fault}")
         fsdp_peak = max(r["sound"]["peak"] for r in results["dp2_fsdp2"])
@@ -3963,7 +4201,7 @@ PP_RUNS = (
     # microbatches (0: 2·pp, clamped to the rank's rows), optimizer, steps,
     # and what else the launch runs
     ("dp2_pp2", {"dp": 2, "pp": 2}, 0.1, 2, "adamw", 2, ("faults", "eval", "checkpoint")),
-    ("pp2_tp2", {"tp": 2, "pp": 2}, 0.0, 4, "adamw", 2, ()),
+    ("pp2_tp2", {"tp": 2, "pp": 2}, 0.1, 4, "adamw", 2, ()),
     ("fsdp2_pp2", {"fsdp": 2, "pp": 2}, 0.0, 0, "adamw", 2, ()),
     ("dp2_pp2_adafactor", {"dp": 2, "pp": 2}, 0.0, 0, "adafactor", 1, ()),
 )

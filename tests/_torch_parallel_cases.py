@@ -29,6 +29,8 @@ CASES = {
     "dp4_dropout": ({"dp": 4}, 4, "segmented", 0.2),
     "dp2_fsdp2_dropout_whole": ({"dp": 2, "fsdp": 2}, 4, "whole", 0.2),
     "dp2_fsdp2_tp2": ({"dp": 2, "fsdp": 2, "tp": 2}, 8, "segmented", 0.0),
+    # tp's head and column shards key their dropout globally
+    "dp2_tp2_dropout": ({"dp": 2, "tp": 2}, 4, "whole", 0.2),
     "dp2_sp2_whole": ({"dp": 2, "sp": 2}, 4, "whole", 0.0),
     # the clip binds: the tiny model's first gradient norm is about 2
     "dp2_fsdp2_clip": ({"dp": 2, "fsdp": 2}, 4, "segmented", 0.0, {"grad_clip_norm": 0.5}),
@@ -46,6 +48,7 @@ CASES = {
     "dp2_pp2_layerdrop": ({"dp": 2, "pp": 2}, 4, "segmented", 0.0, {},
                           {"layers": 4, "layerdrop": 0.5}),
     "dp2_tp2_pp2": ({"dp": 2, "tp": 2, "pp": 2}, 8, "segmented", 0.0),
+    "dp2_tp2_pp2_dropout": ({"dp": 2, "tp": 2, "pp": 2}, 8, "segmented", 0.2),
     "dp2_fsdp2_pp2": ({"dp": 2, "fsdp": 2, "pp": 2}, 8, "segmented", 0.0),
     # a tied head: its gradient mixes the pipeline's (input embeddings) and
     # the head's, so the pipeline's planted faults move AdamW's update

@@ -519,8 +519,10 @@ def record_dropout(mesh=None) -> dict:
     """One training step of the tiny model with every encoder dropout at
     0.2 (LayerDrop off) on 2 whole utterances, ``mesh`` ({axis: size}) or
     one process, recording the masks the encoder draws: ``"attention"``,
-    a (seed, B, H, T) per attention call, and ``"dropout"``, a (seed, shape,
-    keep mask) per dropout call, in call order."""
+    a (seed, B, H, T) per attention call, ``"attention_keep"``, the [B, H,
+    T, S] keep mask each draws, and ``"dropout"``, a (seed, shape, keep
+    mask) per dropout call, in call order."""
+    from aat_tpu_torch.ops import attention as attention_lib
     from aat_tpu_torch.ops import dropout as dropout_lib
     from aat_tpu_torch.parallel import sequence
 
@@ -531,7 +533,7 @@ def record_dropout(mesh=None) -> dict:
                                  lm_hidden=32, projection_hidden=48),
                       audio_cfg, tllm.tiny_test_config())
     trainer = AATTrainer(model, model.init_params(0, device="cpu"), tiny_config(mesh))
-    seen = {"attention": [], "dropout": []}
+    seen = {"attention": [], "attention_keep": [], "dropout": []}
 
     def attention(q, k, v, key_mask, **kw):
         if kw.get("dropout_seed") is not None:
@@ -544,15 +546,22 @@ def record_dropout(mesh=None) -> dict:
             seen["dropout"].append((seed, tuple(x.shape), keep.numpy()))
         return dropout_lib.dropout(seed, x, rate, shard)
 
-    attention_plain = thub.attention_bthd
+    def keep_mask(*args, **kw):
+        keep = keep_mask_plain(*args, **kw)
+        seen["attention_keep"].append(keep.numpy())
+        return keep
+
+    attention_plain, keep_mask_plain = thub.attention_bthd, attention_lib._keep_mask
     thub.attention_bthd = sequence.attention_bthd = attention
     thub.dropout = dropout
+    attention_lib._keep_mask = keep_mask
     try:
         batch = whole_utterance_batch(rows=2)
         trainer.training_step([trainer.mesh.local_batch(batch) if trainer.mesh else batch])
     finally:
         thub.attention_bthd = sequence.attention_bthd = attention_plain
         thub.dropout = dropout_lib.dropout
+        attention_lib._keep_mask = keep_mask_plain
     return seen
 
 

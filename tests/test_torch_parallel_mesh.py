@@ -9,6 +9,10 @@
 - ranks sit at JAX's row-major device order, with one group per axis;
 - the dropout masks of every data rank's rows, concatenated, equal one
   process's bit for bit, for the element hash and the attention hash;
+- under tp2 the ranks' attention masks (their heads, keyed globally) and
+  activation masks (their feed-forward columns), put back together, equal
+  one process's; under sp2 the attention seeds follow JAX's salt, and
+  under tp2 × sp2 the four ranks' attention masks are distinct;
 - Ulysses attention on 4 gloo ranks (dp2 × sp2) equals JAX's
   ``ulysses_attention_bthd`` on a dp2 × sp2 mesh and the port's plain
   attention within 1e-5, at T = 32 and 37 with ragged and fully masked
@@ -34,7 +38,7 @@ from aat_tpu_torch.models import aslm as taslm
 from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.models import llama as tllm
 from aat_tpu_torch.ops import attention as tattn
-from aat_tpu_torch.ops.dropout import ElementShard, dropout, fold_seed, shift_head_seed, to_int32
+from aat_tpu_torch.ops.dropout import ElementShard, dropout, shift_head_seed, to_int32
 from aat_tpu_torch.parallel import mesh as tmesh
 from aat_tpu_torch.parallel import sequence as tsequence
 from aat_tpu_torch.parallel.distributed import launch
@@ -146,16 +150,14 @@ def test_dropout_masks_of_the_shards_equal_one_process(ranks):
     assert not torch.equal(shards[1], keep[:rows])
 
 
-@pytest.mark.parametrize("axis, salt", [("tp", thub.TP_SEED_SALT),
-                                         ("sp", tsequence.SP_SEED_SALT)], ids=["tp", "sp"])
+@pytest.mark.parametrize("axis, salt", [("sp", tsequence.SP_SEED_SALT)], ids=["sp"])
 def test_tp_and_sp_dropout_masks_follow_their_salts(axis, salt):
-    """tp2 and sp2 (2 ranks) with every encoder dropout at 0.2, against one
-    process on the same step: each rank's attention seed is one process's
-    plus its index times the axis' salt, and the two ranks' head groups
-    draw different masks. Under tp the activation dropout (this rank's
-    feed-forward columns) takes one process's seed folded with the tp index,
-    and the ranks' masks differ; every other mask is one process's. Under
-    sp the time slices' masks put together are one process's."""
+    """sp2 (2 ranks) with every encoder dropout at 0.2, against one process
+    on the same step: each rank's attention seed is one process's plus its
+    index times the axis' salt, and the two ranks' head groups draw
+    different masks. The time slices' masks put together are one
+    process's, and every other mask is one process's. (tp draws one
+    process's masks: ``test_tp_dropout_masks_put_together_equal_one_process``.)"""
     one = workers.record_dropout()
     ranks = launch(workers.dropout_record_rank, 2, ({axis: 2},), timeout=workers.TIMEOUT)
     heads = thub.tiny_test_config().num_attention_heads
@@ -163,20 +165,14 @@ def test_tp_and_sp_dropout_masks_follow_their_salts(axis, salt):
         assert len(seen["attention"]) == len(one["attention"]) == 2
         for (seed, b, h, t), (seed1, b1, h1, t1) in zip(seen["attention"], one["attention"]):
             assert seed == to_int32(seed1 + r * salt)
-            assert (b, h, t) == (b1, heads // 2, t1 if axis == "tp" else -(-t1 // 2) * 2)
+            assert (b, h, t) == (b1, heads // 2, -(-t1 // 2) * 2)
     for (s0, b, h, t), (s1, *_) in zip(*(seen["attention"] for seen in ranks)):
         assert not torch.equal(tattn._keep_mask(s0, b, h, t, t, 0.2, "cpu"),
                                tattn._keep_mask(s1, b, h, t, t, 0.2, "cpu"))
-    intermediate = thub.tiny_test_config().intermediate_size
     kinds = set()
     for i, (seed1, shape1, keep1) in enumerate(one["dropout"]):
         calls = [seen["dropout"][i] for seen in ranks]
-        if axis == "tp" and shape1[-1] == intermediate:
-            kinds.add("activation")
-            for r, (seed, shape, _) in enumerate(calls):
-                assert seed == fold_seed(seed1, r) and shape == shape1[:-1] + (intermediate // 2,)
-            assert not np.array_equal(calls[0][2], calls[1][2])
-        elif calls[0][1] != shape1:
+        if calls[0][1] != shape1:
             kinds.add("time slice")
             assert all(seed == seed1 for seed, _, _ in calls)
             np.testing.assert_array_equal(
@@ -187,7 +183,81 @@ def test_tp_and_sp_dropout_masks_follow_their_salts(axis, salt):
                 assert (seed, shape) == (seed1, shape1)
                 np.testing.assert_array_equal(keep, keep1)
     assert all(len(seen["dropout"]) == len(one["dropout"]) for seen in ranks)
-    assert kinds == {"activation" if axis == "tp" else "time slice", "one process's"}
+    assert kinds == {"time slice", "one process's"}
+
+
+def test_tp_dropout_masks_put_together_equal_one_process():
+    """tp2 (2 ranks) with every encoder dropout at 0.2, against one process
+    on the same step: each rank's attention launch on its half of the heads
+    takes one process's seed and draws exactly one process's masks of those
+    heads; its activation dropout on its half of the feed-forward columns
+    draws one process's masks of those columns; every other mask is one
+    process's."""
+    one = workers.record_dropout()
+    ranks = launch(workers.dropout_record_rank, 2, ({"tp": 2},), timeout=workers.TIMEOUT)
+    heads = thub.tiny_test_config().num_attention_heads
+    intermediate = thub.tiny_test_config().intermediate_size
+    assert len(one["attention_keep"]) == len(one["attention"]) == 2
+    for r, seen in enumerate(ranks):
+        assert [a[0] for a in seen["attention"]] == [a[0] for a in one["attention"]]
+        assert all(a[2] == heads // 2 for a in seen["attention"])
+    for i, keep1 in enumerate(one["attention_keep"]):
+        parts = [seen["attention_keep"][i] for seen in ranks]
+        assert parts[0].shape[1] == heads // 2
+        np.testing.assert_array_equal(np.concatenate(parts, 1), keep1)
+    kinds = set()
+    for i, (seed1, shape1, keep1) in enumerate(one["dropout"]):
+        calls = [seen["dropout"][i] for seen in ranks]
+        assert all(seed == seed1 for seed, _, _ in calls)
+        if shape1[-1] == intermediate:
+            kinds.add("activation")
+            assert all(shape == shape1[:-1] + (intermediate // 2,) for _, shape, _ in calls)
+            np.testing.assert_array_equal(np.concatenate([keep for _, _, keep in calls], -1),
+                                          keep1)
+        else:
+            kinds.add("one process's")
+            for _, shape, keep in calls:
+                assert shape == shape1
+                np.testing.assert_array_equal(keep, keep1)
+    assert all(len(seen["dropout"]) == len(one["dropout"]) for seen in ranks)
+    assert kinds == {"activation", "one process's"}
+
+
+def test_tp_with_sp_dropout_masks():
+    """tp2 × sp2 (4 ranks, rank = 2·tp + sp) with every encoder dropout at
+    0.2: the sp salt stays on top of the tp head keys, so the four ranks'
+    attention launches (one head each) draw four distinct masks; the
+    activation masks of each rank's time slice and columns, and the other
+    masks of its time slice, put back together are one process's."""
+    one = workers.record_dropout()
+    ranks = launch(workers.dropout_record_rank, 4, ({"tp": 2, "sp": 2},),
+                   timeout=workers.TIMEOUT)
+    intermediate = thub.tiny_test_config().intermediate_size
+    for r, seen in enumerate(ranks):
+        for (seed, b, h, _), (seed1, *_) in zip(seen["attention"], one["attention"]):
+            assert seed == to_int32(seed1 + (r % 2) * tsequence.SP_SEED_SALT) and h == 1
+    for i in range(len(one["attention"])):
+        masks = [seen["attention_keep"][i] for seen in ranks]
+        assert all(not np.array_equal(masks[a], masks[c])
+                   for a in range(4) for c in range(a + 1, 4))
+    kinds = set()
+    for i, (seed1, shape1, keep1) in enumerate(one["dropout"]):
+        calls = [seen["dropout"][i] for seen in ranks]
+        assert all(seed == seed1 for seed, _, _ in calls)
+        if calls[0][1] == shape1:
+            kinds.add("one process's")
+            assert all(np.array_equal(keep, keep1) for _, _, keep in calls)
+            continue
+        by_tp = [np.concatenate([calls[2 * tp + sp][2] for sp in range(2)], 1)[:, :shape1[1]]
+                 for tp in range(2)]
+        if shape1[-1] == intermediate:
+            kinds.add("activation")
+            np.testing.assert_array_equal(np.concatenate(by_tp, -1), keep1)
+        else:
+            kinds.add("time slice")
+            for keep in by_tp:
+                np.testing.assert_array_equal(keep, keep1)
+    assert kinds == {"activation", "time slice", "one process's"}
 
 
 def _ulysses_operands(t):

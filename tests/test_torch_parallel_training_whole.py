@@ -7,6 +7,9 @@ one-process trainer and, with dropout off, JAX's one-device trainer
 - dp2 × fsdp2 with dropout 0.2: the masks equal one device's (and the
   one-process port at dropout 0 equals JAX's);
 - dp2 × sp2: Ulysses attention, the tiny encoder's T = 19 padded to 20;
+- dp2 × tp2 with dropout 0.2: the head shards' attention masks and the
+  column shards' activation masks keyed on their global places, so they
+  equal one device's;
 - dp2 with Adafactor (replicated state)."""
 
 import pytest
@@ -14,6 +17,7 @@ import pytest
 from _torch_parallel_cases import check_case
 
 
-@pytest.mark.parametrize("case", ["dp2_fsdp2_dropout_whole", "dp2_sp2_whole", "dp2_adafactor"])
+@pytest.mark.parametrize("case", ["dp2_fsdp2_dropout_whole", "dp2_sp2_whole", "dp2_adafactor",
+                                  "dp2_tp2_dropout"])
 def test_mesh_step_equals_one_process(case):
     check_case(case)

@@ -7,7 +7,9 @@ against the port's one-process trainer and JAX's one-device trainer
 - dp2 × tp2 × pp2 (8 ranks): the stacks are tp-sharded too (q
   ``("pp", None, "tp")``, its bias ``("pp", "tp")``, the LM's down
   ``("pp", "tp", None)``, as JAX asserts; ``test_torch_pipeline.py``
-  holds the specs) and the stage bodies are Megatron bodies;
+  holds the specs) and the stage bodies are Megatron bodies; with dropout
+  0.2 too, the bodies' head and column shards keying their masks on their
+  global places;
 - dp2 × fsdp2 × pp2 (8 ranks): the stacked matrices fsdp-sharded,
   gathered once a step, their gradients reduce-scattered back;
 - LayerDrop 0.5 on 4-layer stacks (two layers a stage): decided once a
@@ -32,7 +34,8 @@ import _torch_parallel_workers as workers
 from _torch_parallel_cases import LOSS_BAR, PARAM_BAR, case, check_case, mesh_diffs
 
 
-@pytest.mark.parametrize("name", ["dp2_tp2_pp2", "dp2_fsdp2_pp2", "dp2_pp2_tied"])
+@pytest.mark.parametrize("name", ["dp2_tp2_pp2", "dp2_fsdp2_pp2", "dp2_pp2_tied",
+                                  "dp2_tp2_pp2_dropout"])
 def test_composed_pipeline_step_equals_one_process(name):
     check_case(name)
 
