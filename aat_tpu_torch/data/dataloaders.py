@@ -14,11 +14,13 @@ import inspect
 import logging
 import queue as queue_mod
 import threading
+import time
 from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from aat_tpu_torch.parallel.distributed import world
+from aat_tpu_torch.utils import timing
 
 logger = logging.getLogger(__name__)
 
@@ -38,7 +40,12 @@ def load_hf_dataset(path_or_name: str, split: Optional[str] = None):
 
 
 class BatchIterator:
-    """Shuffling, batching, optional background-thread prefetch."""
+    """Shuffling, batching, optional background-thread prefetch.
+
+    Counters (``utils/timing``, always on): ``data.batches`` and
+    ``data.collate_s`` for every batch collated; with prefetch, on the
+    consumer's side, ``data.gets``, ``data.empty_gets`` (gets that found
+    the queue empty) and ``data.wait_s`` (seconds blocked in the get)."""
 
     def __init__(
         self,
@@ -115,6 +122,9 @@ class BatchIterator:
         return batches
 
     def _collate(self, chunk) -> dict:
+        """The batch of ``chunk``, counted in ``data.batches`` and its host
+        seconds in ``data.collate_s``."""
+        start = time.perf_counter()
         items = [self.items[int(i)] for i in chunk]
         if self._accepts_is_validation is None:
             try:
@@ -123,8 +133,12 @@ class BatchIterator:
             except (TypeError, ValueError):
                 self._accepts_is_validation = False
         if self._accepts_is_validation:
-            return self.collate_fn(items, is_validation=self.is_validation)
-        return self.collate_fn(items)
+            batch = self.collate_fn(items, is_validation=self.is_validation)
+        else:
+            batch = self.collate_fn(items)
+        timing.count("data.batches")
+        timing.count("data.collate_s", time.perf_counter() - start)
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         batches = self._index_batches()
@@ -150,11 +164,20 @@ class BatchIterator:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         while True:
-            batch = q.get()
+            # each batch's get is counted (data.gets), whether it found the
+            # queue empty (data.empty_gets), and the seconds it blocked
+            start = time.perf_counter()
+            try:
+                batch, empty = q.get_nowait(), 0
+            except queue_mod.Empty:
+                batch, empty = q.get(), 1
             if batch is sentinel:
                 break
             if isinstance(batch, BaseException):
                 raise batch
+            timing.count("data.gets")
+            timing.count("data.empty_gets", empty)
+            timing.count("data.wait_s", time.perf_counter() - start)
             yield batch
 
 

@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from aat_tpu_torch.utils import timing
+
 _M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9  # per-head seed decorrelation (-1640531527 as int32)
 
@@ -160,6 +162,7 @@ def dropout(seed: Optional[int], x: torch.Tensor, rate: float,
     places ``x`` in."""
     if seed is None or rate <= 0.0:
         return x
-    idx = _flat_index(x.shape, shard, x.device)
-    keep = _uniform24(mix32(idx ^ (seed & _M32))) >= _as(rate, torch.float32)
-    return torch.where(keep, x * _as(1.0 / (1.0 - rate), x.dtype), 0.0)
+    with timing.span("ops.dropout", device=x.is_cuda):
+        idx = _flat_index(x.shape, shard, x.device)
+        keep = _uniform24(mix32(idx ^ (seed & _M32))) >= _as(rate, torch.float32)
+        return torch.where(keep, x * _as(1.0 / (1.0 - rate), x.dtype), 0.0)

@@ -103,7 +103,7 @@ from aat_tpu_torch.training import checkpoint as ckpt_lib
 from aat_tpu_torch.training import optim as optim_lib
 from aat_tpu_torch.training.config import TrainingConfig
 from aat_tpu_torch.training.lr_schedule import warmup_linear_schedule
-from aat_tpu_torch.utils import port
+from aat_tpu_torch.utils import port, timing
 
 logger = logging.getLogger(__name__)
 
@@ -401,12 +401,15 @@ class AATTrainer:
             lambda p, t: p.detach().requires_grad_(True) if t else p.detach(),
             params, self.freeze)
         used = self._use(leaves)
-        logits, inputs, bn_stats = self._assemble_and_forward(used, batch, dropout_seed,
-                                                              train=True)
-        loss = self._batch_ce(logits, batch)
+        on_cuda = self.device.type == "cuda"
+        with timing.span("train.forward", device=on_cuda):
+            logits, inputs, bn_stats = self._assemble_and_forward(used, batch, dropout_seed,
+                                                                  train=True)
+            loss = self._batch_ce(logits, batch)
         trainable = [x for x, t in zip(optim_lib.tree_leaves(leaves),
                                        optim_lib.tree_leaves(self.freeze)) if t]
-        found = iter(torch.autograd.grad(loss, trainable, allow_unused=True))
+        with timing.span("train.backward", device=on_cuda):
+            found = iter(torch.autograd.grad(loss, trainable, allow_unused=True))
 
         def grad_of(p, t):
             if not t:
@@ -456,32 +459,37 @@ class AATTrainer:
         optimizer's update in place, then each microbatch's EfficientNet BN
         statistics folded into the running estimates, in order. Returns host
         metrics when ``fetch_metrics`` (one device sync)."""
-        acc_grads = acc_metrics = None
-        bn_stats_seq = []
-        for idx, mb in enumerate(microbatches):
-            grads, metrics, bn_stats = self._grad_step(self.state.params, self._to_device(mb),
-                                                       self.dropout_seed(self.state.step, idx))
-            if bn_stats:
-                bn_stats_seq.append(bn_stats)
-            if acc_grads is None:
-                acc_grads, acc_metrics = grads, metrics
-            else:
-                acc_grads = optim_lib.tree_map(
-                    lambda a, g: None if a is None else a + g, acc_grads, grads)
-                acc_metrics = {k: acc_metrics[k] + v for k, v in metrics.items()}
-            del grads
-        n = len(microbatches)
-        if n > 1:
-            acc_grads = optim_lib.tree_map(lambda g: None if g is None else g / n, acc_grads)
-            acc_metrics = {k: v / n for k, v in acc_metrics.items()}
-        with torch.no_grad():
-            updates, opt_state = self.tx.update(acc_grads, self.state.opt_state,
-                                                self.state.params)
-            optim_lib.apply_updates(self.state.params, updates)
-            if bn_stats_seq:
-                self._fold_bn_stats(bn_stats_seq)
-        self.state = TrainState(self.state.step + 1, self.state.params, opt_state)
-        return self._finish_metrics(acc_metrics, fetch_metrics)
+        with timing.span("train.step"):
+            acc_grads = acc_metrics = None
+            bn_stats_seq = []
+            for idx, mb in enumerate(microbatches):
+                with timing.span("train.h2d"):
+                    batch = self._to_device(mb)
+                grads, metrics, bn_stats = self._grad_step(self.state.params, batch,
+                                                           self.dropout_seed(self.state.step, idx))
+                if bn_stats:
+                    bn_stats_seq.append(bn_stats)
+                if acc_grads is None:
+                    acc_grads, acc_metrics = grads, metrics
+                else:
+                    acc_grads = optim_lib.tree_map(
+                        lambda a, g: None if a is None else a + g, acc_grads, grads)
+                    acc_metrics = {k: acc_metrics[k] + v for k, v in metrics.items()}
+                del grads
+            with timing.span("train.optimizer", device=self.device.type == "cuda"):
+                n = len(microbatches)
+                if n > 1:
+                    acc_grads = optim_lib.tree_map(lambda g: None if g is None else g / n,
+                                                   acc_grads)
+                    acc_metrics = {k: v / n for k, v in acc_metrics.items()}
+                with torch.no_grad():
+                    updates, opt_state = self.tx.update(acc_grads, self.state.opt_state,
+                                                        self.state.params)
+                    optim_lib.apply_updates(self.state.params, updates)
+                    if bn_stats_seq:
+                        self._fold_bn_stats(bn_stats_seq)
+            self.state = TrainState(self.state.step + 1, self.state.params, opt_state)
+            return self._finish_metrics(acc_metrics, fetch_metrics)
 
     def _fold_bn_stats(self, stats_seq):
         """EMA each microbatch's EfficientNet batch statistics into the
@@ -565,7 +573,7 @@ class AATTrainer:
         micro: List[dict] = []
         last_eval_metric: Optional[float] = None
         last_eval_step: Optional[int] = None
-        t_start = time.time()
+        t_start = time.perf_counter()
         for batch in train_batches:
             if skip_micro > 0:
                 skip_micro -= 1
@@ -578,11 +586,11 @@ class AATTrainer:
             micro = []
             step = self.state.step
             if step % cfg.logging_steps == 0:
-                metrics["train/step_time"] = (time.time() - t_start) / cfg.logging_steps
+                metrics["train/step_time"] = (time.perf_counter() - t_start) / cfg.logging_steps
                 if self.schedule is not None:
                     metrics["train/lr"] = float(self.schedule(step))
                 self.log_fn(metrics)
-                t_start = time.time()
+                t_start = time.perf_counter()
             if cfg.eval_steps and step % cfg.eval_steps == 0 and eval_batches is not None:
                 eval_metrics = self.evaluate(eval_batches())
                 self.log_fn(eval_metrics)
