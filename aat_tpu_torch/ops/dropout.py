@@ -8,6 +8,12 @@ right shifts; torch's ``>>`` on int32 is arithmetic, so here the same bits
 are computed in int64, masked to the low 32 bits after every step. For the
 same int32 seed the masks equal the JAX package's bit for bit.
 
+On a CUDA tensor the element dropout runs as one kernel
+(``csrc/dropout.cu``: ``aat_dropout_fwd``, and ``aat_dropout_bwd``, which
+regenerates the mask from the seed, so nothing is saved for the backward),
+computing the same bits in uint32; a CPU tensor takes the int64 version,
+:func:`dropout_reference`.
+
 The port takes an int32 seed where the JAX package takes a PRNG key (it
 draws the seed from the key). :func:`fold_seed` derives the seeds of the
 separate dropout sites from one seed on the host, so no device value is
@@ -16,10 +22,13 @@ read to pick a seed.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from aat_tpu_torch.runtime import kernels
 from aat_tpu_torch.utils import timing
 
 _M32 = 0xFFFFFFFF
@@ -120,6 +129,22 @@ class ElementShard(NamedTuple):
     cols: Optional[Tuple[int, int]] = None
 
 
+def _placement(shape, shard: Optional[ElementShard]):
+    """``(offset, global extent)`` of every dim of a tensor of ``shape``
+    that ``shard`` places; dim 0's extent is never used."""
+    if shard is None:
+        return [(0, d) for d in shape]
+    if (shard.time is not None and len(shape) < 2) or (
+            shard.cols is not None and len(shape) < (3 if shard.time else 2)):
+        raise ValueError(f"{shard} does not place a tensor of shape {tuple(shape)}")
+    place = [(shard.row_block * shape[0], shape[0])] + [(0, d) for d in shape[1:]]
+    if shard.time is not None:
+        place[1] = shard.time
+    if shard.cols is not None:
+        place[-1] = shard.cols
+    return place
+
+
 def _flat_index(shape, shard: Optional[ElementShard], device) -> torch.Tensor:
     """The element's flat index in the global tensor, int64, modulo 2**32:
     each dim's global coordinate (its local one plus the shard's offset)
@@ -129,15 +154,7 @@ def _flat_index(shape, shard: Optional[ElementShard], device) -> torch.Tensor:
         n *= d
     if shard is None:
         return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
-    if (shard.time is not None and len(shape) < 2) or (
-            shard.cols is not None and len(shape) < (3 if shard.time else 2)):
-        raise ValueError(f"{shard} does not place a tensor of shape {tuple(shape)}")
-    # (offset, global extent) of every dim; dim 0's extent is never used
-    place = [(shard.row_block * shape[0], shape[0])] + [(0, d) for d in shape[1:]]
-    if shard.time is not None:
-        place[1] = shard.time
-    if shard.cols is not None:
-        place[-1] = shard.cols
+    place = _placement(shape, shard)
     idx = torch.zeros((), dtype=torch.int64, device=device)
     for dim, (size, (offset, extent)) in enumerate(zip(shape, place)):
         coord = torch.arange(size, dtype=torch.int64, device=device) + offset
@@ -153,16 +170,99 @@ def shift_head_seed(seed: int, rows_before: int, heads: int) -> int:
     return to_int32(seed + rows_before * heads * GOLDEN)
 
 
+def keep_threshold(rate: float) -> int:
+    """The kernel's ``keep_min``: an element is kept where the top 24 bits
+    of its hash are ``>= ceil(float32(rate)·2^24)``, which is exactly
+    ``_uniform24(h) >= float32(rate)`` since ``(h >> 8)·2^-24`` is exact in
+    float32 (and the product here exact in float64)."""
+    return math.ceil(_as(rate, torch.float32) * (1 << 24))
+
+
+@functools.lru_cache(maxsize=64)
+def _rate_args(rate: float, dtype: torch.dtype):
+    """``keep_min`` and the scale 1/(1 - rate) rounded to ``dtype``: each
+    rounding makes a tensor on the host, so a step's hundreds of calls at a
+    few rates take them from here."""
+    return keep_threshold(rate), _as(1.0 / (1.0 - rate), dtype)
+
+
+# the kernel's dtype codes (csrc/dropout.cu)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_DIMS = 4
+
+
+def _kernel_dims(shape, shard: Optional[ElementShard]):
+    """``(local size, global offset, global extent)`` of the dims the
+    kernel walks: :func:`_placement`'s, with every dim that lies whole in
+    its global one (offset 0, extent its size) merged into the dim before
+    it, which gives the same flat indices in fewer dims (one, for an
+    unplaced tensor)."""
+    dims = []
+    for size, (offset, extent) in zip(shape, _placement(shape, shard)):
+        if dims and offset == 0 and extent == size:
+            s, o, e = dims[-1]
+            dims[-1] = (s * size, o * size, e * size)
+        else:
+            dims.append((size, offset, extent))
+    return dims or [(1, 0, 1)]
+
+
+def _kernel_args(seed: int, x: torch.Tensor, rate: float, shard: Optional[ElementShard]):
+    """The C entries' arguments after the two pointers and the dtype."""
+    if x.dim() > _MAX_DIMS:
+        raise ValueError(f"the dropout kernel takes up to {_MAX_DIMS} dims, got {x.dim()}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"the dropout kernel takes {list(_DTYPES)}, got {x.dtype}")
+    dims = _kernel_dims(x.shape, shard)
+    pad = [(1, 0, 0)] * (_MAX_DIMS - len(dims))
+    sizes, offsets, extents = zip(*(dims + pad))
+    return (len(dims), *sizes, *(o & _M32 for o in offsets), *(e & _M32 for e in extents),
+            to_int32(seed), *_rate_args(float(rate), x.dtype))
+
+
+def _launch(entry: str, x: torch.Tensor, args) -> torch.Tensor:
+    kernels.check_cuda(x, "dropout")
+    x = x.contiguous()
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    kernels.launch(entry, x.device, x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], *args)
+    return y
+
+
+class _Dropout(torch.autograd.Function):
+    """The kernel's dropout: the forward through ``aat_dropout_fwd``; the
+    backward through ``aat_dropout_bwd``, which hashes the same indices with
+    the same seed, so the keep mask is regenerated and nothing is saved."""
+
+    @staticmethod
+    def forward(ctx, x, args):
+        ctx.args = args
+        return _launch("aat_dropout_fwd", x, args)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _launch("aat_dropout_bwd", dy, ctx.args), None
+
+
+def dropout_reference(seed: int, x: torch.Tensor, rate: float,
+                      shard: Optional[ElementShard] = None) -> torch.Tensor:
+    """The plain version of :func:`dropout` (int64 hash, then a select):
+    the route of a CPU tensor, and what the kernel is held to on the card."""
+    idx = _flat_index(x.shape, shard, x.device)
+    keep = _uniform24(mix32(idx ^ (seed & _M32))) >= _as(rate, torch.float32)
+    return torch.where(keep, x * _as(1.0 / (1.0 - rate), x.dtype), 0.0)
+
+
 def dropout(seed: Optional[int], x: torch.Tensor, rate: float,
             shard: Optional[ElementShard] = None) -> torch.Tensor:
     """Train-mode inverted dropout (torch semantics: zero with probability
     ``rate``, survivors scaled by 1/(1-rate)). Identity when ``seed`` is
     None or ``rate`` is 0. The keep mask hashes the flat element index:
     ``mix32(idx ^ seed)``, the index in the global tensor that ``shard``
-    places ``x`` in."""
+    places ``x`` in. A CPU tensor takes :func:`dropout_reference`, any
+    other the kernel (the same bits)."""
     if seed is None or rate <= 0.0:
         return x
     with timing.span("ops.dropout", device=x.is_cuda):
-        idx = _flat_index(x.shape, shard, x.device)
-        keep = _uniform24(mix32(idx ^ (seed & _M32))) >= _as(rate, torch.float32)
-        return torch.where(keep, x * _as(1.0 / (1.0 - rate), x.dtype), 0.0)
+        if x.device.type == "cpu":
+            return dropout_reference(seed, x, rate, shard)
+        return _Dropout.apply(x, _kernel_args(seed, x, rate, shard))

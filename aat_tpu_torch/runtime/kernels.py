@@ -28,6 +28,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _FLASH_FWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
               _F, _I, _I, _I, _F, _F, _I, _I, _P]
+_DROPOUT = [_P, _P, _I, _I] + [_I64] * 12 + [_I, _I, _F, _P]
 _FLASH_BWD_DQ = [_P] * 8 + [_I] * 6 + [_I64] * 9 + [_F, _I, _I, _I, _F, _F, _I, _I, _P]
 
 # C entry points: name -> argtypes (every one returns cudaGetLastError()).
@@ -54,6 +55,11 @@ _SIGNATURES = {
     "aat_flash_bwd_dkv_mma": [_P] * 10 + _FLASH_BWD_DQ[8:],
     # x, codebook, cbn, idx, N, K, D, stream
     "aat_vq_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x (dy), y (dx), dtype, ndim, 4 local sizes, 4 global offsets, 4 global
+    # extents, seed, keep_min, scale, stream: the element dropout's forward
+    # and its backward, which regenerates the keep mask (dropout.cu)
+    "aat_dropout_fwd": _DROPOUT,
+    "aat_dropout_bwd": _DROPOUT,
 }
 
 

@@ -302,6 +302,12 @@ Phases, one line each:
      checkpoint bit for bit. It prints each rank's step walls, peak
      memory, ring-permute counts and bytes (4 ranks sharing one H100
      through host memory, not a scaling number).
+ 19. the element dropout's kernel (``csrc/dropout.cu``) vs its plain
+     version, right after phase 7 (``phase_dropout``): forward and
+     backward bit for bit on the training path's shapes, views and every
+     ``ElementShard`` case, bf16, f32 and f16, seeds at the int32 edges, rates
+     0.1 and 0.5; each entry timed at [40,634,4096] against its bytes bound,
+     the bf16 entries at 70% of it or more.
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
 long-form steps, phase 13's run A and its serve command, phase 14, each
@@ -831,6 +837,117 @@ def phase_keep_mask(torch, device, rng):
     head_keys_keep_checks(torch, device, ("fwd",))
 
 
+def dropout_cases(torch, device, dtype):
+    """(label, x, shard) of phase 19 in ``dtype``: the training path's
+    shapes, a non-contiguous view, a start 6 bytes into its buffer (which
+    the 16-byte vectors cannot take), each ``ElementShard`` piece of
+    ``tests/test_torch_dropout_tp.py`` (x [8, 19, 12]: row blocks, a time
+    slice padded past T = 19, tensor-parallel columns), a 4-D tensor and two
+    placed tensors the vectors walk (a time slice with padding, columns of
+    2048). Contiguous tensors carry -0, a subnormal and two values that
+    overflow when scaled."""
+    from aat_tpu_torch.ops.dropout import ElementShard
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    planted = torch.tensor([-0.0, 1e-40, 3.3e38, -3.3e38], device=device).to(dtype)
+
+    def gauss(*shape):
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        x.view(-1)[:4] = planted
+        return x
+
+    for shape in ((40, 634, 4096), (40, 634, 1024), (1, 8499, 1024)):
+        yield f"{list(shape)}", gauss(*shape), None
+    yield "[40,634,1024] transposed view", gauss(634, 40, 1024).transpose(0, 1), None
+    n = 40 * 634 * 1024
+    yield ("[40,634,1024] off 16 bytes", torch.empty(n + 8, dtype=dtype, device=device)[3:3 + n]
+           .view(40, 634, 1024).copy_(gauss(40, 634, 1024)), None)
+    padded = torch.nn.functional.pad(gauss(8, 19, 12), (0, 0, 0, 1))
+    for tp in (2, 4):
+        width = 12 // tp
+        for rows in (1, 2):
+            for time in (False, True):
+                for r, block in enumerate(padded.chunk(rows)):
+                    for sp in range(2 if time else 1):
+                        part = block[:, sp * 10:(sp + 1) * 10] if time else block[:, :19]
+                        for c in range(tp):
+                            shard = ElementShard(r, (sp * 10, 19) if time else None,
+                                                 (c * width, 12))
+                            yield (f"tp{tp} rows{rows} {'sp2' if time else 'whole time'} piece "
+                                   f"{r},{sp},{c}", part[..., c * width:(c + 1) * width], shard)
+    yield "4-D [2,3,5,8]", gauss(2, 3, 5, 8), ElementShard(1, (3, 7), (8, 16))
+    yield "[4,320,1024] sp slice past T 634", gauss(4, 320, 1024), ElementShard(1, (320, 634))
+    yield "[4,634,2048] tp columns", gauss(4, 634, 2048), ElementShard(1, None, (2048, 4096))
+
+
+def phase_dropout(torch, device):
+    """19. The element dropout's kernel (``csrc/dropout.cu``) against its
+    plain version (``ops/dropout.dropout_reference``, the int64 hash) on the
+    same CUDA tensors, bit for bit: the forward (``aat_dropout_fwd``) and
+    the backward of a Gaussian dy (``aat_dropout_bwd``, the mask
+    regenerated from the seed against autograd's backward of the plain
+    version), bf16, f32 and f16, seeds -2^31 and 2^31 - 1, rates 0.1 and 0.5, on
+    ``dropout_cases``; each launch counted on its C entry. Then each
+    entry alone at [40, 634, 4096] bf16 and f32 against its bound (x read
+    and y written once, over 3.35 TB/s) and the plain forward; the bf16
+    entries must reach 70% of the bound."""
+    from aat_tpu_torch.ops import dropout as drop
+    from aat_tpu_torch.runtime import kernels
+
+    calls = kernels.library().calls
+    gen = torch.Generator(device=device).manual_seed(20)
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    n_cases = differ = 0
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for label, x, shard in dropout_cases(torch, device, dtype):
+            dy = torch.randn(x.shape, generator=gen, device=device).to(dtype)
+            for seed in (-(2**31), 2**31 - 1):
+                for rate in (0.1, 0.5):
+                    before = (calls["aat_dropout_fwd"], calls["aat_dropout_bwd"])
+                    xk = x.detach().requires_grad_(True)
+                    y = drop.dropout(seed, xk, rate, shard)
+                    (dx,) = torch.autograd.grad(y, xk, dy)
+                    xr = x.detach().requires_grad_(True)
+                    y_ref = drop.dropout_reference(seed, xr, rate, shard)
+                    (dx_ref,) = torch.autograd.grad(y_ref, xr, dy)
+                    ok = (torch.equal(bits(y), bits(y_ref)) and torch.equal(bits(dx), bits(dx_ref))
+                          and (calls["aat_dropout_fwd"], calls["aat_dropout_bwd"])
+                          == (before[0] + 1, before[1] + 1))
+                    n_cases += 1
+                    if not ok:
+                        differ += 1
+                        print(f"dropout kernel: {label} {str(dtype)[6:]} seed {seed} rate "
+                              f"{rate}: differs from the plain version (forward equal "
+                              f"{torch.equal(bits(y), bits(y_ref))}, backward equal "
+                              f"{torch.equal(bits(dx), bits(dx_ref))})", flush=True)
+    torch.cuda.synchronize()
+    print(f"dropout kernel: {n_cases} cases (bf16, f32 and f16, 2 seeds, 2 rates), forward and "
+          f"backward bit for bit equal to the plain version in {n_cases - differ}", flush=True)
+    check(differ == 0, f"the dropout kernel differs from its plain version in {differ} cases")
+
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((40, 634, 4096), generator=gen, device=device).to(dtype)
+        args = drop._kernel_args(12345, x, 0.1, None)
+        bound, _ = bound_ms([x, x], [0.0])
+        name = str(dtype)[6:]
+        for entry in ("aat_dropout_fwd", "aat_dropout_bwd"):
+            ms = cuda_ms(torch, lambda: drop._launch(entry, x, args))
+            result[f"{name}_{entry[12:]}_ms"] = ms
+            result[f"{name}_{entry[12:]}_roofline"] = 100.0 * bound / ms
+        result[f"{name}_bound_ms"] = bound
+        result[f"{name}_plain_ms"] = cuda_ms(
+            torch, lambda: drop.dropout_reference(12345, x, 0.1), iters=5)
+    print(f"dropout kernel timing [40,634,4096] dropout 0.1 (ms, % of the bytes bound): "
+          f"{json.dumps(result)}", flush=True)
+    check(min(result["bfloat16_fwd_roofline"], result["bfloat16_bwd_roofline"]) >= 70.0,
+          "the bf16 dropout kernel is under 70% of its bytes bound")
+    return result
+
+
 def phase_backward_keep_mask(torch, device, rng):
     """The tensor-core backward's dropout keep mask, read from each kernel
     through identity operands. bf16 and f32 (3xTF32), B = 2, H = KVH = 4,
@@ -1355,19 +1472,32 @@ def profile_training_step(torch, trainer, micro, name="train"):
     """One torch.profiler pass over a warm training step: device busy time
     (the union of kernel intervals), the idle share of the step's wall, and
     device time by kernel, to ``<name>_profile.txt`` in the kernels' build
-    directory."""
+    directory. The dropout kernel's forward launches must equal the step's
+    ``ops.dropout`` spans."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from aat_tpu_torch.runtime.kernels import BUILD_DIR
+    from aat_tpu_torch.runtime.kernels import BUILD_DIR, library
+    from aat_tpu_torch.utils import timing
 
     path = os.path.join(BUILD_DIR, f"{name}_profile.txt")
+    calls = library().calls
+
+    def dropout_counts():
+        return (calls["aat_dropout_fwd"], calls["aat_dropout_bwd"],
+                timing.counters().get("span.ops.dropout.calls", 0))
+
     torch.cuda.synchronize()
+    before = dropout_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         trainer.training_step(micro)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
+    fwd, bwd, spans = (a - b for a, b in zip(dropout_counts(), before))
+    print(f"profile: {name} dropout kernel launches {fwd} forward, {bwd} backward; "
+          f"{spans} ops.dropout spans", flush=True)
+    check(fwd == spans, f"{name}: {fwd} dropout forward launches against {spans} spans")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(kernels, "the profiler recorded no device kernels")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -4675,6 +4805,8 @@ def main():
     train_results = phase_flash_train(torch, device, rng)
     phase_keep_mask(torch, device, rng)
     phase_backward_keep_mask(torch, device, rng)
+    # 19. the element dropout's kernel vs its plain version
+    phase_dropout(torch, device)
 
     # 5-6. serving at full width
     start = time.perf_counter()
