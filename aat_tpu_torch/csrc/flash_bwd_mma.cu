@@ -73,6 +73,12 @@
 //     that straddle the diagonal (every tile with pack_len).
 //   - At D = 128 each kernel takes about 97 KB of shared memory, two blocks
 //     an SM (`__launch_bounds__(128, 2)`).
+//   - q and k may be wider than v (DQK, DV): multi-head latent attention's
+//     (192, 128), causal. Each pair of products runs its k-steps to the wider
+//     width, a step past the narrower one feeding only its own product; dq
+//     and dk are DQK wide, dv and delta's rows DV. The streamed tiles take 32
+//     rows there (dq_bk, dkv_bq), so dq's 192-wide and dk/dv's 320-wide
+//     accumulators stay in registers and each kernel takes about 80 KB.
 #include "mma_common.cuh"
 
 namespace {
@@ -85,16 +91,30 @@ constexpr int kThreads = 128;  // 4 warps of 16 rows
 constexpr int kStages = 2;     // the ring
 constexpr float kPadLse = 1e30f;  // lse of a padded query row: p == 0 there
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (int)(sizeof(bf16) * (2 * kBQ * D + 2 * kStages * kBK * D) +
-               sizeof(int) * kStages * kBK);
+// q and k are DQK wide, v, out and dout DV wide. Past DQK = 128 (latent
+// attention's 192) the streamed tiles take 32 rows, so the wider
+// accumulators (dq: DQK; dk/dv: DQK + DV) and the score tiles still fit the
+// registers and two blocks fit an SM.
+template <int DQK>
+__host__ __device__ constexpr int dq_bk() {
+  return DQK > 128 ? 32 : kBK;
 }
 
-template <int D>
+template <int DQK>
+__host__ __device__ constexpr int dkv_bq() {
+  return DQK > 128 ? 32 : kBQ;
+}
+
+template <int DQK, int DV>
+constexpr int dq_smem_bytes() {
+  return (int)(sizeof(bf16) * (kBQ * (DQK + DV) + kStages * dq_bk<DQK>() * (DQK + DV)) +
+               sizeof(int) * kStages * dq_bk<DQK>());
+}
+
+template <int DQK, int DV>
 constexpr int dkv_smem_bytes() {
-  return (int)(sizeof(bf16) * (2 * kBK * D + 2 * kStages * kBQ * D) +
-               sizeof(float) * 2 * kStages * kBQ);
+  return (int)(sizeof(bf16) * (kBK * (DQK + DV) + kStages * dkv_bq<DQK>() * (DQK + DV)) +
+               sizeof(float) * 2 * kStages * dkv_bq<DQK>());
 }
 
 // acc + the dot product of 8 bf16 pairs held as two 16-byte words
@@ -110,17 +130,19 @@ __device__ __forceinline__ float dot8(const uint4& x, const uint4& y, float acc)
   return acc;
 }
 
-template <int D, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ out,
                         const bf16* __restrict__ dout, bf16* __restrict__ dq, BwdArgs a) {
+  constexpr int BK = dq_bk<DQK>();
+  constexpr int DM = DQK > DV ? DQK : DV;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);              // [kBQ][D]
-  bf16* dos = qs + kBQ * D;                                  // [kBQ][D]
-  bf16* ks = dos + kBQ * D;                                  // [kStages][kBK][D]
-  bf16* vs = ks + kStages * kBK * D;                         // [kStages][kBK][D]
-  int* ms = reinterpret_cast<int*>(vs + kStages * kBK * D);  // [kStages][kBK]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);             // [kBQ][DQK]
+  bf16* dos = qs + kBQ * DQK;                               // [kBQ][DV]
+  bf16* ks = dos + kBQ * DV;                                // [kStages][BK][DQK]
+  bf16* vs = ks + kStages * BK * DQK;                       // [kStages][BK][DV]
+  int* ms = reinterpret_cast<int*>(vs + kStages * BK * DV);  // [kStages][BK]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.x;
@@ -128,27 +150,27 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long b = blockIdx.z;
   const int hk = h / (a.n_heads / a.n_kv_heads);
   const long long bh = b * a.n_heads + h;
-  const long long o_st = (long long)a.n_heads * D;  // out/dout/dq row stride
-  const bf16* ob = out + b * a.t_len * o_st + h * D;
+  const long long o_st = (long long)a.n_heads * DV;  // out/dout row stride
+  const bf16* ob = out + b * a.t_len * o_st + h * DV;
   const bf16* kb = k + b * a.k_sb + hk * a.k_sh;
   const bf16* vb = v + b * a.v_sb + hk * a.v_sh;
   const int* mb = a.key_mask + b * a.s_len;
   const uint32_t seed_and_head = head_key(a.seed, b, a.heads_total, h);
   const int k_end = CAUSAL ? min(a.s_len, q0 + kBQ) : a.s_len;
-  const int n_tiles = (k_end + kBK - 1) / kBK;
+  const int n_tiles = (k_end + BK - 1) / BK;
 
   auto load_kv = [&](int tile, int stage) {
-    const int k0 = tile * kBK;
-    load_rows<D, kBK, kThreads>(ks + stage * kBK * D, kb, a.k_ss, k0, a.s_len, tid);
-    load_rows<D, kBK, kThreads>(vs + stage * kBK * D, vb, a.v_ss, k0, a.s_len, tid);
-    if (tid < kBK) {
+    const int k0 = tile * BK;
+    load_rows<DQK, BK, kThreads>(ks + stage * BK * DQK, kb, a.k_ss, k0, a.s_len, tid);
+    load_rows<DV, BK, kThreads>(vs + stage * BK * DV, vb, a.v_ss, k0, a.s_len, tid);
+    if (tid < BK) {
       const bool ok = k0 + tid < a.s_len;
-      cp_async4(smem_u32(ms + stage * kBK + tid), mb + (ok ? k0 + tid : 0), ok ? 4 : 0);
+      cp_async4(smem_u32(ms + stage * BK + tid), mb + (ok ? k0 + tid : 0), ok ? 4 : 0);
     }
   };
 
-  load_rows<D, kBQ, kThreads>(qs, q + b * a.q_sb + h * a.q_sh, a.q_st, q0, a.t_len, tid);
-  load_rows<D, kBQ, kThreads>(dos, dout + b * a.t_len * o_st + h * D, o_st, q0, a.t_len, tid);
+  load_rows<DQK, kBQ, kThreads>(qs, q + b * a.q_sb + h * a.q_sh, a.q_st, q0, a.t_len, tid);
+  load_rows<DV, kBQ, kThreads>(dos, dout + b * a.t_len * o_st + h * DV, o_st, q0, a.t_len, tid);
   cp_async_commit();  // group: q and dout
   if (n_tiles > 0) load_kv(0, 0);
   cp_async_commit();  // group: tile 0
@@ -156,10 +178,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // A fragments of this warp's 16 rows of q·sm_scale, rounded to bf16
-  uint32_t qf[D / 16][4];
+  uint32_t qf[DQK / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldsm_x4(smem_u32(qs + swz<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4))), qf[kk]);
+  for (int kk = 0; kk < DQK / 16; ++kk) {
+    ldsm_x4(smem_u32(qs + swz<DQK>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4))), qf[kk]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) qf[kk][i] = scale_round(qf[kk][i], a.sm_scale);
   }
@@ -177,10 +199,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (q0 + warp * 16 + r < a.t_len) {
       const bf16* orow = ob + (q0 + warp * 16 + r) * o_st;
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        const int c = half * (D / 16) + n;
+      for (int n = 0; n < DV / 16; ++n) {
+        const int c = half * (DV / 16) + n;
         sum = dot8(*reinterpret_cast<const uint4*>(orow + c * 8),
-                   *reinterpret_cast<const uint4*>(dos + swz<D>(warp * 16 + r, c)), sum);
+                   *reinterpret_cast<const uint4*>(dos + swz<DV>(warp * 16 + r, c)), sum);
       }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -191,9 +213,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float nl_lo = -(row_lo < a.t_len ? a.lse[bh * a.t_len + row_lo] : kPadLse) * kLog2e;
   const float nl_hi = -(row_hi < a.t_len ? a.lse[bh * a.t_len + row_hi] : kPadLse) * kLog2e;
 
-  float acc[D / 8][4];
+  float acc[DQK / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DQK / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
@@ -201,41 +223,48 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();  // empty on the last tile, which keeps the count
     cp_async_wait<1>();  // tile `it` has landed
     __syncthreads();
-    const int k0 = it * kBK;
-    const bf16* kt = ks + stage * kBK * D;
-    const bf16* vt = vs + stage * kBK * D;
-    const int* mt = ms + stage * kBK;
+    const int k0 = it * BK;
+    const bf16* kt = ks + stage * BK * DQK;
+    const bf16* vt = vs + stage * BK * DV;
+    const int* mt = ms + stage * BK;
 
-    // S = q_s·K^T and dP = dout·V^T: K and V rows are the columns of B
-    float s[kBK / 8][4], dp[kBK / 8][4];
+    // S = q_s·K^T (DQK deep) and dP = dout·V^T (DV deep): K and V rows are
+    // the columns of B; a k-step past one width feeds only the other product
+    float s[BK / 8][4], dp[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DM / 16; ++kk) {
+      const bool on_k = kk < DQK / 16, on_v = kk < DV / 16;
       uint32_t df[4];
-      ldsm_x4(smem_u32(dos + swz<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4))), df);
+      if (on_v)
+        ldsm_x4(smem_u32(dos + swz<DV>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4))), df);
 #pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        const int off = swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
-                               kk * 2 + ((lane >> 3) & 1));
+      for (int np = 0; np < BK / 16; ++np) {
+        const int row = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int chunk = kk * 2 + ((lane >> 3) & 1);
         uint32_t kf[4], vf[4];
-        ldsm_x4(smem_u32(kt + off), kf);
-        ldsm_x4(smem_u32(vt + off), vf);
-        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
-        mma_bf16(dp[2 * np], df, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], df, vf[2], vf[3]);
+        if (on_k) ldsm_x4(smem_u32(kt + swz<DQK>(row, chunk)), kf);
+        if (on_v) ldsm_x4(smem_u32(vt + swz<DV>(row, chunk)), vf);
+        if (on_k) {
+          mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        }
+        if (on_v) {
+          mma_bf16(dp[2 * np], df, vf[0], vf[1]);
+          mma_bf16(dp[2 * np + 1], df, vf[2], vf[3]);
+        }
       }
     }
 
     // p, the dropout of dp, ds = p·(dp - delta), rounded to bf16 as the A
     // operand of dS·K: accumulator tile j is half of k-step j / 2
-    const bool edge = CAUSAL && (a.pack_len > 0 || k0 + kBK - 1 > q0);
-    uint32_t dsf[kBK / 16][4];
+    const bool edge = CAUSAL && (a.pack_len > 0 || k0 + BK - 1 > q0);
+    uint32_t dsf[BK / 16][4];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -265,11 +294,12 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // dQ += dS·K: K rows are the rows of B, read with ldmatrix.trans
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
+      for (int dn = 0; dn < DQK / 16; ++dn) {
         uint32_t kf[4];
-        ldsm_x4_trans(smem_u32(kt + swz<D>(kk * 16 + (lane & 15), dn * 2 + (lane >> 4))), kf);
+        ldsm_x4_trans(smem_u32(kt + swz<DQK>(kk * 16 + (lane & 15), dn * 2 + (lane >> 4))),
+                      kf);
         mma_bf16(acc[2 * dn], dsf[kk], kf[0], kf[1]);
         mma_bf16(acc[2 * dn + 1], dsf[kk], kf[2], kf[3]);
       }
@@ -279,16 +309,16 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();
 
   if (row_lo < a.t_len) {
-    bf16* o = dq + ((b * a.t_len + row_lo) * a.n_heads + h) * D + 2 * t4;
+    bf16* o = dq + ((b * a.t_len + row_lo) * a.n_heads + h) * DQK + 2 * t4;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DQK / 8; ++i)
       *reinterpret_cast<uint32_t*>(o + 8 * i) =
           pack_bf16(acc[i][0] * a.sm_scale, acc[i][1] * a.sm_scale);
   }
   if (row_hi < a.t_len) {
-    bf16* o = dq + ((b * a.t_len + row_hi) * a.n_heads + h) * D + 2 * t4;
+    bf16* o = dq + ((b * a.t_len + row_hi) * a.n_heads + h) * DQK + 2 * t4;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DQK / 8; ++i)
       *reinterpret_cast<uint32_t*>(o + 8 * i) =
           pack_bf16(acc[i][2] * a.sm_scale, acc[i][3] * a.sm_scale);
   }
@@ -316,19 +346,21 @@ flash_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ do
   }
 }
 
-template <int D, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ delta, float* __restrict__ dk,
                          float* __restrict__ dv, BwdArgs a) {
+  constexpr int BQ = dkv_bq<DQK>();
+  constexpr int DM = DQK > DV ? DQK : DV;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);                  // [kBK][D]
-  bf16* vs = ks + kBK * D;                                       // [kBK][D]
-  bf16* qs = vs + kBK * D;                                       // [kStages][kBQ][D]
-  bf16* dos = qs + kStages * kBQ * D;                            // [kStages][kBQ][D]
-  float* ls = reinterpret_cast<float*>(dos + kStages * kBQ * D);  // [kStages][kBQ]
-  float* dls = ls + kStages * kBQ;                               // [kStages][kBQ]
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);                 // [kBK][DQK]
+  bf16* vs = ks + kBK * DQK;                                    // [kBK][DV]
+  bf16* qs = vs + kBK * DV;                                     // [kStages][BQ][DQK]
+  bf16* dos = qs + kStages * BQ * DQK;                          // [kStages][BQ][DV]
+  float* ls = reinterpret_cast<float*>(dos + kStages * BQ * DV);  // [kStages][BQ]
+  float* dls = ls + kStages * BQ;                               // [kStages][BQ]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.x;
@@ -336,28 +368,30 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long b = blockIdx.z;
   const int hk = h / (a.n_heads / a.n_kv_heads);
   const long long bh = b * a.n_heads + h;
-  const long long o_st = (long long)a.n_heads * D;  // dout row stride
+  const long long o_st = (long long)a.n_heads * DV;  // dout row stride
   const bf16* qb = q + b * a.q_sb + h * a.q_sh;
-  const bf16* dob = dout + b * a.t_len * o_st + h * D;
+  const bf16* dob = dout + b * a.t_len * o_st + h * DV;
   const float* lb = a.lse + bh * a.t_len;
   const float* db = delta + bh * a.t_len;
   const uint32_t seed_and_head = head_key(a.seed, b, a.heads_total, h);
-  // query tiles above the diagonal see none of these keys (kBQ == kBK)
+  // query tiles above the diagonal see none of these keys (BQ divides kBK)
   const int q_begin = CAUSAL ? k0 : 0;
-  const int n_tiles = q_begin < a.t_len ? (a.t_len - q_begin + kBQ - 1) / kBQ : 0;
+  const int n_tiles = q_begin < a.t_len ? (a.t_len - q_begin + BQ - 1) / BQ : 0;
 
   auto load_q = [&](int tile, int stage) {
-    const int q0 = q_begin + tile * kBQ;
-    load_rows<D, kBQ, kThreads>(qs + stage * kBQ * D, qb, a.q_st, q0, a.t_len, tid);
-    load_rows<D, kBQ, kThreads>(dos + stage * kBQ * D, dob, o_st, q0, a.t_len, tid);
-    const int i = tid & (kBQ - 1);  // threads 0-63 copy lse, 64-127 delta
-    const bool ok = q0 + i < a.t_len;
-    const float* src = (tid < kBQ ? lb : db) + (ok ? q0 + i : 0);
-    cp_async4(smem_u32((tid < kBQ ? ls : dls) + stage * kBQ + i), src, ok ? 4 : 0);
+    const int q0 = q_begin + tile * BQ;
+    load_rows<DQK, BQ, kThreads>(qs + stage * BQ * DQK, qb, a.q_st, q0, a.t_len, tid);
+    load_rows<DV, BQ, kThreads>(dos + stage * BQ * DV, dob, o_st, q0, a.t_len, tid);
+    if (2 * BQ == kThreads || tid < 2 * BQ) {
+      const int i = tid & (BQ - 1);  // threads [0, BQ) copy lse, [BQ, 2·BQ) delta
+      const bool ok = q0 + i < a.t_len;
+      const float* src = (tid < BQ ? lb : db) + (ok ? q0 + i : 0);
+      cp_async4(smem_u32((tid < BQ ? ls : dls) + stage * BQ + i), src, ok ? 4 : 0);
+    }
   };
 
-  load_rows<D, kBK, kThreads>(ks, k + b * a.k_sb + hk * a.k_sh, a.k_ss, k0, a.s_len, tid);
-  load_rows<D, kBK, kThreads>(vs, v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a.s_len, tid);
+  load_rows<DQK, kBK, kThreads>(ks, k + b * a.k_sb + hk * a.k_sh, a.k_ss, k0, a.s_len, tid);
+  load_rows<DV, kBK, kThreads>(vs, v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a.s_len, tid);
   cp_async_commit();  // group: k and v
   if (n_tiles > 0) load_q(0, 0);
   cp_async_commit();  // group: tile 0
@@ -370,11 +404,14 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool valid_lo = key_lo < a.s_len && mb[key_lo] > 0;
   const bool valid_hi = key_hi < a.s_len && mb[key_hi] > 0;
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[DQK / 8][4], dv_acc[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DM / 8; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if (i < DQK / 8) dk_acc[i][e] = 0.f;
+      if (i < DV / 8) dv_acc[i][e] = 0.f;
+    }
 
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
@@ -382,15 +419,15 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();  // empty on the last tile, which keeps the count
     cp_async_wait<1>();  // tile `it` (and k, v) have landed
     __syncthreads();
-    const int q0 = q_begin + it * kBQ;
-    bf16* qt = qs + stage * kBQ * D;
-    const bf16* dt = dos + stage * kBQ * D;
-    float* lt = ls + stage * kBQ;
-    const float* dlt = dls + stage * kBQ;
+    const int q0 = q_begin + it * BQ;
+    bf16* qt = qs + stage * BQ * DQK;
+    const bf16* dt = dos + stage * BQ * DV;
+    float* lt = ls + stage * BQ;
+    const float* dlt = dls + stage * BQ;
 
     // one pass over the landed tile: q -> round(q·sm_scale) (a B operand
     // twice), lse -> -lse·log2e (kPadLse past T, so p == 0 there)
-    for (int i = tid; i < kBQ * D / 8; i += kThreads) {
+    for (int i = tid; i < BQ * DQK / 8; i += kThreads) {
       uint4 w = reinterpret_cast<uint4*>(qt)[i];
       w.x = scale_round(w.x, a.sm_scale);
       w.y = scale_round(w.y, a.sm_scale);
@@ -398,32 +435,38 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       w.w = scale_round(w.w, a.sm_scale);
       reinterpret_cast<uint4*>(qt)[i] = w;
     }
-    if (tid < kBQ) lt[tid] = -(q0 + tid < a.t_len ? lt[tid] : kPadLse) * kLog2e;
+    if (tid < BQ) lt[tid] = -(q0 + tid < a.t_len ? lt[tid] : kPadLse) * kLog2e;
     __syncthreads();
 
-    // S^T = K·q_s^T and dP^T = V·dout^T: q and dout rows are the columns of B
-    float s[kBQ / 8][4], dp[kBQ / 8][4];
+    // S^T = K·q_s^T (DQK deep) and dP^T = V·dout^T (DV deep): q and dout rows
+    // are the columns of B; a k-step past one width feeds only the other
+    float s[BQ / 8][4], dp[BQ / 8][4];
 #pragma unroll
-    for (int j = 0; j < kBQ / 8; ++j)
+    for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int a_off = swz<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4));
+    for (int kk = 0; kk < DM / 16; ++kk) {
+      const bool on_k = kk < DQK / 16, on_v = kk < DV / 16;
+      const int a_row = warp * 16 + (lane & 15), a_chunk = kk * 2 + (lane >> 4);
       uint32_t kf[4], vf[4];
-      ldsm_x4(smem_u32(ks + a_off), kf);
-      ldsm_x4(smem_u32(vs + a_off), vf);
+      if (on_k) ldsm_x4(smem_u32(ks + swz<DQK>(a_row, a_chunk)), kf);
+      if (on_v) ldsm_x4(smem_u32(vs + swz<DV>(a_row, a_chunk)), vf);
 #pragma unroll
-      for (int np = 0; np < kBQ / 16; ++np) {
-        const int off = swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
-                               kk * 2 + ((lane >> 3) & 1));
+      for (int np = 0; np < BQ / 16; ++np) {
+        const int row = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int chunk = kk * 2 + ((lane >> 3) & 1);
         uint32_t qf[4], df[4];
-        ldsm_x4(smem_u32(qt + off), qf);
-        ldsm_x4(smem_u32(dt + off), df);
-        mma_bf16(s[2 * np], kf, qf[0], qf[1]);
-        mma_bf16(s[2 * np + 1], kf, qf[2], qf[3]);
-        mma_bf16(dp[2 * np], vf, df[0], df[1]);
-        mma_bf16(dp[2 * np + 1], vf, df[2], df[3]);
+        if (on_k) ldsm_x4(smem_u32(qt + swz<DQK>(row, chunk)), qf);
+        if (on_v) ldsm_x4(smem_u32(dt + swz<DV>(row, chunk)), df);
+        if (on_k) {
+          mma_bf16(s[2 * np], kf, qf[0], qf[1]);
+          mma_bf16(s[2 * np + 1], kf, qf[2], qf[3]);
+        }
+        if (on_v) {
+          mma_bf16(dp[2 * np], vf, df[0], df[1]);
+          mma_bf16(dp[2 * np + 1], vf, df[2], df[3]);
+        }
       }
     }
 
@@ -431,9 +474,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // products. The hash's row is the query (this fragment's column), its
     // column the key (this fragment's row).
     const bool edge = CAUSAL && (a.pack_len > 0 || q0 < k0 + kBK - 1);
-    uint32_t pf[kBQ / 16][4], dsf[kBQ / 16][4];
+    uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
 #pragma unroll
-    for (int j = 0; j < kBQ / 8; ++j) {
+    for (int j = 0; j < BQ / 8; ++j) {
       const int c = 8 * j + 2 * t4;
       const float2 nl = *reinterpret_cast<const float2*>(lt + c);
       const float2 dl = *reinterpret_cast<const float2*>(dlt + c);
@@ -470,20 +513,25 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
 
-    // dV += P_v^T·dout and dK += dS^T·q_s: dout and q_s rows are the rows of
-    // B, read with ldmatrix.trans
+    // dV += P_v^T·dout (DV wide) and dK += dS^T·q_s (DQK wide): dout and
+    // q_s rows are the rows of B, read with ldmatrix.trans
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
+    for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        const int off = swz<D>(kk * 16 + (lane & 15), dn * 2 + (lane >> 4));
+      for (int dn = 0; dn < DM / 16; ++dn) {
+        const bool on_v = dn < DV / 16, on_k = dn < DQK / 16;
+        const int row = kk * 16 + (lane & 15), chunk = dn * 2 + (lane >> 4);
         uint32_t df[4], qf[4];
-        ldsm_x4_trans(smem_u32(dt + off), df);
-        ldsm_x4_trans(smem_u32(qt + off), qf);
-        mma_bf16(dv_acc[2 * dn], pf[kk], df[0], df[1]);
-        mma_bf16(dv_acc[2 * dn + 1], pf[kk], df[2], df[3]);
-        mma_bf16(dk_acc[2 * dn], dsf[kk], qf[0], qf[1]);
-        mma_bf16(dk_acc[2 * dn + 1], dsf[kk], qf[2], qf[3]);
+        if (on_v) ldsm_x4_trans(smem_u32(dt + swz<DV>(row, chunk)), df);
+        if (on_k) ldsm_x4_trans(smem_u32(qt + swz<DQK>(row, chunk)), qf);
+        if (on_v) {
+          mma_bf16(dv_acc[2 * dn], pf[kk], df[0], df[1]);
+          mma_bf16(dv_acc[2 * dn + 1], pf[kk], df[2], df[3]);
+        }
+        if (on_k) {
+          mma_bf16(dk_acc[2 * dn], dsf[kk], qf[0], qf[1]);
+          mma_bf16(dk_acc[2 * dn + 1], dsf[kk], qf[2], qf[3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage before it refills
@@ -491,19 +539,25 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();
 
   if (key_lo < a.s_len) {
-    const long long off = ((b * a.s_len + key_lo) * a.n_heads + h) * D + 2 * t4;
+    const long long row = (b * a.s_len + key_lo) * a.n_heads + h;
+    const long long off_k = row * DQK + 2 * t4, off_v = row * DV + 2 * t4;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<float2*>(dk + off + 8 * i) = make_float2(dk_acc[i][0], dk_acc[i][1]);
-      *reinterpret_cast<float2*>(dv + off + 8 * i) = make_float2(dv_acc[i][0], dv_acc[i][1]);
+    for (int i = 0; i < DM / 8; ++i) {
+      if (i < DQK / 8)
+        *reinterpret_cast<float2*>(dk + off_k + 8 * i) = make_float2(dk_acc[i][0], dk_acc[i][1]);
+      if (i < DV / 8)
+        *reinterpret_cast<float2*>(dv + off_v + 8 * i) = make_float2(dv_acc[i][0], dv_acc[i][1]);
     }
   }
   if (key_hi < a.s_len) {
-    const long long off = ((b * a.s_len + key_hi) * a.n_heads + h) * D + 2 * t4;
+    const long long row = (b * a.s_len + key_hi) * a.n_heads + h;
+    const long long off_k = row * DQK + 2 * t4, off_v = row * DV + 2 * t4;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<float2*>(dk + off + 8 * i) = make_float2(dk_acc[i][2], dk_acc[i][3]);
-      *reinterpret_cast<float2*>(dv + off + 8 * i) = make_float2(dv_acc[i][2], dv_acc[i][3]);
+    for (int i = 0; i < DM / 8; ++i) {
+      if (i < DQK / 8)
+        *reinterpret_cast<float2*>(dk + off_k + 8 * i) = make_float2(dk_acc[i][2], dk_acc[i][3]);
+      if (i < DV / 8)
+        *reinterpret_cast<float2*>(dv + off_v + 8 * i) = make_float2(dv_acc[i][2], dv_acc[i][3]);
     }
   }
 }
@@ -517,7 +571,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 extern "C" int aat_flash_bwd_dq_mma(const void* q, const void* k, const void* v,
                                     const int* key_mask, const void* out, const void* dout,
                                     const float* lse, void* dq, int B, int T_len, int S, int H,
-                                    int KVH, int D, long long q_sb, long long q_st,
+                                    int KVH, int D, int DV, long long q_sb, long long q_st,
                                     long long q_sh, long long k_sb, long long k_ss,
                                     long long k_sh, long long v_sb, long long v_ss,
                                     long long v_sh, float sm_scale, int causal, int pack_len,
@@ -527,10 +581,10 @@ extern "C" int aat_flash_bwd_dq_mma(const void* q, const void* k, const void* v,
   const BwdArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                   v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
                   aat_flash::keep_min(rate), inv_keep, heads_total};
-  return dispatch(D, causal, [&](auto variant) {
+  return dispatch_mma(D, DV, causal, [&](auto variant) {
     using V = decltype(variant);
-    auto kernel = flash_bwd_dq_mma_kernel<V::width, V::causal>;
-    constexpr int smem = dq_smem_bytes<V::width>();
+    auto kernel = flash_bwd_dq_mma_kernel<V::dqk, V::dv, V::causal>;
+    constexpr int smem = dq_smem_bytes<V::dqk, V::dv>();
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -550,7 +604,7 @@ extern "C" int aat_flash_bwd_dq_mma(const void* q, const void* k, const void* v,
 extern "C" int aat_flash_bwd_dkv_mma(const void* q, const void* k, const void* v,
                                      const int* key_mask, const void* out, const void* dout,
                                      const float* lse, float* dk, float* dv, float* delta,
-                                     int B, int T_len, int S, int H, int KVH, int D,
+                                     int B, int T_len, int S, int H, int KVH, int D, int DV,
                                      long long q_sb, long long q_st, long long q_sh,
                                      long long k_sb, long long k_ss, long long k_sh,
                                      long long v_sb, long long v_ss, long long v_sh,
@@ -561,18 +615,18 @@ extern "C" int aat_flash_bwd_dkv_mma(const void* q, const void* k, const void* v
   const BwdArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                   v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
                   aat_flash::keep_min(rate), inv_keep, heads_total};
-  return dispatch(D, causal, [&](auto variant) {
+  return dispatch_mma(D, DV, causal, [&](auto variant) {
     using V = decltype(variant);
-    constexpr int rows_per_block = 256 / (V::width / 8);
+    constexpr int rows_per_block = 256 / (V::dv / 8);
     const long long rows = (long long)B * T_len * H;
-    flash_bwd_delta_kernel<V::width>
+    flash_bwd_delta_kernel<V::dv>
         <<<(unsigned int)((rows + rows_per_block - 1) / rows_per_block), 256, 0, stream>>>(
             static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta, rows, T_len,
             H);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    auto kernel = flash_bwd_dkv_mma_kernel<V::width, V::causal>;
-    constexpr int smem = dkv_smem_bytes<V::width>();
+    auto kernel = flash_bwd_dkv_mma_kernel<V::dqk, V::dv, V::causal>;
+    constexpr int smem = dkv_smem_bytes<V::dqk, V::dv>();
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(H, (S + kBK - 1) / kBK, B);

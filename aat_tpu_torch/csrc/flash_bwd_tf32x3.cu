@@ -559,7 +559,8 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict
 extern "C" int aat_flash_bwd_dq_tf32x3(const void* q, const void* k, const void* v,
                                        const int* key_mask, const void* out, const void* dout,
                                        const float* lse, void* dq, int B, int T_len, int S,
-                                       int H, int KVH, int D, long long q_sb, long long q_st,
+                                       int H, int KVH, int D, int DV, long long q_sb,
+                                       long long q_st,
                                        long long q_sh, long long k_sb, long long k_ss,
                                        long long k_sh, long long v_sb, long long v_ss,
                                        long long v_sh, float sm_scale, int causal, int pack_len,
@@ -569,7 +570,7 @@ extern "C" int aat_flash_bwd_dq_tf32x3(const void* q, const void* k, const void*
   const BwdArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                   v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
                   aat_flash::keep_min(rate), inv_keep, heads_total};
-  return dispatch(D, causal, [&](auto variant) {
+  return dispatch(D, DV, causal, [&](auto variant) {
     using V = decltype(variant);
     auto kernel = flash_bwd_dq_tf32x3_kernel<V::width, V::causal>;
     constexpr int smem = smem_bytes<V::width>();
@@ -593,7 +594,7 @@ extern "C" int aat_flash_bwd_dkv_tf32x3(const void* q, const void* k, const void
                                         const int* key_mask, const void* out, const void* dout,
                                         const float* lse, float* dk, float* dv, float* delta,
                                         int B, int T_len, int S, int H, int KVH, int D,
-                                        long long q_sb, long long q_st, long long q_sh,
+                                        int DV, long long q_sb, long long q_st, long long q_sh,
                                         long long k_sb, long long k_ss, long long k_sh,
                                         long long v_sb, long long v_ss, long long v_sh,
                                         float sm_scale, int causal, int pack_len, int seed,
@@ -603,7 +604,7 @@ extern "C" int aat_flash_bwd_dkv_tf32x3(const void* q, const void* k, const void
   const BwdArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                   v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
                   aat_flash::keep_min(rate), inv_keep, heads_total};
-  return dispatch(D, causal, [&](auto variant) {
+  return dispatch(D, DV, causal, [&](auto variant) {
     using V = decltype(variant);
     const long long rows = (long long)B * T_len * H;
     flash_bwd_delta_f32_kernel<V::width>

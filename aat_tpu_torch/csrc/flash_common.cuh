@@ -74,10 +74,34 @@ struct Variant {
 
 // Calls f(Variant<D, CAUSAL>{}) for the run's head width and masking; 1
 // (cudaErrorInvalidValue) for a head width the kernels were not built for.
+// The 3xTF32 kernels take one width for q, k and v (DV == D).
 template <typename F>
-int dispatch(int D, int causal, F&& f) {
+int dispatch(int D, int DV, int causal, F&& f) {
+  if (DV != D) return (int)cudaErrorInvalidValue;
   if (D == 64) return causal ? f(Variant<64, true>{}) : f(Variant<64, false>{});
   if (D == 128) return causal ? f(Variant<128, true>{}) : f(Variant<128, false>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 kernels' widths: DQK of q and k, DV of v (and of out, dout).
+// Multi-head latent attention (DeepSeek-V2) scores 128 + 64 rotary columns
+// and reads 128-wide values: (192, 128), causal only.
+template <int DQK, int DV, bool CAUSAL>
+struct MmaVariant {
+  static constexpr int dqk = DQK;
+  static constexpr int dv = DV;
+  static constexpr bool causal = CAUSAL;
+};
+
+// Calls f(MmaVariant<DQK, DV, CAUSAL>{}) for the run's widths and masking;
+// 1 (cudaErrorInvalidValue) for widths the kernels were not built for.
+template <typename F>
+int dispatch_mma(int DQK, int DV, int causal, F&& f) {
+  if (DQK == 64 && DV == 64)
+    return causal ? f(MmaVariant<64, 64, true>{}) : f(MmaVariant<64, 64, false>{});
+  if (DQK == 128 && DV == 128)
+    return causal ? f(MmaVariant<128, 128, true>{}) : f(MmaVariant<128, 128, false>{});
+  if (DQK == 192 && DV == 128 && causal) return f(MmaVariant<192, 128, true>{});
   return (int)cudaErrorInvalidValue;
 }
 

@@ -33,6 +33,10 @@
 //     products). Rows are XOR-swizzled in 16-byte chunks (chunk ^ row % 8),
 //     so the 8 rows an ldmatrix reads hit 8 distinct bank groups. At
 //     D = 128 the ring and Q take 80 KB, two blocks an SM.
+//   - q and k may be wider than v (DQK, DV): multi-head latent attention
+//     scores 192 columns (128 + 64 rotary) and reads 128-wide values. Q·K^T
+//     then runs 12 k-steps, P·V and the accumulators stay 128 wide, and Q and
+//     the rings take 104.5 KB, still two blocks an SM.
 //   - S = Q·K^T and O += P·V run on mma.sync.m16n8k16 bf16 -> f32. P never
 //     leaves registers: the m16n8 accumulator fragment of S is the A
 //     fragment of P·V once rounded to bf16, and V is read with
@@ -60,9 +64,10 @@ constexpr int kBK = 64;               // keys of one K/V tile
 constexpr int kThreads = 32 * kBQ / 16;
 constexpr int kStages = 2;            // the K/V ring
 
-template <int D>
+// Q and the K ring are DQK wide, the V ring DV wide
+template <int DQK, int DV>
 constexpr int smem_bytes() {
-  return (int)(sizeof(bf16) * (kBQ * D + 2 * kStages * kBK * D) +
+  return (int)(sizeof(bf16) * (kBQ * DQK + kStages * kBK * (DQK + DV)) +
                sizeof(int) * kStages * kBK);
 }
 
@@ -79,15 +84,15 @@ struct MmaArgs {
   int heads_total;  // head_key's heads of a batch row
 };
 
-template <int D, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out, MmaArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);           // [kBQ][D]
-  bf16* ks = qs + kBQ * D;                                // [kStages][kBK][D]
-  bf16* vs = ks + kStages * kBK * D;                      // [kStages][kBK][D]
-  int* ms = reinterpret_cast<int*>(vs + kStages * kBK * D);  // [kStages][kBK]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);            // [kBQ][DQK]
+  bf16* ks = qs + kBQ * DQK;                               // [kStages][kBK][DQK]
+  bf16* vs = ks + kStages * kBK * DQK;                     // [kStages][kBK][DV]
+  int* ms = reinterpret_cast<int*>(vs + kStages * kBK * DV);  // [kStages][kBK]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.x;
@@ -104,15 +109,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int tile, int stage) {
     const int k0 = tile * kBK;
-    load_rows<D, kBK, kThreads>(ks + stage * kBK * D, kb, a.k_ss, k0, a.s_len, tid);
-    load_rows<D, kBK, kThreads>(vs + stage * kBK * D, vb, a.v_ss, k0, a.s_len, tid);
+    load_rows<DQK, kBK, kThreads>(ks + stage * kBK * DQK, kb, a.k_ss, k0, a.s_len, tid);
+    load_rows<DV, kBK, kThreads>(vs + stage * kBK * DV, vb, a.v_ss, k0, a.s_len, tid);
     if (tid < kBK) {
       const bool ok = k0 + tid < a.s_len;
       cp_async4(smem_u32(ms + stage * kBK + tid), mb + (ok ? k0 + tid : 0), ok ? 4 : 0);
     }
   };
 
-  load_rows<D, kBQ, kThreads>(qs, qb, a.q_st, q0, a.t_len, tid);
+  load_rows<DQK, kBQ, kThreads>(qs, qb, a.q_st, q0, a.t_len, tid);
   cp_async_commit();  // group: Q
   if (n_tiles > 0) load_kv(0, 0);
   cp_async_commit();  // group: tile 0
@@ -120,10 +125,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // A fragments of this warp's 16 rows of q·sm_scale, rounded to bf16
-  uint32_t qf[D / 16][4];
+  uint32_t qf[DQK / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldsm_x4(smem_u32(qs + swz<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4))), qf[kk]);
+  for (int kk = 0; kk < DQK / 16; ++kk) {
+    ldsm_x4(smem_u32(qs + swz<DQK>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4))), qf[kk]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) qf[kk][i] = scale_round(qf[kk][i], a.sm_scale);
   }
@@ -132,9 +137,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // of every 8-wide tile of the accumulators
   const int g = lane >> 2, t4 = lane & 3;
   const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DV / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -144,8 +149,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();  // tile `it` has landed
     __syncthreads();
     const int k0 = it * kBK;
-    const bf16* kt = ks + stage * kBK * D;
-    const bf16* vt = vs + stage * kBK * D;
+    const bf16* kt = ks + stage * kBK * DQK;
+    const bf16* vt = vs + stage * kBK * DV;
     const int* mt = ms + stage * kBK;
 
     // S = Q·K^T: K rows are the columns of B, read without transpose
@@ -153,11 +158,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
 #pragma unroll
       for (int np = 0; np < kBK / 16; ++np) {
         uint32_t kf[4];
-        ldsm_x4(smem_u32(kt + swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+        ldsm_x4(smem_u32(kt + swz<DQK>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                      kk * 2 + ((lane >> 3) & 1))),
                 kf);
         mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
@@ -224,7 +229,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // O = alpha·O + P·V: V rows are the rows of B, read with ldmatrix.trans
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       acc[i][0] *= alpha_lo;
       acc[i][1] *= alpha_lo;
       acc[i][2] *= alpha_hi;
@@ -233,9 +238,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t vf[4];
-        ldsm_x4_trans(smem_u32(vt + swz<D>(kk * 16 + (lane & 15), dp * 2 + (lane >> 4))), vf);
+        ldsm_x4_trans(smem_u32(vt + swz<DV>(kk * 16 + (lane & 15), dp * 2 + (lane >> 4))), vf);
         mma_bf16(acc[2 * dp], pf[kk], vf[0], vf[1]);
         mma_bf16(acc[2 * dp + 1], pf[kk], vf[2], vf[3]);
       }
@@ -251,28 +256,28 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float lf_lo = fmaxf(l_lo, 1e-30f), lf_hi = fmaxf(l_hi, 1e-30f);
   const float inv_lo = 1.0f / lf_lo, inv_hi = 1.0f / lf_hi;
   if (row_lo < a.t_len) {
-    bf16* o = out + ((b * a.t_len + row_lo) * a.n_heads + h) * D + 2 * t4;
+    bf16* o = out + ((b * a.t_len + row_lo) * a.n_heads + h) * DV + 2 * t4;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<uint32_t*>(o + 8 * i) = pack_bf16(acc[i][0] * inv_lo, acc[i][1] * inv_lo);
     if (a.lse != nullptr && t4 == 0)
       a.lse[(b * a.n_heads + h) * a.t_len + row_lo] = m_lo + logf(lf_lo);
   }
   if (row_hi < a.t_len) {
-    bf16* o = out + ((b * a.t_len + row_hi) * a.n_heads + h) * D + 2 * t4;
+    bf16* o = out + ((b * a.t_len + row_hi) * a.n_heads + h) * DV + 2 * t4;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<uint32_t*>(o + 8 * i) = pack_bf16(acc[i][2] * inv_hi, acc[i][3] * inv_hi);
     if (a.lse != nullptr && t4 == 0)
       a.lse[(b * a.n_heads + h) * a.t_len + row_hi] = m_hi + logf(lf_hi);
   }
 }
 
-template <int D, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* out, int B, const MmaArgs& a,
            cudaStream_t stream) {
-  auto kernel = flash_fwd_mma_kernel<D, CAUSAL>;
-  constexpr int smem = smem_bytes<D>();
+  auto kernel = flash_fwd_mma_kernel<DQK, DV, CAUSAL>;
+  constexpr int smem = smem_bytes<DQK, DV>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -283,22 +288,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, const 
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B, int causal,
-             const MmaArgs& a, cudaStream_t stream) {
-  return causal ? launch<D, true>(q, k, v, out, B, a, stream)
-                : launch<D, false>(q, k, v, out, B, a, stream);
-}
-
 }  // namespace
 
 // aat_flash_fwd_tf32x3's arguments; q, k, v and out are bf16, with
 // strides in multiples of 8 elements and 16-byte-aligned starts (the wrapper
-// checks). Returns cudaGetLastError() after the launch; 1
-// (cudaErrorInvalidValue) for a head width the kernel was not built for.
+// checks); D is the width of q and k, DV that of v and out. Returns
+// cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue) for widths
+// the kernel was not built for (flash_common.cuh dispatch_mma).
 extern "C" int aat_flash_fwd_mma(const void* q, const void* k, const void* v,
                                  const int* key_mask, void* out, float* lse, int B, int T_len,
-                                 int S, int H, int KVH, int D, long long q_sb, long long q_st,
+                                 int S, int H, int KVH, int D, int DV, long long q_sb,
+                                 long long q_st,
                                  long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                  long long v_sb, long long v_ss, long long v_sh, float sm_scale,
                                  int causal, int pack_len, int seed, float rate, float inv_keep,
@@ -307,7 +307,8 @@ extern "C" int aat_flash_fwd_mma(const void* q, const void* k, const void* v,
   const MmaArgs a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                   v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),
                   aat_flash::keep_min(rate), inv_keep, heads_total};
-  if (D == 64) return launch_d<64>(q, k, v, out, B, causal, a, stream);
-  if (D == 128) return launch_d<128>(q, k, v, out, B, causal, a, stream);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_mma(D, DV, causal, [&](auto variant) {
+    using V = decltype(variant);
+    return launch<V::dqk, V::dv, V::causal>(q, k, v, out, B, a, stream);
+  });
 }

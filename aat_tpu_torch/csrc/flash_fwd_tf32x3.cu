@@ -338,14 +338,16 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B, int 
 // q, k, v and out are f32, with strides in multiples of 4 elements and
 // 16-byte-aligned starts (the wrapper checks). Returns cudaGetLastError()
 // after the launch; 1 (cudaErrorInvalidValue) for a head width the kernel
-// was not built for. `lse` may be null.
+// was not built for, or a value width DV other than D. `lse` may be null.
 extern "C" int aat_flash_fwd_tf32x3(const void* q, const void* k, const void* v,
                                     const int* key_mask, void* out, float* lse, int B, int T_len,
-                                    int S, int H, int KVH, int D, long long q_sb, long long q_st,
+                                    int S, int H, int KVH, int D, int DV, long long q_sb,
+                                    long long q_st,
                                     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                     long long v_sb, long long v_ss, long long v_sh, float sm_scale,
                                     int causal, int pack_len, int seed, float rate, float inv_keep,
                                     int heads_total, int head_offset, cudaStream_t stream) {
+  if (DV != D) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0 || H == 0) return 0;
   const Tf32Args a{key_mask, lse, T_len, S, H, KVH, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                    v_sb, v_ss, v_sh, sm_scale, pack_len, aat_flash::offset_seed(seed, head_offset),

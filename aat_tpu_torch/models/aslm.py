@@ -37,8 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aat_tpu_torch.models import decoders
 from aat_tpu_torch.models import hubert as hub
-from aat_tpu_torch.models import llama as llm
 from aat_tpu_torch.ops.dropout import dropout, fold_seed
 from aat_tpu_torch.ops.ragged import masked_mean
 from aat_tpu_torch.utils.port import to_tensors
@@ -195,7 +195,7 @@ class AslmModel:
     is a ``HubertConfig``, or an ``EfficientNetConfig`` with
     ``audio_encoder_type="efficient_net"``."""
 
-    def __init__(self, config: AslmConfig, audio_encoder_config, lm_config: llm.LlamaConfig,
+    def __init__(self, config: AslmConfig, audio_encoder_config, lm_config,
                  audio_encoder_type: str = "hubert"):
         self.config = config
         self.audio_encoder_config = audio_encoder_config
@@ -217,7 +217,7 @@ class AslmModel:
         return {
             "audio_encoder": encoder,
             "adapter": init_aslm_params(seed + 1, self.config, device),
-            "lm_decoder": llm.init_llama_params(seed + 2, self.lm_config, device),
+            "lm_decoder": decoders.init_params(seed + 2, self.lm_config, device),
         }
 
     def encode_audio(self, params: dict, waveforms: torch.Tensor,
@@ -336,7 +336,7 @@ class AslmModel:
         }
 
     def encode_text(self, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-        return llm.embed_tokens(params["lm_decoder"], input_ids)
+        return decoders.embed_tokens(params["lm_decoder"], input_ids)
 
     def forward(self, params: dict, inputs_embeds: torch.Tensor,
                 attention_mask: torch.Tensor, pack: int = 1,
@@ -354,13 +354,13 @@ class AslmModel:
             packed = inputs_embeds.reshape(b // pack, pack * t, h)
             mask = attention_mask.reshape(b // pack, pack * t)
             positions = torch.arange(t, device=inputs_embeds.device).repeat(pack)[None, :]
-            logits, _ = llm.llama_forward(
+            logits, _ = decoders.forward(
                 params["lm_decoder"], self.lm_config, inputs_embeds=packed,
                 attention_mask=mask, positions=positions.expand(b // pack, pack * t),
                 pack_len=t, logit_caption_len=caption_len, mesh=self.mesh,
                 microbatches=self.pp_microbatches)
             return logits.reshape(b, out_t or t, logits.shape[-1])
-        logits, _ = llm.llama_forward(
+        logits, _ = decoders.forward(
             params["lm_decoder"], self.lm_config, inputs_embeds=inputs_embeds,
             attention_mask=attention_mask, logit_caption_len=caption_len, mesh=self.mesh,
             microbatches=self.pp_microbatches)

@@ -1,6 +1,6 @@
 """Model construction (counterpart of ``aat_tpu/models/build.py``): the
-audio encoder (HuBERT, wav2vec2 or EfficientNet-b0) and the Llama-family
-LM decoder that a
+audio encoder (HuBERT, wav2vec2 or EfficientNet-b0) and the LM decoder
+(Llama family, or DeepSeek-V2 through ``models/decoders``) that a
 :class:`~aat_tpu_torch.training.config.TrainingConfig` names, the
 tokenizer, the composed ASLM, and :func:`load_pretrained` of an export.
 
@@ -36,6 +36,8 @@ import json
 import logging
 import os
 
+from aat_tpu_torch.models import decoders
+from aat_tpu_torch.models import deepseek_v2 as dsv2
 from aat_tpu_torch.models import hubert as hub
 from aat_tpu_torch.models import llama as llm
 from aat_tpu_torch.models.aslm import AslmConfig, AslmModel, PoolingConfig, init_aslm_params
@@ -83,17 +85,26 @@ def build_audio_encoder(config: TrainingConfig, pretrained: bool = True, device=
 
 
 def build_lm_decoder(config: TrainingConfig, pretrained: bool = True, device=None):
-    """→ (params, LlamaConfig): read from the local checkpoint directory
-    ``lm_pretrained_model`` when ``pretrained``, else random Qwen-1.5-1.8B
-    when it names Qwen and SmolLM-135M otherwise."""
+    """→ (params, decoder config): read from the local checkpoint directory
+    ``lm_pretrained_model`` when ``pretrained`` (a ``config.json`` of
+    ``model_type`` deepseek_v2 through :func:`~aat_tpu_torch.utils.port.port_deepseek_v2`,
+    every routed expert held; any other through ``port_llama``), else random
+    DeepSeek-V2-Lite when it names ``deepseek-v2-lite``, Qwen-1.5-1.8B when
+    it names Qwen and SmolLM-135M otherwise."""
     if pretrained:
         path = port.require_local_dir(config.lm_pretrained_model, "LM checkpoint")
         device = resolve_device(device)
-        params, cfg = port.port_llama(path)
+        with open(os.path.join(path, "config.json")) as f:
+            kind = json.load(f).get("model_type")
+        reader = port.port_deepseek_v2 if kind == "deepseek_v2" else port.port_llama
+        params, cfg = reader(path)
         return _on(params, device), dataclasses.replace(cfg, attention_impl="pallas")
     name = config.lm_pretrained_model.lower()
-    cfg = llm.qwen15_18b_config() if "qwen" in name else llm.smollm_135m_config()
-    return llm.init_llama_params(DECODER_KEY, cfg, resolve_device(device)), cfg
+    if "deepseek-v2-lite" in name:
+        cfg = dsv2.deepseek_v2_lite_config()
+    else:
+        cfg = llm.qwen15_18b_config() if "qwen" in name else llm.smollm_135m_config()
+    return decoders.init_params(DECODER_KEY, cfg, resolve_device(device)), cfg
 
 
 def build_tokenizer(config: TrainingConfig):
@@ -119,8 +130,8 @@ def model_config_dict(model: AslmModel, config: TrainingConfig, saved_subtrees) 
     """The export's ``config.json``: every config needed to rebuild the
     model plus the checkpoints it came from, under the JAX package's keys
     (``aat_tpu/models/build.py`` ``model_config_dict``; the nested configs
-    carry the port's fields)."""
-    return {
+    carry the port's fields; a DeepSeek-V2 decoder adds ``lm_decoder_type``)."""
+    desc = {
         "model_type": "aslm",
         "aslm": dataclasses.asdict(model.config),
         "audio_encoder_type": model.audio_encoder_type,
@@ -130,6 +141,9 @@ def model_config_dict(model: AslmModel, config: TrainingConfig, saved_subtrees) 
         "lm_pretrained_model": config.lm_pretrained_model,
         "saved_subtrees": list(saved_subtrees),
     }
+    if decoders.decoder_type(model.lm_config) != decoders.LLAMA:
+        desc["lm_decoder_type"] = decoders.decoder_type(model.lm_config)
+    return desc
 
 
 def build_model(config: TrainingConfig, pretrained: bool = True,
@@ -183,8 +197,9 @@ def load_pretrained(path: str, pretrained_missing: bool = False, seed: int = 0, 
         enc_cfg = EfficientNetConfig(**_detuple(desc["audio_encoder_config"]))
     else:
         enc_cfg = hub.HubertConfig(**_detuple(desc["audio_encoder_config"]))
-    model = AslmModel(AslmConfig(**aslm_kw), enc_cfg,
-                      llm.LlamaConfig(**_detuple(desc["lm_config"])), audio_encoder_type=enc_type)
+    lm_cfg = decoders.config_from_dict(desc.get("lm_decoder_type", decoders.LLAMA),
+                                       desc["lm_config"])
+    model = AslmModel(AslmConfig(**aslm_kw), enc_cfg, lm_cfg, audio_encoder_type=enc_type)
     saved = set(desc["saved_subtrees"])
     missing = {"audio_encoder", "adapter", "lm_decoder"} - saved
     device = resolve_device(device)
@@ -195,7 +210,12 @@ def load_pretrained(path: str, pretrained_missing: bool = False, seed: int = 0, 
                             lm_pretrained_model=desc["lm_pretrained_model"])
         if "audio_encoder" in missing:
             params["audio_encoder"], _ = build_audio_encoder(tc, True, device)
-        if "lm_decoder" in missing:
+        if "lm_decoder" in missing and decoders.decoder_type(lm_cfg) == decoders.DEEPSEEK_V2:
+            # the export's share of the routed experts
+            path_lm = port.require_local_dir(tc.lm_pretrained_model, "LM checkpoint")
+            params["lm_decoder"] = _on(port.port_deepseek_v2(
+                path_lm, lm_cfg.experts_held, lm_cfg.expert_offset)[0], device)
+        elif "lm_decoder" in missing:
             params["lm_decoder"], _ = build_lm_decoder(tc, True, device)
     elif missing:
         logger.warning("export %s lacks %s; using random init (pass pretrained_missing=True "

@@ -191,7 +191,7 @@ def _plain_dkv(q, k, v, dout, ds, p_v, qs):
     dv = torch.einsum("bhqk,bqhd->bkhd", p_v.to(dout.dtype).float(), dout.float())
     rep = h // kvh
     dk = dk.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype)
-    dv = dv.reshape(b, s, kvh, rep, d).sum(3).to(v.dtype)
+    dv = dv.reshape(b, s, kvh, rep, v.shape[-1]).sum(3).to(v.dtype)
     return dk, dv
 
 
@@ -233,24 +233,33 @@ def flash_backward_dkv_reference(q, k, v, key_mask, out, lse, dout, sm_scale: fl
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(q, k, v, key_mask):
+# (q/k width, v width) the kernels are built for; latent attention's (192,
+# 128) in bf16 and causal only
+WIDTHS = ((64, 64), (128, 128), (192, 128))
+
+
+def _check_operands(q, k, v, key_mask, causal):
     """Check the operands of a flash launch; returns the key mask as
     contiguous int32. Every flash kernel copies q/k/v rows in 16-byte
     ``cp.async`` chunks, so the strides must be multiples of 16 bytes (8
     bf16, 4 f32 elements) and the starts 16-byte aligned; anything else
-    raises, with no fallback."""
+    raises, with no fallback. q and k share a width D, v has DV
+    (``WIDTHS``)."""
     kernels.check_cuda(q, "flash")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash kernel takes f32 or bf16, got {q.dtype}")
     b, t, h, d = q.shape
     _, s, kvh, _ = k.shape
-    if (k.shape != (b, s, kvh, d) or v.shape != k.shape
+    dv = v.shape[-1]
+    if (k.shape != (b, s, kvh, d) or v.shape != (b, s, kvh, dv)
             or tuple(key_mask.shape) != (b, s)):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} mask {tuple(key_mask.shape)}")
-    if d not in (64, 128) or h % kvh:
-        raise ValueError(f"flash kernel takes D in (64, 128) and H % KVH == 0, "
-                         f"got D={d} H={h} KVH={kvh}")
+    if (d, dv) not in WIDTHS or h % kvh:
+        raise ValueError(f"flash kernel takes (D, DV) in {WIDTHS} and H % KVH == 0, "
+                         f"got D={d} DV={dv} H={h} KVH={kvh}")
+    if d != dv and (q.dtype != torch.bfloat16 or not causal):
+        raise ValueError(f"flash kernel takes (D, DV) = ({d}, {dv}) in bf16 and causal only")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     label = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -265,6 +274,10 @@ def _check_operands(q, k, v, key_mask):
         if x.data_ptr() % 16:
             raise ValueError(f"{label} {name} must start on a 16-byte boundary")
     return key_mask.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _widths(q, v):
+    return q.shape[-1], v.shape[-1]
 
 
 def _strides(q, k, v):
@@ -283,16 +296,16 @@ def _dropout_args(dropout_rate: float, dropout_seed: int, h: int, head_keys):
 
 def _launch_forward(q, k, v, key_mask, sm_scale, causal, dropout_rate, dropout_seed,
                     pack_len, need_lse, head_keys):
-    mask = _check_operands(q, k, v, key_mask)
+    mask = _check_operands(q, k, v, key_mask, causal)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, t, h, v.shape[-1]), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if need_lse else None)
     kernels.launch(
         "aat_flash_fwd_mma" if q.dtype == torch.bfloat16 else "aat_flash_fwd_tf32x3",
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), lse.data_ptr() if need_lse else None, b, t, s, h, kvh, d,
+        out.data_ptr(), lse.data_ptr() if need_lse else None, b, t, s, h, kvh, *_widths(q, v),
         *_strides(q, k, v),
         float(sm_scale), int(causal), int(pack_len or 0),
         *_dropout_args(dropout_rate, dropout_seed, h, head_keys))
@@ -325,13 +338,14 @@ def flash_forward_causal_kernel(q, k, v, key_mask, sm_scale: float,
     return result
 
 
-def _backward_operands(q, k, v, key_mask, out, lse, dout):
-    mask = _check_operands(q, k, v, key_mask)
+def _backward_operands(q, k, v, key_mask, out, lse, dout, causal):
+    mask = _check_operands(q, k, v, key_mask, causal)
     b, t, h, _ = q.shape
     out = out.contiguous()
     dout = dout.to(q.dtype).contiguous()
     lse = lse.contiguous()
-    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, t):
+    want = (b, t, h, v.shape[-1])
+    if out.shape != want or dout.shape != want or lse.shape != (b, h, t):
         raise ValueError(f"out {tuple(out.shape)} dout {tuple(dout.shape)} "
                          f"lse {tuple(lse.shape)} do not fit q {tuple(q.shape)}")
     # the kernels copy dout rows in 16-byte chunks, and the bf16 ones out's
@@ -347,9 +361,9 @@ def _backward_args(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, pack_l
                    head_keys):
     """The C entries' arguments after the output pointers, up to the
     stream, which :func:`kernels.launch` appends."""
-    b, t, h, d = q.shape
+    b, t, h, _ = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    return (b, t, s, h, kvh, d, *_strides(q, k, v),
+    return (b, t, s, h, kvh, *_widths(q, v), *_strides(q, k, v),
             float(sm_scale), int(causal), int(pack_len or 0),
             *_dropout_args(dropout_rate, dropout_seed, h, head_keys))
 
@@ -358,8 +372,8 @@ def _launch_backward_dq(q, k, v, key_mask, out, lse, dout, sm_scale, causal, dro
                         dropout_seed, pack_len, head_keys):
     """``aat_flash_bwd_dq_mma`` in bf16, ``aat_flash_bwd_dq_tf32x3`` in f32
     → dq ``[B, T, H, D]`` in q's dtype."""
-    mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
-    dq = torch.empty_like(out)
+    mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     kernels.launch(
         "aat_flash_bwd_dq_mma" if q.dtype == torch.bfloat16 else "aat_flash_bwd_dq_tf32x3",
         q.device,
@@ -377,11 +391,11 @@ def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
     q-head in f32, and the q-heads that share a kv head (GQA) are summed
     here in f32. Either entry fills a ``[B, H, T]`` f32 scratch with delta =
     rowsum(dout·out) first."""
-    mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout)
+    mask, out, lse, dout = _backward_operands(q, k, v, key_mask, out, lse, dout, causal)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     dk_rep = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
-    dv_rep = torch.empty_like(dk_rep)
+    dv_rep = torch.empty((b, s, h, v.shape[-1]), dtype=torch.float32, device=q.device)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     kernels.launch(
         "aat_flash_bwd_dkv_mma" if q.dtype == torch.bfloat16 else "aat_flash_bwd_dkv_tf32x3",
@@ -392,7 +406,7 @@ def _launch_backward_dkv(q, k, v, key_mask, out, lse, dout, sm_scale, causal,
                         head_keys))
     rep = h // kvh
     dk = dk_rep.reshape(b, s, kvh, rep, d).sum(3).to(k.dtype)
-    dv = dv_rep.reshape(b, s, kvh, rep, d).sum(3).to(v.dtype)
+    dv = dv_rep.reshape(b, s, kvh, rep, v.shape[-1]).sum(3).to(v.dtype)
     return dk, dv
 
 
@@ -523,8 +537,9 @@ def flash_attention_bthd(q, k, v, key_mask, causal: bool = False,
                          dropout_seed: Optional[int] = None,
                          pack_len: Optional[int] = None,
                          head_keys: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """Flash attention: q ``[B, T, H, D]``, k/v ``[B, S, KVH, D]``, key_mask
-    ``[B, S]`` → ``[B, T, H, D]`` in q's dtype. Dropout applies only with a
+    """Flash attention: q ``[B, T, H, D]``, k ``[B, S, KVH, D]``, v ``[B, S,
+    KVH, DV]``, key_mask ``[B, S]`` → ``[B, T, H, DV]`` in q's dtype (DV = D
+    but for latent attention's causal (192, 128), ``WIDTHS``). Dropout applies only with a
     seed (no seed: eval mode). ``pack_len``: rows are packed utterances of
     that many tokens, attention blocked across them (causal only).
     ``head_keys``: the dropout hash's ``(heads_total, head_offset)``

@@ -25,25 +25,26 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
-_FLASH_FWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+_FLASH_FWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
               _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
               _F, _I, _I, _I, _F, _F, _I, _I, _P]
 _DROPOUT = [_P, _P, _I, _I] + [_I64] * 12 + [_I, _I, _F, _P]
-_FLASH_BWD_DQ = [_P] * 8 + [_I] * 6 + [_I64] * 9 + [_F, _I, _I, _I, _F, _F, _I, _I, _P]
+_FLASH_BWD_DQ = [_P] * 8 + [_I] * 7 + [_I64] * 9 + [_F, _I, _I, _I, _F, _F, _I, _I, _P]
 
 # C entry points: name -> argtypes (every one returns cudaGetLastError()).
 _SIGNATURES = {
     # frames, basis, filters, band, out, n_batch, frames per batch row, batch
     # stride, frame stride, stream
     "aat_mel_forward": [_P, _P, _P, _P, _P, _I, _I, _I64, _I64, _P],
-    # q, k, v, key_mask, out, lse (or null), B, T, S, H, KVH, D, q strides
+    # q, k, v, key_mask, out, lse (or null), B, T, S, H, KVH, D (q and k), DV
+    # (v and out; DV == D but for the bf16 kernels' (192, 128)), q strides
     # (b, t, h), k strides (b, s, h), v strides (b, s, h), sm_scale, causal,
     # pack_len, seed, rate, inv_keep, heads_total, head_offset (the dropout
     # hash's head keys), stream: both on the tensor cores, f32 as 3xTF32
     # (flash_fwd_tf32x3.cu) and bf16 (flash_fwd_mma.cu)
     "aat_flash_fwd_tf32x3": _FLASH_FWD,
     "aat_flash_fwd_mma": _FLASH_FWD,
-    # q, k, v, key_mask, out, dout, lse, dq, B, T, S, H, KVH, D, q/k/v
+    # q, k, v, key_mask, out, dout, lse, dq, B, T, S, H, KVH, D, DV, q/k/v
     # strides as above, sm_scale, causal, pack_len, seed, rate, inv_keep,
     # heads_total, head_offset, stream: both on the tensor cores, f32 as
     # 3xTF32 (flash_bwd_tf32x3.cu) and bf16 (flash_bwd_mma.cu)

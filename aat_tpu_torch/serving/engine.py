@@ -21,7 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from aat_tpu_torch.models import llama as llm
+from aat_tpu_torch.models import decoders
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +54,7 @@ class EngineState:
 class DecodeEngine:
     """Host-side coordinator; all state lives on ``params``' device."""
 
-    def __init__(self, params: dict, lm_config: llm.LlamaConfig, config: EngineConfig):
+    def __init__(self, params: dict, lm_config, config: EngineConfig):
         self.params = params
         self.lm_config = lm_config
         self.config = config
@@ -64,7 +64,7 @@ class DecodeEngine:
         cdtype = torch.bfloat16 if config.cache_dtype == "bfloat16" else torch.float32
         s, v, dev = config.max_slots, lm_config.vocab_size, self.device
         self.state = EngineState(
-            caches=llm.init_kv_caches(lm_config, s, config.cache_len, cdtype, dev),
+            caches=decoders.init_kv_caches(lm_config, s, config.cache_len, cdtype, dev),
             cache_mask=torch.zeros((s, config.cache_len), dtype=torch.int32, device=dev),
             lengths=torch.zeros((s,), dtype=torch.int64, device=dev),
             n_gen=torch.zeros((s,), dtype=torch.int64, device=dev),
@@ -97,12 +97,12 @@ class DecodeEngine:
         them into ``slots``."""
         cfg, st = self.config, self.state
         k, p0 = embeds.shape[0], cfg.max_prefill_len
-        row_caches = llm.init_kv_caches(self.lm_config, k, cfg.cache_len,
-                                        st.caches[0][0].dtype, self.device)
+        row_caches = decoders.init_kv_caches(self.lm_config, k, cfg.cache_len,
+                                             st.caches[0][0].dtype, self.device)
         row_mask = torch.zeros((k, cfg.cache_len), dtype=torch.int32, device=self.device)
         row_mask[:, :p0] = mask
         positions = torch.clamp(torch.cumsum(mask, dim=-1) - 1, min=0)
-        logits, row_caches = llm.llama_forward(
+        logits, row_caches = decoders.forward(
             self.params, self.lm_config, inputs_embeds=embeds,
             attention_mask=row_mask, positions=positions,
             kv_caches=row_caches, cache_index=0)
@@ -172,8 +172,8 @@ class DecodeEngine:
         st.cache_mask[bidx, write_pos] = torch.maximum(
             st.cache_mask[bidx, write_pos], st.active.to(torch.int32))
         positions = (st.lengths + st.n_gen)[:, None]
-        embeds = llm.embed_tokens(self.params, token)[:, None, :].to(st.caches[0][0].dtype)
-        logits_next, _ = llm.llama_forward(
+        embeds = decoders.embed_tokens(self.params, token)[:, None, :].to(st.caches[0][0].dtype)
+        logits_next, _ = decoders.forward(
             self.params, self.lm_config, inputs_embeds=embeds,
             attention_mask=st.cache_mask, positions=positions,
             kv_caches=st.caches, cache_index=write_pos)

@@ -4,7 +4,8 @@
 settings available (beam 3, repetition penalty 2.5, no-repeat-4-gram,
 early stopping, pad = forced eos = eos).
 
-Both run on ``models/llama.llama_forward``'s KV-cache route, with the cache
+Both run on the decoder's KV-cache route (``models/decoders.forward``:
+Llama or DeepSeek-V2), with the cache
 on the embeds' device and dtype, as plain Python loops over the decode
 steps. Per-row ragged prompt lengths are handled by RoPE positions and
 attention masking, as in JAX.
@@ -24,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from aat_tpu_torch.models import llama as llm
+from aat_tpu_torch.models import decoders
 
 NEG_INF = -1e9  # the f32 sentinel of unused beams and pool slots (exact in f32)
 
@@ -92,14 +93,14 @@ def _prefill(params, lm_config, inputs_embeds, attention_mask, cache_len):
     prompt lengths [B])."""
     b, t0, _ = inputs_embeds.shape
     dev = inputs_embeds.device
-    caches = llm.init_kv_caches(lm_config, b, cache_len, inputs_embeds.dtype, dev)
+    caches = decoders.init_kv_caches(lm_config, b, cache_len, inputs_embeds.dtype, dev)
     attention_mask = attention_mask.to(device=dev, dtype=torch.int32)
     cache_mask = torch.zeros((b, cache_len), dtype=torch.int32, device=dev)
     cache_mask[:, :t0] = attention_mask
     positions = torch.clamp_min(torch.cumsum(attention_mask, dim=-1) - 1, 0)
-    logits, caches = llm.llama_forward(params, lm_config, inputs_embeds=inputs_embeds,
-                                       attention_mask=cache_mask, positions=positions,
-                                       kv_caches=caches, cache_index=0)
+    logits, caches = decoders.forward(params, lm_config, inputs_embeds=inputs_embeds,
+                                      attention_mask=cache_mask, positions=positions,
+                                      kv_caches=caches, cache_index=0)
     lengths = attention_mask.sum(-1)
     last_logits = logits[torch.arange(b, device=dev), lengths - 1]
     return last_logits, caches, cache_mask, lengths
@@ -108,15 +109,15 @@ def _prefill(params, lm_config, inputs_embeds, attention_mask, cache_len):
 def _decode_step(params, lm_config, token, caches, cache_mask, positions, slot, dtype):
     """Feed one token per row at cache slot ``slot`` → next logits [B, V]."""
     cache_mask[:, slot] = 1
-    embeds = llm.embed_tokens(params, token)[:, None, :].to(dtype)
-    logits, caches = llm.llama_forward(params, lm_config, inputs_embeds=embeds,
-                                       attention_mask=cache_mask, positions=positions[:, None],
-                                       kv_caches=caches, cache_index=slot)
+    embeds = decoders.embed_tokens(params, token)[:, None, :].to(dtype)
+    logits, caches = decoders.forward(params, lm_config, inputs_embeds=embeds,
+                                      attention_mask=cache_mask, positions=positions[:, None],
+                                      kv_caches=caches, cache_index=slot)
     return logits[:, 0, :], caches
 
 
 @torch.no_grad()
-def greedy_generate(params: dict, lm_config: llm.LlamaConfig, inputs_embeds: torch.Tensor,
+def greedy_generate(params: dict, lm_config, inputs_embeds: torch.Tensor,
                     attention_mask: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
     """Greedy decode → [B, max_new_tokens] ids (pad after eos)."""
     b, t0, _ = inputs_embeds.shape
@@ -142,7 +143,7 @@ def greedy_generate(params: dict, lm_config: llm.LlamaConfig, inputs_embeds: tor
 
 
 @torch.no_grad()
-def beam_generate(params: dict, lm_config: llm.LlamaConfig, inputs_embeds: torch.Tensor,
+def beam_generate(params: dict, lm_config, inputs_embeds: torch.Tensor,
                   attention_mask: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
     """Beam search → [B, max_new_tokens] ids of the best finished beam.
 
@@ -244,7 +245,7 @@ def beam_generate(params: dict, lm_config: llm.LlamaConfig, inputs_embeds: torch
     return pool_seqs[:, 0, :]
 
 
-def generate(params: dict, lm_config: llm.LlamaConfig, inputs_embeds: torch.Tensor,
+def generate(params: dict, lm_config, inputs_embeds: torch.Tensor,
              attention_mask: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
     if config.num_beams <= 1:
         return greedy_generate(params, lm_config, inputs_embeds, attention_mask, config)

@@ -92,6 +92,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from aat_tpu_torch.models import decoders
 from aat_tpu_torch.models import hubert as hub
 from aat_tpu_torch.models import llama as llm
 from aat_tpu_torch.models.aslm import AslmModel
@@ -148,6 +149,13 @@ class AATTrainer:
         self.model = model
         self.config = config
         pp = mesh.size("pp") if mesh is not None else config.mesh_pp
+        if decoders.decoder_type(model.lm_config) == decoders.DEEPSEEK_V2:
+            sizes = {axis: mesh.size(axis) if mesh is not None else getattr(config, f"mesh_{axis}")
+                     for axis in ("tp", "pp", "sp")}
+            refused = [f"{axis}={n}" for axis, n in sizes.items() if n > 1]
+            if refused:
+                raise ValueError(f"the DeepSeek-V2 decoder trains under dp and fsdp only; "
+                                 f"{', '.join(refused)} is not supported")
         if pp > 1:
             for cfg in (model.audio_encoder_config, model.lm_config):
                 if isinstance(cfg, (hub.HubertConfig, llm.LlamaConfig)):

@@ -76,6 +76,30 @@ def llama_forward_flops(cfg, n_rows: int, seq: int,
     return total
 
 
+def deepseek_v2_forward_flops(cfg, n_rows: int, seq: int, with_lm_head: bool = True) -> float:
+    """One DeepSeek-V2 decoder forward over [n_rows, seq] embeddings: MLA's
+    five projections and its scores (q·k 192 wide, p·v 128, the dense cost),
+    the dense layers' SwiGLU, and in each expert layer the router, the
+    shared experts and the held experts' share of the routed pairs
+    (``seq · top-k · held / experts``, routing taken as even)."""
+    h, nh = cfg.hidden_size, cfg.num_attention_heads
+    dqk, dv, rank = cfg.qk_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    attn = 2.0 * seq * (h * nh * dqk + h * (rank + cfg.qk_rope_head_dim)
+                        + rank * nh * (cfg.qk_nope_head_dim + dv) + nh * dv * h)
+    attn += 2.0 * seq * seq * nh * (dqk + dv)
+    w = cfg.moe_intermediate_size
+    pairs = seq * cfg.num_experts_per_tok * cfg.experts_held / cfg.n_routed_experts
+    moe = 2.0 * seq * h * cfg.n_routed_experts + 3 * 2.0 * h * w * (
+        seq * cfg.n_shared_experts + pairs)
+    dense = 3 * 2.0 * seq * h * cfg.intermediate_size
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_hidden_layers))
+    total = n_rows * (cfg.num_hidden_layers * attn + n_moe * moe
+                      + (cfg.num_hidden_layers - n_moe) * dense)
+    if with_lm_head:
+        total += 2.0 * n_rows * seq * h * cfg.vocab_size
+    return total
+
+
 def projection_flops(aslm_cfg, n_rows: int, frames_per_row: int) -> float:
     """Adapter projection forward (linear path: reshape-MLP;
     transformer_encoder path: the 4-layer pooling encoder)."""
@@ -131,7 +155,10 @@ def aslm_train_step_flops(
         audio_tokens = enc_frames // max(
             1, aslm_cfg.audio_encoder_embeddings_seq_len)
     lm_seq = audio_tokens + 2 + text_len  # [aBOS | audio | aEOS | text]
-    lm_fwd = llama_forward_flops(lm_cfg, batch_size, lm_seq)
+    from aat_tpu_torch.models import decoders
+
+    lm_fwd = (deepseek_v2_forward_flops if decoders.decoder_type(lm_cfg) == decoders.DEEPSEEK_V2
+              else llama_forward_flops)(lm_cfg, batch_size, lm_seq)
 
     enc_mult = 3.0 if train_audio_encoder else 1.0
     proj_mult = 3.0  # the adapter always trains

@@ -18,7 +18,8 @@ across layouts (``AATTrainer.restore_checkpoint``).
 
 It also reads Hugging Face checkpoints from a local directory into the
 port's trees (the counterparts of the JAX package's ``port_hubert``,
-``port_llama`` and ``port_pooling_encoder``). The JAX readers go through a
+``port_llama`` and ``port_pooling_encoder``; :func:`port_deepseek_v2` has
+no JAX counterpart). The JAX readers go through a
 live ``transformers`` module; these parse the files themselves
 (``config.json``, ``model.safetensors`` or its sharded index, or
 ``pytorch_model.bin``), apply the ``transformers`` class defaults for the
@@ -623,6 +624,98 @@ def port_llama(checkpoint: HfCheckpoint):
                     "up": w.dense(f"{base}.mlp.up_proj", False),
                     "down": w.dense(f"{base}.mlp.down_proj", False)},
         })
+    if not config.tie_word_embeddings:
+        params["lm_head"] = top.dense("lm_head", False)
+    return params, config
+
+
+def deepseek_v2_config_from_hf(config: dict, experts_held: Optional[int] = None,
+                               expert_offset: int = 0):
+    """DeepseekV2Config of a DeepSeek-V2 ``config.json`` dict (the keys of
+    the published file; ``rope_scaling`` of type yarn), holding routed
+    experts ``[expert_offset, expert_offset + experts_held)`` (all of them
+    when ``experts_held`` is None). Refuses what the port does not compute:
+    a q LoRA, grouped top-k routing, sigmoid scores, a non-SiLU activation
+    or k/v head counts other than the query heads'."""
+    from aat_tpu_torch.models.deepseek_v2 import DeepseekV2Config
+
+    refused = {"q_lora_rank": None, "topk_method": "greedy", "scoring_func": "softmax",
+               "hidden_act": "silu"}
+    for key, want in refused.items():
+        if config.get(key, want) != want:
+            raise NotImplementedError(f"DeepSeek-V2 with {key}={config[key]!r} is not supported")
+    if config.get("num_key_value_heads", config["num_attention_heads"]) != \
+            config["num_attention_heads"]:
+        raise NotImplementedError("DeepSeek-V2 with num_key_value_heads other than "
+                                  "num_attention_heads is not supported")
+    rope = config.get("rope_scaling") or {}
+    if rope and rope.get("type", rope.get("rope_type")) != "yarn":
+        raise NotImplementedError(f"rope_scaling {rope!r} is not supported (yarn only)")
+    n_routed = config["n_routed_experts"]
+    held = n_routed if experts_held is None else experts_held
+    if expert_offset < 0 or expert_offset + held > n_routed:
+        raise ValueError(f"experts [{expert_offset}, {expert_offset + held}) do not lie among "
+                         f"{n_routed}")
+    keys = ("vocab_size", "hidden_size", "intermediate_size", "moe_intermediate_size",
+            "num_hidden_layers", "num_attention_heads", "n_shared_experts", "n_routed_experts",
+            "num_experts_per_tok", "routed_scaling_factor", "norm_topk_prob",
+            "first_k_dense_replace", "moe_layer_freq", "kv_lora_rank", "qk_nope_head_dim",
+            "qk_rope_head_dim", "v_head_dim", "rms_norm_eps", "rope_theta",
+            "max_position_embeddings", "tie_word_embeddings")
+    fields = {k: config[k] for k in keys if config.get(k) is not None}
+    if rope:
+        fields.update(rope_factor=float(rope["factor"]),
+                      rope_original_max_position_embeddings=rope[
+                          "original_max_position_embeddings"],
+                      rope_beta_fast=float(rope.get("beta_fast", 32)),
+                      rope_beta_slow=float(rope.get("beta_slow", 1)),
+                      rope_mscale=float(rope.get("mscale", 1)),
+                      rope_mscale_all_dim=float(rope.get("mscale_all_dim", 0)))
+    else:
+        fields.update(rope_factor=1.0, rope_mscale=1.0, rope_mscale_all_dim=0.0)
+    return DeepseekV2Config(**fields, experts_held=held, expert_offset=expert_offset)
+
+
+def port_deepseek_v2(checkpoint: HfCheckpoint, experts_held: Optional[int] = None,
+                     expert_offset: int = 0):
+    """A ``DeepseekV2ForCausalLM`` checkpoint (``q_proj``,
+    ``kv_a_proj_with_mqa``, ``kv_a_layernorm``, ``kv_b_proj``, ``o_proj``;
+    ``mlp.gate.weight``, ``mlp.experts.{e}.*``, ``mlp.shared_experts.*`` or a
+    dense ``mlp``) → ``(params, DeepseekV2Config)``, with only the held
+    routed experts read (:func:`deepseek_v2_config_from_hf`), stacked
+    ``[held, in, out]``."""
+    config_dict, w, top = _weights(checkpoint, "model", "embed_tokens.weight")
+    config = deepseek_v2_config_from_hf(config_dict, experts_held, expert_offset)
+
+    def mlp(base):
+        return {"gate": w.dense(f"{base}.gate_proj", False),
+                "up": w.dense(f"{base}.up_proj", False),
+                "down": w.dense(f"{base}.down_proj", False)}
+
+    params: dict = {"embed_tokens": {"embedding": w("embed_tokens.weight")},
+                    "layers": [], "final_norm": {"scale": w("norm.weight")}}
+    held = range(config.expert_offset, config.expert_offset + config.experts_held)
+    for i in range(config.num_hidden_layers):
+        base = f"layers.{i}"
+        layer = {
+            "input_norm": {"scale": w(f"{base}.input_layernorm.weight")},
+            "attention": {"q": w.dense(f"{base}.self_attn.q_proj", False),
+                          "kv_a": w.dense(f"{base}.self_attn.kv_a_proj_with_mqa", False),
+                          "kv_norm": {"scale": w(f"{base}.self_attn.kv_a_layernorm.weight")},
+                          "kv_b": w.dense(f"{base}.self_attn.kv_b_proj", False),
+                          "out": w.dense(f"{base}.self_attn.o_proj", False)},
+            "post_attention_norm": {"scale": w(f"{base}.post_attention_layernorm.weight")},
+        }
+        if config.is_moe_layer(i):
+            experts = [mlp(f"{base}.mlp.experts.{e}") for e in held]
+            layer["moe"] = {
+                "router": {"weight": w(f"{base}.mlp.gate.weight")},
+                "experts": {name: torch.stack([x[name]["kernel"] for x in experts])
+                            for name in ("gate", "up", "down")},
+                "shared": mlp(f"{base}.mlp.shared_experts")}
+        else:
+            layer["mlp"] = mlp(f"{base}.mlp")
+        params["layers"].append(layer)
     if not config.tie_word_embeddings:
         params["lm_head"] = top.dense("lm_head", False)
     return params, config

@@ -4,7 +4,8 @@
 - :func:`span` marks a named section on the ``torch.profiler`` clock while
   a profiler records, and costs one flag test when none does.
 - :func:`count`, :func:`counters` and :func:`reset`: a process-wide table
-  of counters, always on, for per-batch rates (not per-kernel ones).
+  of counters, always on, for per-batch rates (not per-kernel ones);
+  :func:`count_device` adds a device scalar, read when the table is read.
 - :class:`RecordTimings` adds the host seconds of a named section to a
   caller's dict, through :func:`span`.
 - :func:`profile_trace` writes a ``torch.profiler`` trace of a code region.
@@ -33,13 +34,15 @@ from torch._C._autograd import _profiler_enabled
 
 
 class _Table:
-    """Counters by name, and the CUDA event pairs of device spans not yet
-    read (resolved into ``span.<name>.device_s`` when the table is read)."""
+    """Counters by name, and the CUDA event pairs of device spans and the
+    device scalars of counters not yet read (resolved into
+    ``span.<name>.device_s`` and their counters when the table is read)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._values: Dict[str, float] = {}
         self._pending: List[Tuple[str, object, object]] = []
+        self._scalars: List[Tuple[str, object]] = []
 
     def add(self, name: str, value: float):
         with self._lock:
@@ -49,18 +52,26 @@ class _Table:
         with self._lock:
             self._pending.append((name, start, end))
 
+    def add_scalar(self, name: str, value):
+        with self._lock:
+            self._scalars.append((name, value))
+
     def read(self) -> Dict[str, float]:
         with self._lock:
             for name, start, end in self._pending:
                 end.synchronize()
                 self._values[name] = self._values.get(name, 0) + start.elapsed_time(end) / 1e3
+            for name, value in self._scalars:
+                self._values[name] = self._values.get(name, 0) + float(value)
             self._pending.clear()
+            self._scalars.clear()
             return dict(self._values)
 
     def clear(self):
         with self._lock:
             self._values.clear()
             self._pending.clear()
+            self._scalars.clear()
 
 
 _TABLE = _Table()
@@ -69,6 +80,13 @@ _TABLE = _Table()
 def count(name: str, value: float = 1):
     """Add ``value`` to the counter ``name``."""
     _TABLE.add(name, value)
+
+
+def count_device(name: str, value):
+    """Add ``value``, a number or a device scalar, to the counter ``name``
+    when the table is next read: the caller waits for no device. Callers
+    count so only while a profiler records."""
+    _TABLE.add_scalar(name, value)
 
 
 def counters() -> Dict[str, float]:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``aat_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mla [--ab LABEL=CSRC ...]]
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
@@ -308,6 +308,17 @@ Phases, one line each:
      ``ElementShard`` case, bf16, f32 and f16, seeds at the int32 edges, rates
      0.1 and 0.5; each entry timed at [40,634,4096] against its bytes bound,
      the bf16 entries at 70% of it or more.
+ 20. the latent-attention kernels, bf16 (D, DV) = (192, 128), causal
+     (``phase_mla_kernels``, right after phase 19): the forward with lse,
+     the fused backward at [2,999,16,192/128] and the split dq and dk/dv
+     kernels at [1,8540,16,192/128] (keys past 8192) against their plain
+     versions within phase 11's bounds, v never padded to 192; each timed
+     with its bound (2·(192 + 128) flops a pair forward) and, in the same
+     call, the (128, 128) causal kernels at the same T: the forward may take
+     at most 1.6x theirs (1.25x the flops). ``python3 chip_smoke.py --mla``
+     runs phases 1-2 and this one alone; ``--ab LABEL=CSRC`` then also
+     times rows 2-7 of the kernel table against the build of another
+     ``csrc/`` directory (``ab_flash_entries``).
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
 long-form steps, phase 13's run A and its serve command, phase 14, each
@@ -1150,6 +1161,11 @@ def head_keys_keep_checks(torch, device, routes):
 # (launch, [B, T, H, KVH, D], causal, dropout rate), and their operands'
 # generator
 AB_SEED = 16
+# pointers before B of each flash C entry (the forward's out and lse; the
+# backward's out, dout, lse and its outputs)
+AB_HEADS = {"aat_flash_fwd_mma": 6, "aat_flash_fwd_tf32x3": 6, "aat_flash_bwd_dq_mma": 8,
+            "aat_flash_bwd_dq_tf32x3": 8, "aat_flash_bwd_dkv_mma": 10,
+            "aat_flash_bwd_dkv_tf32x3": 10}
 AB_ROWS = {2: ("fwd", (1, 8499, 16, 16, 64), False, 0.1),
            3: ("fwd", (1, 8540, 16, 16, 128), True, 0.0),
            4: ("bwd", (2, 999, 16, 16, 64), False, 0.1),
@@ -1162,7 +1178,8 @@ def ab_flash_entries(torch, device, others, rounds=3, iters=20):
     """Not run by ``main``: the bf16 flash C entries of this checkout's
     build against builds of other ``csrc/`` directories (``others``:
     label → directory; one whose ``flash_fwd_mma.cu`` has no
-    ``head_offset`` is taken to lack the two head-key arguments), timed in
+    ``head_offset`` is taken to lack the two head-key arguments, one with no
+    ``int DV`` the value width after D), timed in
     turns (every build, then every build in reverse order) ``rounds``
     times at ``AB_ROWS``' shapes with the wrappers' own arguments, on the
     same operands. Returns ``{row: {label: ms}}`` (``"this"`` for this
@@ -1173,19 +1190,23 @@ def ab_flash_entries(torch, device, others, rounds=3, iters=20):
     from aat_tpu_torch.ops import attention as att
     from aat_tpu_torch.runtime import kernels
 
-    libs = {"this": (kernels.library()._lib, True)}
+    libs = {"this": (kernels.library()._lib, True, True)}
     for label, csrc in others.items():
         sources = sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cu"))
         path = os.path.join(kernels.BUILD_DIR, f"libaat_kernels_ab_{label}.so")
         kernels._build(path, sources)
         with open(os.path.join(csrc, "flash_fwd_mma.cu")) as f:
-            keys = "head_offset" in f.read()
+            text = f.read()
+        keys, widths = "head_offset" in text, "int DV" in text
         lib = ctypes.CDLL(path)
         for name, argtypes in kernels._SIGNATURES.items():
-            getattr(lib, name).argtypes = (argtypes if keys or not name.startswith("aat_flash")
-                                           else argtypes[:-3] + argtypes[-1:])
+            if name.startswith("aat_flash"):
+                at = AB_HEADS[name] + 6  # DV follows B, T, S, H, KVH, D
+                argtypes = argtypes if widths else argtypes[:at] + argtypes[at + 1:]
+                argtypes = argtypes if keys else argtypes[:-3] + argtypes[-1:]
+            getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
-        libs[label] = (lib, keys)
+        libs[label] = (lib, keys, widths)
     order = list(libs) + list(libs)[::-1]
     rng = np.random.default_rng(AB_SEED)
     results = {}
@@ -1211,10 +1232,11 @@ def ab_flash_entries(torch, device, others, rounds=3, iters=20):
                      dk.data_ptr(), dv.data_ptr(), delta.data_ptr()])]}
         calls["bwd"] = calls["dq"] + calls["dkv"]
 
-        def run(lib, keys):
+        def run(lib, keys, widths):
             def go():
                 for name, head in calls[kind]:
-                    args = head + list(tail if keys else tail[:-2])
+                    args = list(tail if widths else tail[:6] + tail[7:])
+                    args = head + (args if keys else args[:-2])
                     err = getattr(lib, name)(*args, kernels.stream_handle(device))
                     check(err == 0, f"{name}: CUDA error {err}")
             return go
@@ -1226,6 +1248,135 @@ def ab_flash_entries(torch, device, others, rounds=3, iters=20):
                     times[label].append(cuda_ms(torch, run(*libs[label]), iters, 2))
         results[row] = times
         del q, k, v, dout, out, lse, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+    return results
+
+
+# (B, T, H), causal, of phase 20: DeepSeek-V2-Lite's 16 heads at the
+# long-form LM's length (the split backward) and at a short one (fused)
+MLA_CASES = ((1, 8540, 16), (2, 999, 16))
+MLA_WIDTHS = (192, 128)
+MLA_FWD_RATIO = 1.6  # the (192, 128) forward's time over the (128, 128) one's, at most
+
+
+def mla_bound(torch, kind, tensors, q, v, mask):
+    """The bound of a (DQK, DV) causal flash kernel: each allowed pair costs
+    2·DQK flops a q·k-type product (q·k, ds·k, ds·q) and 2·DV a v-type one
+    (dout·v, p·v, p·dout), one exponential; bytes as ``bound_ms``."""
+    from aat_tpu_torch.ops import attention as att
+
+    b, t, h, dqk = q.shape
+    dv = v.shape[-1]
+    pairs = h * float(att._allowed(mask, t, t, True, None).expand(b, 1, t, t).sum())
+    flops = {"fwd": dqk + dv, "bwd": 3 * dqk + 2 * dv, "dq": 2 * dqk + dv,
+             "dkv": 2 * dqk + 2 * dv}[kind]
+    return bound_ms(tensors, [2.0 * flops * pairs / PEAK_FLOPS["bfloat16"], pairs / MUFU_PER_S])
+
+
+def phase_mla_kernels(torch, device, rng):
+    """Phase 20: the (192, 128) bf16 causal kernels against their plain
+    versions (``MLA_CASES``), through the ``*_mma`` C entries, timed beside
+    the (128, 128) causal kernels at the same shapes. Returns ``{case:
+    {kind: {...}}}``."""
+    from aat_tpu_torch.ops import attention as att
+    from aat_tpu_torch.runtime.kernels import library
+
+    dqk, dv = MLA_WIDTHS
+    results = {}
+    for b, t, h in MLA_CASES:
+        def gauss(width, dtype=torch.bfloat16):
+            return torch.from_numpy(rng.normal(0, 1, (b, t, h, width)).astype(np.float32)).to(
+                device=device, dtype=dtype)
+
+        q, k, v, g = gauss(dqk), gauss(dqk), gauss(dv), gauss(dv)
+        mask = torch.ones((b, t), dtype=torch.int32, device=device)
+        mask[:, t - t // 10:] = 0
+        scale = dqk ** -0.5
+        split = t > att.FUSED_BWD_MAX_S
+        kw = dict(causal=True, dropout_rate=0.0, dropout_seed=0)
+
+        def plain(fn, residuals=None, q=q, k=k, v=v):
+            if b == 1:
+                return plain_by_heads(torch, fn, q, k, v, mask, residuals, scale, kw)
+            return fn(q, k, v, mask, *(residuals or ()), scale, **kw)
+
+        def backward(out, lse):
+            args = (q, k, v, mask, out, lse, g, scale)
+            if split:
+                return (att.flash_backward_dq_long(*args, causal=True),
+                        *att.flash_backward_dkv_long(*args, causal=True))
+            return att.flash_backward_causal_kernel(*args)
+
+        label = f"[{b},{t},{h},{dqk}/{dv}] causal bf16 ({'split' if split else 'fused'} backward)"
+        before = dict(library().calls)
+        out, lse = att.flash_forward_causal_kernel(q, k, v, mask, scale, need_lse=True)
+        ref_out, ref_lse = plain(att.flash_forward_reference)
+        grads = backward(ref_out, ref_lse)
+        routed(before, "bfloat16", f"latent attention {label}")
+        check(out.shape == (b, t, h, dv) and grads[2].shape == v.shape
+              and grads[0].shape == q.shape and grads[1].shape == k.shape,
+              f"latent attention {label}: output widths")
+        refs = (plain(att.flash_backward_dq_reference, (ref_out, ref_lse, g)),
+                *plain(att.flash_backward_dkv_reference, (ref_out, ref_lse, g)))
+        torch.cuda.synchronize()
+        out_err, out_rel = out_errors(out, ref_out)
+        live = ref_lse > -1e29
+        lse_err = float((lse - ref_lse)[live].abs().max())
+        out_bound = FLASH_TOL["bfloat16"] * max(1.0, float(ref_out.float().abs().max()))
+        rel = [float((a.float() - r.float()).abs().max()) / float(r.float().abs().max())
+               for a, r in zip(grads, refs)]
+        grad_rel = [out_errors(a, r)[1] for a, r in zip(grads, refs)]
+        fwd_ms = cuda_ms(torch, lambda: att.flash_forward_causal_kernel(
+            q, k, v, mask, scale, need_lse=True), iters=20, warmup=2)
+        bwd_ms = cuda_ms(torch, lambda: backward(ref_out, ref_lse), iters=10, warmup=2)
+        fwd_plain_ms = cuda_ms(torch, lambda: plain(att.flash_forward_reference), iters=2,
+                               warmup=1)
+        bounds = {"fwd": mla_bound(torch, "fwd", (q, k, v, mask, out, lse), q, v, mask),
+                  "bwd": mla_bound(torch, "dq" if split else "bwd",
+                                   (q, k, v, mask, ref_out, ref_lse, g) + tuple(grads), q, v,
+                                   mask)}
+        if split:
+            bounds["bwd"] = (bounds["bwd"][0] + mla_bound(torch, "dkv", (), q, v, mask)[0],
+                             bounds["bwd"][1])
+        # the (128, 128) causal kernels at the same shapes, in this call
+        q2, k2, v2 = gauss(128), gauss(128), gauss(128)
+        out2, lse2 = att.flash_forward_causal_kernel(q2, k2, v2, mask, 128 ** -0.5,
+                                                     need_lse=True)
+        fwd128_ms = cuda_ms(torch, lambda: att.flash_forward_causal_kernel(
+            q2, k2, v2, mask, 128 ** -0.5, need_lse=True), iters=20, warmup=2)
+        args2 = (q2, k2, v2, mask, out2, lse2, g, 128 ** -0.5)
+        bwd128_ms = cuda_ms(torch, lambda: (
+            (att.flash_backward_dq_long(*args2, causal=True),
+             att.flash_backward_dkv_long(*args2, causal=True)) if split
+            else att.flash_backward_causal_kernel(*args2)), iters=10, warmup=2)
+        ratio = fwd_ms / fwd128_ms
+        print(f"latent attention: {label} fwd out err {out_err:.3e} (bound {out_bound:.2e}) "
+              f"norm ratio {out_rel:.3e} (bound {FLASH_REL_TOL['bfloat16']}) lse err "
+              f"{lse_err:.3e} (bound {FLASH_TOL['bfloat16']}); bwd dq/dk/dv err/max|ref| "
+              f"{'/'.join(f'{e:.2e}' for e in rel)} (bound {GRAD_REL_TOL['bfloat16']}) norm "
+              f"ratios {'/'.join(f'{e:.2e}' for e in grad_rel)} (bound "
+              f"{GRAD_NORM_TOL['bfloat16']}); fwd {fwd_ms:.4f} ms (bound {bounds['fwd'][0]:.4f} "
+              f"ms, {bounds['fwd'][1]}; plain {fwd_plain_ms:.4f} ms), bwd {bwd_ms:.4f} ms "
+              f"(bound {bounds['bwd'][0]:.4f} ms); (128, 128) at the same T: fwd "
+              f"{fwd128_ms:.4f} ms, bwd {bwd128_ms:.4f} ms; fwd ratio {ratio:.3f} (at most "
+              f"{MLA_FWD_RATIO})", flush=True)
+        check(all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads)),
+              f"latent attention {label}: non-finite output or gradient")
+        check(out_err <= out_bound and out_rel <= FLASH_REL_TOL["bfloat16"]
+              and lse_err <= FLASH_TOL["bfloat16"],
+              f"latent attention {label}: forward differs by {out_err} (norm ratio {out_rel}, "
+              f"lse {lse_err})")
+        check(max(rel) <= GRAD_REL_TOL["bfloat16"]
+              and max(grad_rel) <= GRAD_NORM_TOL["bfloat16"],
+              f"latent attention {label}: gradients differ by {rel} (norm ratios {grad_rel})")
+        check(ratio <= MLA_FWD_RATIO, f"latent attention {label}: forward {ratio:.3f}x the "
+              f"(128, 128) kernel's")
+        results[label] = {"fwd": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                                  "bound_ms": bounds["fwd"][0], "ms_128": fwd128_ms,
+                                  "max_abs_err": out_err, "norm_ratio": out_rel},
+                          "bwd": {"ms": bwd_ms, "bound_ms": bounds["bwd"][0],
+                                  "ms_128": bwd128_ms, "norm_ratio": max(grad_rel)}}
+        del q, k, v, g, out, lse, ref_out, ref_lse, grads, refs, q2, k2, v2, out2, lse2
         torch.cuda.empty_cache()
     return results
 
@@ -2682,9 +2833,9 @@ def planted_faults(torch, q, k, v, mask, scale, causal, rate, seed, out, ref_out
     def launch(key_mask, inv):
         result = torch.empty_like(q)
         kernels.launch("aat_flash_fwd_mma", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       key_mask.data_ptr(), result.data_ptr(), None, b, t, s, h, kvh, d,
-                       *att._strides(q, k, v), float(scale), int(causal), 0, seed32, rate32,
-                       inv, *head_keys)
+                       key_mask.data_ptr(), result.data_ptr(), None, b, t, s, h, kvh,
+                       *att._widths(q, v), *att._strides(q, k, v), float(scale), int(causal), 0,
+                       seed32, rate32, inv, *head_keys)
         return result
 
     check(torch.equal(launch(mask, inv_keep), out),
@@ -4796,6 +4947,16 @@ def main():
                    "vq_nearest", "mel_kernel"):
         print(f"ptxas {kernel}: {' | '.join(u for u in usage if kernel in u)}", flush=True)
 
+    if "--mla" in sys.argv[1:]:
+        for kernel in ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"):
+            print(f"ptxas {kernel}: {' | '.join(u for u in usage if kernel in u)}", flush=True)
+        print(json.dumps({"mla": phase_mla_kernels(torch, device, np.random.default_rng(20))}),
+              flush=True)
+        others = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
+        if others:
+            print(json.dumps({"ab_rows": ab_flash_entries(torch, device, others)}), flush=True)
+        print(smi_line, flush=True)
+        return 0
     rng = np.random.default_rng(0)
     # 3-4. kernels vs their plain versions
     mel_result = phase_mel(torch, device, rng)
@@ -4807,6 +4968,8 @@ def main():
     phase_backward_keep_mask(torch, device, rng)
     # 19. the element dropout's kernel vs its plain version
     phase_dropout(torch, device)
+    # 20. the latent-attention kernels vs their plain versions
+    phase_mla_kernels(torch, device, np.random.default_rng(20))
 
     # 5-6. serving at full width
     start = time.perf_counter()
