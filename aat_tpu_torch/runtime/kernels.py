@@ -61,6 +61,15 @@ _SIGNATURES = {
     # and its backward, which regenerates the keep mask (dropout.cu)
     "aat_dropout_fwd": _DROPOUT,
     "aat_dropout_bwd": _DROPOUT,
+    # the fused guarded AdamW step (adamw.cu): g (host array of the leaves'
+    # gradient pointers), numel (int64 array), n_leaves, inv_n, partials,
+    # n_partials, stream: the sum of squares of g·inv_n, a partial a block
+    "aat_adamw_sumsq": [_P, _P, _I, _F, _P, _I, _P],
+    # g, p, m, v (pointer arrays), numel, decay (int array), n_leaves, inv_n,
+    # partials, n_partials (0: gn is given), gn, -lr, bc1, bc2 (device
+    # scalars), b1, b2, 1 - b1, 1 - b2, eps, weight_decay, has_clip, clip,
+    # stream: the guarded update of p, m and v in place
+    "aat_adamw_update": [_P] * 6 + [_I, _F, _P, _I] + [_P] * 4 + [_F] * 6 + [_I, _F, _P],
 }
 
 

@@ -19,15 +19,29 @@ takes the NamedTuple's field names (``inner_state/mu/adapter/...``).
 Every transformation is ``GradientTransformation(init, update)``:
 ``update(grads, state, params)`` returns ``(updates, new_state)``, with
 ``None`` updates on frozen leaves, and runs on the device without a host
-sync (the non-finite guards are tensor predicates).
+sync (the non-finite guards are tensor predicates). ``step(grads, n,
+state, params)`` is the trainer's whole step: the gradients' mean over
+``n`` microbatches, ``update`` and :func:`apply_updates`, in place.
+
+Unlike JAX's immutable states, the fused guarded AdamW's step on CUDA
+leaves updates its moments in place (``csrc/adamw.cu``), which spares a
+new tree of each a step: the state it returns holds the same ``mu`` and
+``nu`` tensors as the one it was given, so a caller that wants an earlier
+state's moments copies them first. Its CPU route, and ``update`` on any
+device, return new tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
+import weakref
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from aat_tpu_torch.runtime import kernels
+from aat_tpu_torch.utils import timing
 
 
 def _is_namedtuple(x) -> bool:
@@ -132,6 +146,80 @@ class FusedGuardedAdamWState(NamedTuple):
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+    # the transformation's own in-place step, where it has one
+    in_place: Optional[Callable] = None
+
+    def step(self, grads, n: int, state, params):
+        """One optimizer step in place: ``grads`` (summed over ``n``
+        microbatches) divided by ``n``, ``update``, then the updates added
+        to ``params``; returns the new state."""
+        if self.in_place is not None:
+            return self.in_place(grads, n, state, params)
+        return plain_step(self.update, grads, n, state, params)
+
+
+def plain_step(update: Callable, grads, n: int, state, params):
+    """:meth:`GradientTransformation.step` from ``update``: ``g / n``, the
+    update, :func:`apply_updates`."""
+    if n > 1:
+        grads = tree_map(lambda g: None if g is None else g / n, grads)
+    updates, state = update(grads, state, params)
+    apply_updates(params, updates)
+    return state
+
+
+def _plain_device(x: torch.Tensor) -> bool:
+    """True where ``x`` takes the plain route: a CPU tensor (kernels run on
+    CUDA tensors only)."""
+    return x.device.type == "cpu"
+
+
+# blocks of aat_adamw_sumsq, each writing one partial (csrc/adamw.cu)
+_SUMSQ_BLOCKS = 1024
+
+
+class _LeafTable:
+    """The leaf arrays of ``aat_adamw_sumsq`` / ``aat_adamw_update``: each
+    trainable leaf's parameter and moment pointers, its size and its decay
+    flag, built once for a set of leaf tensors (the in-place update keeps
+    their addresses) and built anew when the parameters or the state are
+    replaced (a restore, the LM unfreeze); the gradients' pointers are
+    written each step (:meth:`set_grads`). The leaves are held by weak
+    references, so a replaced state is freed as it would be without the
+    table."""
+
+    def __init__(self, rows, device):
+        self.device = device
+        for _, p, m, v, _ in rows:
+            for x in (p, m, v):
+                self.check(x)
+        self.leaves = [tuple(weakref.ref(x) for x in r[1:4]) for r in rows]
+        n = len(rows)
+        self.n = n
+        self.g = (ctypes.c_void_p * n)()
+        self.p, self.m, self.v = ((ctypes.c_void_p * n)(*(r[i].data_ptr() for r in rows))
+                                  for i in (1, 2, 3))
+        self.numel = (ctypes.c_int64 * n)(*(r[1].numel() for r in rows))
+        self.decay = (ctypes.c_int * n)(*(int(bool(r[4])) for r in rows))
+
+    def check(self, x: torch.Tensor) -> None:
+        kernels.check_cuda(x, "adamw")
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != self.device:
+            raise ValueError(f"the adamw kernel takes contiguous float32 leaves on "
+                             f"{self.device}, got {x.dtype} {tuple(x.stride())} on {x.device}")
+
+    def holds(self, rows) -> bool:
+        return len(rows) == self.n and all(
+            p is a() and m is b() and v is c()
+            for (_, p, m, v, _), (a, b, c) in zip(rows, self.leaves))
+
+    def set_grads(self, rows) -> None:
+        for g, p, _, _, _ in rows:
+            self.check(g)
+            if g.shape != p.shape:
+                raise ValueError(f"a gradient of shape {tuple(g.shape)} for a leaf of "
+                                 f"{tuple(p.shape)}")
+        self.g[:] = [r[0].data_ptr() for r in rows]
 
 
 def fused_guarded_adamw(learning_rate, params, weight_decay: float = 0.1, b1: float = 0.9,
@@ -155,9 +243,24 @@ def fused_guarded_adamw(learning_rate, params, weight_decay: float = 0.1, b1: fl
     ``(updates, new_state)``; updates of frozen leaves are ``None``.
     ``norm`` computes the global gradient norm (a mesh's over sharded
     leaves, :meth:`~aat_tpu_torch.parallel.mesh.Mesh.global_norm`).
+
+    ``step`` on CUDA leaves is two launches (``csrc/adamw.cu``): the sum of
+    squares of ``g / n`` over every trainable leaf (skipped where ``norm``
+    is not :func:`global_norm`: that norm, a mesh's over shards, is taken
+    of ``g / n`` and handed over), then the divide, the guard, the clip and
+    the update of ``p``, ``mu`` and ``nu``, in place. Without a clip the
+    values are the plain route's bit for bit; with one, the norm's
+    summation order differs. The leaves must be contiguous float32 on one
+    device; anything else raises. On CPU leaves ``step`` is
+    :func:`plain_step`.
     """
     decay = decay_mask(params)
     train = freeze if freeze is not None else tree_map(lambda _: True, params)
+    # the kernel's f32 constants: torch's roundings of the Python scalars
+    constants = [float(np.float32(x)) for x in (b1, b2, 1.0 - b1, 1.0 - b2, eps, weight_decay)]
+    clip_args = (int(clip_norm is not None),
+                 float(np.float32(clip_norm if clip_norm is not None else 0.0)))
+    table = None
 
     def init_fn(params):
         def zeros(p, t):
@@ -200,7 +303,50 @@ def fused_guarded_adamw(learning_rate, params, weight_decay: float = 0.1, b1: fl
             new_count, _pick(train, out, 1), _pick(train, out, 2),
             state.total_notfinite + (1.0 - ok.float()))
 
-    return GradientTransformation(init_fn, update_fn)
+    def step_fn(grads, n, state, params):
+        nonlocal table
+        if _plain_device(state.count):
+            return plain_step(update_fn, grads, n, state, params)
+        device = state.count.device
+        given = None
+        if norm is not global_norm:  # the mesh's norm over shards, of g / n
+            if n > 1:
+                grads = tree_map(lambda g: None if g is None else g / n, grads)
+                n = 1
+            given = norm(grads)
+        rows = []
+
+        def row(g, m, v, p, d, t):
+            if t:
+                rows.append((torch.zeros_like(p) if g is None else g, p, m, v, d))
+
+        tree_map(row, grads, state.mu, state.nu, params, decay, train)
+        if table is None or not table.holds(rows):
+            table = _LeafTable(rows, device)
+        table.set_grads(rows)
+        count_inc = state.count + 1
+        neg_lr = (-_schedule_at(learning_rate, state.count)).to(torch.float32)
+        bc1, bc2 = _bias_corrections(b1, b2, count_inc)
+        scratch = torch.empty(_SUMSQ_BLOCKS + 1, dtype=torch.float32, device=device)
+        gn = scratch[_SUMSQ_BLOCKS]
+        inv_n = float(np.float32(1.0) / np.float32(n))
+        if given is None:
+            kernels.launch("aat_adamw_sumsq", device, table.g, table.numel, table.n, inv_n,
+                           scratch.data_ptr(), _SUMSQ_BLOCKS)
+            n_partials = _SUMSQ_BLOCKS
+        else:
+            gn.copy_(given)
+            n_partials = 0
+        kernels.launch("aat_adamw_update", device, table.g, table.p, table.m, table.v,
+                       table.numel, table.decay, table.n, inv_n, scratch.data_ptr(), n_partials,
+                       gn.data_ptr(), neg_lr.data_ptr(), bc1.data_ptr(), bc2.data_ptr(),
+                       *constants, *clip_args)
+        timing.count("optim.fused_leaves", table.n)
+        ok = torch.isfinite(gn)
+        return FusedGuardedAdamWState(torch.where(ok, count_inc, state.count), state.mu,
+                                      state.nu, state.total_notfinite + (1.0 - ok.float()))
+
+    return GradientTransformation(init_fn, update_fn, step_fn)
 
 
 class ScaleByAdamState(NamedTuple):

@@ -243,23 +243,26 @@ class AATTrainer:
     def _build_tx(self, params):
         """The JAX trainer's choice: the fused guarded AdamW when the guard
         is on; else the unfused chain (the clip in the chain); Adafactor
-        under the guard (no clip) or alone."""
+        under the guard (no clip) or alone. The global norm is the mesh's
+        over shards, or :func:`~aat_tpu_torch.training.optim.global_norm`
+        (which the fused AdamW's kernel computes itself)."""
         cfg = self.config
+        norm = optim_lib.global_norm if self.mesh is None else self._norm
         if cfg.optimizer == "adamw" and cfg.skip_nonfinite_updates:
             return optim_lib.fused_guarded_adamw(
                 self.schedule, params, weight_decay=cfg.weight_decay,
-                clip_norm=cfg.grad_clip_norm, freeze=self.freeze, norm=self._norm)
+                clip_norm=cfg.grad_clip_norm, freeze=self.freeze, norm=norm)
         if cfg.optimizer == "adamw":
             tx = optim_lib.adamw_grouped(self.schedule, params, weight_decay=cfg.weight_decay,
                                          grad_clip_norm=cfg.grad_clip_norm, freeze=self.freeze,
-                                         norm=self._norm)
+                                         norm=norm)
         elif cfg.optimizer == "adafactor":
             tx = optim_lib.adafactor(self.schedule, freeze=self.freeze, axes=self._factor_axes,
                                      mesh=self.mesh,
                                      specs=self.specs if self.mesh is not None else None)
         else:
             raise ValueError(f"unknown optimizer {cfg.optimizer}")
-        return (optim_lib.guard_nonfinite(tx, norm=self._norm) if cfg.skip_nonfinite_updates
+        return (optim_lib.guard_nonfinite(tx, norm=norm) if cfg.skip_nonfinite_updates
                 else tx)
 
     def _use(self, params, grad: bool = True):
@@ -487,13 +490,10 @@ class AATTrainer:
             with timing.span("train.optimizer", device=self.device.type == "cuda"):
                 n = len(microbatches)
                 if n > 1:
-                    acc_grads = optim_lib.tree_map(lambda g: None if g is None else g / n,
-                                                   acc_grads)
                     acc_metrics = {k: v / n for k, v in acc_metrics.items()}
                 with torch.no_grad():
-                    updates, opt_state = self.tx.update(acc_grads, self.state.opt_state,
-                                                        self.state.params)
-                    optim_lib.apply_updates(self.state.params, updates)
+                    opt_state = self.tx.step(acc_grads, n, self.state.opt_state,
+                                             self.state.params)
                     if bn_stats_seq:
                         self._fold_bn_stats(bn_stats_seq)
             self.state = TrainState(self.state.step + 1, self.state.params, opt_state)

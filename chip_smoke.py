@@ -319,6 +319,22 @@ Phases, one line each:
      runs phases 1-2 and this one alone; ``--ab LABEL=CSRC`` then also
      times rows 2-7 of the kernel table against the build of another
      ``csrc/`` directory (``ab_flash_entries``).
+ 21. the fused guarded AdamW step (``csrc/adamw.cu``: ``aat_adamw_sumsq``
+     and ``aat_adamw_update``) against its plain route (``optim.plain_step``:
+     g / n, ``update``, ``apply_updates``) at the benchmark cells' leaf set,
+     HuBERT-large and the linear adapter (425 leaves, 322 M values), right
+     after phase 20 (``phase_adamw``): 3 steps from equal states, the
+     second with one NaN gradient; p, m and v bit for bit without a clip,
+     at n = 2 (the cells') and n = 3, and unchanged on the NaN step; with a
+     binding clip, the step equal bit for bit when both routes are given
+     the plain route's norm, the kernel's own norm within 4 ulp of it and
+     each leaf's p, m and v within 4 ulp of its norm. One update launch a
+     step. The two kernels timed (profiler device time) against their
+     bytes bound (g read twice, p, m and v read and written: 32 bytes a
+     value) and the whole step against the plain route (CUDA events); the
+     pair must reach 70% of the bound. Every profiled training step also
+     checks that its ``aat_adamw_update`` launches equal its
+     ``train.optimizer`` spans.
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
 long-form steps, phase 13's run A and its serve command, phase 14, each
@@ -957,6 +973,202 @@ def phase_dropout(torch, device):
     check(min(result["bfloat16_fwd_roofline"], result["bfloat16_bwd_roofline"]) >= 70.0,
           "the bf16 dropout kernel is under 70% of its bytes bound")
     return result
+
+
+# the clip's bounds: the kernel's norm sums in another order than torch's,
+# so the clip's scale may differ by an ulp; the norm within 4 ulp, and each
+# leaf's p, m and v within 4 ulp of its norm (||x - ref|| / ||ref||); single
+# values where m's update cancels differ by more ulps of their own
+ADAMW_ULPS = 4
+ADAMW_REL = 4 * 2.0 ** -23
+
+
+def adamw_leaf_set(torch, device, seed=0):
+    """The trainable leaves of every benchmark cell's step: HuBERT-large and
+    the linear adapter into SmolLM-135M's width through 4096."""
+    from aat_tpu_torch.models import aslm, hubert
+
+    cfg = hubert.hubert_large_config()
+    adapter = aslm.AslmConfig(projection_type="linear", audio_encoder_hidden=cfg.hidden_size,
+                              lm_hidden=576, projection_hidden=4096)
+    return {"audio_encoder": hubert.init_hubert_params(seed, cfg, device),
+            "adapter": aslm.init_aslm_params(seed + 1, adapter, device)}
+
+
+def ulps(torch, a, b):
+    """The largest distance in units in the last place between two f32
+    tensors (bit patterns ordered so that adjacent floats differ by 1)."""
+    def ordered(x):
+        i = x.view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def adamw_routes(torch, params, n=2, clip=None, plain_norm=False, steps=3, nan_step=1, seed=21):
+    """``steps`` fused guarded AdamW steps of the cells' settings (warmup
+    schedule 1e-4 over 100, weight decay 0.1) through the kernel step and
+    through the plain route, from equal copies of ``params`` and of the
+    initial state, on the same Gaussian gradient sums (step ``nan_step``
+    with one NaN). ``plain_norm``: the kernel step is given the plain
+    route's norm (its mesh route) instead of summing its own. Returns, a
+    step, the max ulps of p, m and v and the largest of a leaf's
+    ||kernel - plain|| / ||plain||, whether the kernel step left its state
+    unchanged, the plain route's norm, and the update launches."""
+    from aat_tpu_torch.runtime.kernels import library
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.lr_schedule import warmup_linear_schedule
+
+    schedule = warmup_linear_schedule(1e-4, 100, 10000)
+    kernel_p = optim.tree_map(lambda x: x.clone(), params)
+    plain_p = optim.tree_map(lambda x: x.clone(), params)
+    norm = (lambda tree: optim.global_norm(tree)) if plain_norm else optim.global_norm
+    tx = optim.fused_guarded_adamw(schedule, kernel_p, weight_decay=0.1, clip_norm=clip,
+                                   norm=norm)
+    kernel_s, plain_s = tx.init(kernel_p), tx.init(plain_p)
+    gen = torch.Generator(device=kernel_s.count.device).manual_seed(seed)
+    calls = library().calls
+    out = []
+    for step in range(steps):
+        grads = optim.tree_map(lambda p: 1e-3 * torch.randn(
+            p.shape, generator=gen, device=p.device), kernel_p)
+        if step == nan_step:
+            optim.tree_leaves(grads)[3].view(-1)[7] = float("nan")
+        before = [x.clone() for x in optim.tree_leaves((kernel_p, kernel_s.mu, kernel_s.nu))]
+        launches = calls["aat_adamw_update"]
+        kernel_s = tx.step(grads, n, kernel_s, kernel_p)
+        launches = calls["aat_adamw_update"] - launches
+        plain_s = optim.plain_step(tx.update, grads, n, plain_s, plain_p)
+        divided = optim.tree_map(lambda g: g / n, grads)
+        after = optim.tree_leaves((kernel_p, kernel_s.mu, kernel_s.nu))
+        unchanged = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(before, after))
+        pairs = [list(zip(optim.tree_leaves(k), optim.tree_leaves(p)))
+                 for k, p in ((kernel_p, plain_p), (kernel_s.mu, plain_s.mu),
+                              (kernel_s.nu, plain_s.nu))]
+        ulp = [max(ulps(torch, a, b) for a, b in tree) for tree in pairs]
+        rel = [max(float((a - b).norm() / b.norm()) for a, b in tree) for tree in pairs]
+        counts = [int(kernel_s.count), int(plain_s.count),
+                  float(kernel_s.total_notfinite), float(plain_s.total_notfinite)]
+        out.append({"ulps_p_m_v": ulp, "rel_p_m_v": rel, "unchanged": unchanged,
+                    "counts": counts, "plain_norm": float(optim.global_norm(divided)),
+                    "launches": launches})
+        del grads, divided, before
+    return out
+
+
+def kernel_norm(torch, params, n, seed=22):
+    """The kernel's global norm of ``g / n`` (``aat_adamw_sumsq``, then
+    ``aat_adamw_update`` over no leaves, which sums the partials and writes
+    the norm) and the plain route's (``optim.global_norm``), on one draw
+    of Gaussian gradient sums."""
+    from aat_tpu_torch.runtime import kernels
+    from aat_tpu_torch.training import optim
+
+    leaves = optim.tree_leaves(params)
+    gen = torch.Generator(device=leaves[0].device).manual_seed(seed)
+    grads = [1e-3 * torch.randn(p.shape, generator=gen, device=p.device) for p in leaves]
+    rows = [(g, p, p, p, False) for g, p in zip(grads, leaves)]
+    table = optim._LeafTable(rows, leaves[0].device)
+    table.set_grads(rows)
+    blocks = optim._SUMSQ_BLOCKS
+    scratch = torch.zeros(blocks + 1, device=leaves[0].device)
+    one = torch.ones((), device=leaves[0].device)
+    inv_n = float(np.float32(1.0) / np.float32(n))
+    kernels.launch("aat_adamw_sumsq", one.device, table.g, table.numel, table.n, inv_n,
+                   scratch.data_ptr(), blocks)
+    kernels.launch("aat_adamw_update", one.device, table.g, table.p, table.m, table.v,
+                   table.numel, table.decay, 0, inv_n, scratch.data_ptr(), blocks,
+                   scratch[blocks].data_ptr(), one.data_ptr(), one.data_ptr(), one.data_ptr(),
+                   0.9, 0.999, 0.1, 0.001, 1e-8, 0.1, 0, 0.0)
+    plain = optim.global_norm([g / n for g in grads])
+    return float(scratch[blocks]), float(plain)
+
+
+def adamw_times(torch, params, n=2, iters=10):
+    """The kernel step's device time (CUDA events), its two kernels' device
+    time (profiler), the plain route's (CUDA events), and the bytes bound of
+    the two kernels, all at ``params`` with the cells' settings."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aat_tpu_torch.training import optim
+    from aat_tpu_torch.training.lr_schedule import warmup_linear_schedule
+
+    schedule = warmup_linear_schedule(1e-4, 100, 10000)
+    tx = optim.fused_guarded_adamw(schedule, params, weight_decay=0.1)
+    state = [tx.init(params)]
+    gen = torch.Generator(device=state[0].count.device).manual_seed(23)
+    grads = optim.tree_map(lambda p: 1e-3 * torch.randn(p.shape, generator=gen,
+                                                        device=p.device), params)
+
+    def kernel_step():
+        state[0] = tx.step(grads, n, state[0], params)
+
+    def plain():
+        state[0] = optim.plain_step(tx.update, grads, n, state[0], params)
+
+    step_ms = cuda_ms(torch, kernel_step, iters=iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            kernel_step()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        for key in ("sumsq", "update"):
+            if e.device_type == DeviceType.CUDA and f"{key}_kernel" in e.name:
+                by_kernel[key] = by_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start)
+    kernels_ms = {k: v / 1e3 / iters for k, v in by_kernel.items()}
+    values = sum(p.numel() for p in optim.tree_leaves(params))
+    bound = 32 * values / HBM_BYTES_PER_S * 1e3
+    plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+    return {"leaves": len(optim.tree_leaves(params)), "values": values,
+            "sumsq_ms": kernels_ms.get("sumsq"), "update_ms": kernels_ms.get("update"),
+            "step_ms": step_ms, "plain_ms": plain_ms, "bound_ms": bound}
+
+
+def phase_adamw(torch, device):
+    """21. The fused guarded AdamW kernels against the plain route at the
+    cells' leaf set (module docstring)."""
+    from aat_tpu_torch.training import optim
+
+    params = adamw_leaf_set(torch, device)
+    n_leaves = len(optim.tree_leaves(params))
+    cases = {"n2": adamw_routes(torch, params, n=2), "n3": adamw_routes(torch, params, n=3),
+             "clip_plain_norm": adamw_routes(torch, params, clip=0.05, plain_norm=True),
+             "clip": adamw_routes(torch, params, clip=0.05)}
+    norms = kernel_norm(torch, params, 2)
+    torch.cuda.synchronize()
+    for name, steps in cases.items():
+        print(f"adamw kernel {name}: {json.dumps(steps)}", flush=True)
+    gn_ulps = ulps(torch, torch.tensor(norms[0]), torch.tensor(norms[1]))
+    print(f"adamw kernel: {n_leaves} leaves; norm of g / 2 kernel {norms[0]!r} plain "
+          f"{norms[1]!r} ({gn_ulps} ulp)", flush=True)
+    for name, steps in cases.items():
+        for i, s in enumerate(steps):
+            check(s["launches"] == 1, f"adamw {name} step {i}: {s['launches']} update launches")
+            # step 1 is the NaN step: dropped, counted as non-finite
+            want = [[1, 1, 0.0, 0.0], [1, 1, 1.0, 1.0], [2, 2, 1.0, 1.0]][i]
+            check(s["counts"] == want, f"adamw {name} step {i}: count and total_notfinite "
+                  f"(kernel, plain) {s['counts']}")
+            check(s["unchanged"] == (i == 1), f"adamw {name} step {i}: unchanged {s['unchanged']}")
+            if name != "clip":
+                check(s["ulps_p_m_v"] == [0, 0, 0],
+                      f"adamw {name} step {i}: p, m, v differ from the plain route by "
+                      f"{s['ulps_p_m_v']} ulp")
+            else:
+                check(max(s["rel_p_m_v"]) <= ADAMW_REL, f"adamw clip step {i}: p, m, v "
+                      f"differ by {s['rel_p_m_v']} of their norms")
+    check(gn_ulps <= ADAMW_ULPS, f"the kernel's norm is {gn_ulps} ulp from the plain route's")
+    del params
+    torch.cuda.empty_cache()
+    times = adamw_times(torch, adamw_leaf_set(torch, device))
+    times["roofline"] = 100.0 * times["bound_ms"] / (times["sumsq_ms"] + times["update_ms"])
+    print(f"adamw kernel timing at HuBERT-large + adapter (ms, % of the bytes bound): "
+          f"{json.dumps(times)}", flush=True)
+    check(times["roofline"] >= 70.0, "the adamw kernels are under 70% of their bytes bound")
+    torch.cuda.empty_cache()
+    return times
 
 
 def phase_backward_keep_mask(torch, device, rng):
@@ -1624,7 +1836,8 @@ def profile_training_step(torch, trainer, micro, name="train"):
     (the union of kernel intervals), the idle share of the step's wall, and
     device time by kernel, to ``<name>_profile.txt`` in the kernels' build
     directory. The dropout kernel's forward launches must equal the step's
-    ``ops.dropout`` spans."""
+    ``ops.dropout`` spans, and the fused AdamW's update launches its
+    ``train.optimizer`` spans."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1634,21 +1847,27 @@ def profile_training_step(torch, trainer, micro, name="train"):
     path = os.path.join(BUILD_DIR, f"{name}_profile.txt")
     calls = library().calls
 
-    def dropout_counts():
+    def launch_counts():
+        found = timing.counters()
         return (calls["aat_dropout_fwd"], calls["aat_dropout_bwd"],
-                timing.counters().get("span.ops.dropout.calls", 0))
+                found.get("span.ops.dropout.calls", 0), calls["aat_adamw_update"],
+                found.get("span.train.optimizer.calls", 0))
 
     torch.cuda.synchronize()
-    before = dropout_counts()
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         trainer.training_step(micro)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    fwd, bwd, spans = (a - b for a, b in zip(dropout_counts(), before))
+    fwd, bwd, spans, updates, optimizer_spans = (
+        a - b for a, b in zip(launch_counts(), before))
     print(f"profile: {name} dropout kernel launches {fwd} forward, {bwd} backward; "
-          f"{spans} ops.dropout spans", flush=True)
+          f"{spans} ops.dropout spans; adamw update launches {updates}, "
+          f"{optimizer_spans} train.optimizer spans", flush=True)
     check(fwd == spans, f"{name}: {fwd} dropout forward launches against {spans} spans")
+    check(updates == optimizer_spans == 1,
+          f"{name}: {updates} adamw update launches against {optimizer_spans} spans")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(kernels, "the profiler recorded no device kernels")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -4970,6 +5189,8 @@ def main():
     phase_dropout(torch, device)
     # 20. the latent-attention kernels vs their plain versions
     phase_mla_kernels(torch, device, np.random.default_rng(20))
+    # 21. the fused guarded AdamW vs its plain route
+    phase_adamw(torch, device)
 
     # 5-6. serving at full width
     start = time.perf_counter()

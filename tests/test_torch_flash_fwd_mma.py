@@ -13,7 +13,6 @@ exactly where a key was dropped) is pinned on the plain version and on the
 JAX flash forward (Pallas in interpret mode): ``chip_smoke.py`` reads each
 forward kernel's mask the same way on the card."""
 
-import contextlib
 import os
 import re
 
@@ -25,43 +24,10 @@ import jax.numpy as jnp
 
 import aat_tpu.ops.attention as jatt
 import aat_tpu_torch.ops.attention as tatt
+from _recording_library import RecordingLibrary, meta_library  # noqa: F401  (the fixture)
 from aat_tpu_torch.ops import mel as tmel
 from aat_tpu_torch.ops import vq as tvq
 from aat_tpu_torch.runtime import kernels
-
-
-class RecordingLibrary:
-    """Stands in for the kernel library: records each C entry's name, its
-    arguments and the device made current around the call, and checks the
-    argument count against the ctypes signature."""
-
-    def __init__(self):
-        self.names, self.args, self.devices = [], [], []
-        self.current = None  # the device of the innermost torch.cuda.device
-
-    def call(self, name, *args):
-        assert len(args) == len(kernels._SIGNATURES[name]), name
-        self.names.append(name)
-        self.args.append(args)
-        self.devices.append(self.current)
-
-    @contextlib.contextmanager
-    def device_guard(self, device):
-        outer, self.current = self.current, device
-        try:
-            yield
-        finally:
-            self.current = outer
-
-
-@pytest.fixture
-def meta_library(monkeypatch):
-    lib = RecordingLibrary()
-    monkeypatch.setattr(kernels, "check_cuda", lambda x, kernel: None)  # meta stands in for CUDA
-    monkeypatch.setattr(kernels, "library", lambda: lib)
-    monkeypatch.setattr(kernels, "stream_handle", lambda device: ("stream", device))
-    monkeypatch.setattr(torch.cuda, "device", lib.device_guard)
-    return lib
 
 
 def meta_operands(dtype, t=300, h=4, kvh=2, d=128, head_stride=None):
