@@ -18,7 +18,6 @@ import jax
 
 from aat_tpu.models import build as jbuild
 from aat_tpu.training.config import TrainingConfig as JConfig
-from aat_tpu.training.trainer import AATTrainer as JTrainer
 from aat_tpu_torch.models import build as tbuild
 from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.models import llama as tllm
@@ -27,8 +26,10 @@ from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.training.optim import tree_leaves
 from aat_tpu_torch.training.trainer import AATTrainer as TTrainer
 from aat_tpu_torch.training.trainer import read_checkpoint_meta
-from aat_tpu_torch.utils.port import checkpoint_from_jax, from_jax_params, to_jax_params
-from tests.test_torch_training import TRAIN, assert_trajectories, jax_params, models, whole_batch
+from aat_tpu_torch.utils.port import to_jax_params
+from tests._torch_trajectories import (TRAIN, assert_trajectories, jax_checkpoint, port_model,
+                                       resumed_losses, whole_batch)
+from tests._torch_threads import two_threads  # noqa: F401
 
 DROPOUT = dict(hidden_dropout=0.1, attention_dropout=0.1, activation_dropout=0.1,
                feature_projection_dropout=0.1, layerdrop=0.1)
@@ -36,9 +37,7 @@ DROPOUT = dict(hidden_dropout=0.1, attention_dropout=0.1, activation_dropout=0.1
 
 def make_trainer(tmp_path, name="run", dropout=False, seed=0, **train_kw):
     """A port trainer on the tiny model with JAX's seeded weights."""
-    jm, _ = models()
-    _, tm = models(**(DROPOUT if dropout else {}))
-    params = from_jax_params(jax.device_get(jax_params(jm, seed)))
+    tm, params = port_model(seed, **(DROPOUT if dropout else {}))
     kw = dict(TRAIN, gradient_accumulation_steps=1, output_dir=str(tmp_path / name))
     kw.update(train_kw)
     return TTrainer(tm, params, TConfig(**kw))
@@ -427,37 +426,11 @@ def test_resume_mid_epoch_consumes_exact_batches(tmp_path):
     assert_states_equal(c, a)
 
 
-def test_jax_checkpoint_converts_and_resumes(tmp_path):
-    """A JAX trainer's orbax checkpoint after 3 steps, restored to numpy and
-    converted by ``checkpoint_from_jax``, restores in the port exactly (the
-    conv kernels and their moments in the port's layout, no moments on the
-    frozen LM), and 3 more steps in each package agree within the training
-    tests' tolerance. Dropout is off: the packages derive their seeds
-    differently."""
-    import orbax.checkpoint as ocp
-
-    jm, _ = models()
-    jt = JTrainer(jm, jax_params(jm), JConfig(**dict(TRAIN, gradient_accumulation_steps=1,
-                                                     output_dir=str(tmp_path / "jax"))))
-    data = batches(300, 6)
-    for b in data[:3]:
-        jt.training_step([b], fetch_metrics=False)
-    jpath = jt.save_checkpoint()
-    template = {"params": jt.state.params, "opt_state": jt.state.opt_state,
-                "step": jt.state.step}
-    state = jax.device_get(ocp.StandardCheckpointer().restore(
-        os.path.join(jpath, "state"), target=template))
-    ppath = checkpoint_from_jax(state, str(tmp_path / "port" / "checkpoint-3"),
-                                meta=read_checkpoint_meta(jpath))
-    assert read_checkpoint_meta(ppath)["step"] == 3
-
-    t = make_trainer(tmp_path, "port", seed=4)
-    t.restore_checkpoint(ppath)
+def assert_adamw_state_equals(t, state):
+    """Every param and AdamW moment leaf of the port trainer ``t``, in JAX's
+    layout, equal to the orbax ``state``'s, by the same paths; MaskedNode
+    and None (frozen leaves) both have no leaves."""
     opt, jopt = t.state.opt_state, state["opt_state"]
-    assert t.state.step == 3 and int(opt.count) == int(jopt.count) == 3
-    assert float(opt.total_notfinite) == float(jopt.total_notfinite)
-    # every param and every moment leaf, in JAX's layout, equal to the
-    # orbax state; MaskedNode and None (frozen leaves) both have no leaves
     for name, got, want in (("params", t.state.params, state["params"]),
                             ("mu", opt.mu, jopt.mu), ("nu", opt.nu, jopt.nu)):
         flat_got = jax.tree_util.tree_flatten_with_path(to_jax_params(got))[0]
@@ -467,14 +440,31 @@ def test_jax_checkpoint_converts_and_resumes(tmp_path):
         for (path, a), (_, b) in zip(flat_got, flat_want):
             np.testing.assert_array_equal(a, np.asarray(b),
                                           err_msg=f"{name}{jax.tree_util.keystr(path)}")
+
+
+def test_jax_checkpoint_converts_and_resumes(tmp_path):
+    """A JAX trainer's orbax checkpoint after 3 steps, restored to numpy and
+    converted by ``checkpoint_from_jax``, restores in the port exactly (the
+    conv kernels and their moments in the port's layout, no moments on the
+    frozen LM), and 3 more steps in each package agree within the training
+    tests' tolerance. Dropout is off: the packages derive their seeds
+    differently."""
+    ref, ppath = jax_checkpoint(whole_batch, tmp_path, seed=300)
+    state = ref.saved
+    assert read_checkpoint_meta(ppath)["step"] == 3
+
+    t = make_trainer(tmp_path, "port", seed=4)
+    t.restore_checkpoint(ppath)
+    opt, jopt = t.state.opt_state, state["opt_state"]
+    assert t.state.step == 3 and int(opt.count) == int(jopt.count) == 3
+    assert float(opt.total_notfinite) == float(jopt.total_notfinite)
+    assert_adamw_state_equals(t, state)
     assert all(x is None for m in (opt.mu, opt.nu) for x in tree_leaves(m["lm_decoder"]))
 
-    losses = []
-    for b in data[3:]:
-        losses.append((jt.training_step([b])["train/loss"], t.training_step([b])["train/loss"]))
-    assert t.state.step == jt.state.step == 6
+    losses = resumed_losses(ref, t, whole_batch, 300)
+    assert t.state.step == ref.step == 6
     # 3 steps at lr ~1e-4 move each element by ~2e-4, so the bounds sit far
     # below one update: read 4.8e-7 on the losses, 1.6e-8 on the params
     for step, (lj, lt) in enumerate(losses):
         assert abs(lj - lt) <= 1e-6, (step, lj, lt)
-    assert_trajectories([], jax.device_get(jt.state.params), to_jax_params(t.state.params), 1e-7)
+    assert_trajectories([], ref.params[-1], to_jax_params(t.state.params), 1e-7)

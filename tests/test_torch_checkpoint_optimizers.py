@@ -13,19 +13,18 @@ far below one update."""
 
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from aat_tpu.training.config import TrainingConfig as JConfig
-from aat_tpu.training.trainer import AATTrainer as JTrainer
 from aat_tpu_torch.training import checkpoint as ckpt
 from aat_tpu_torch.training import optim as toptim
 from aat_tpu_torch.training.trainer import read_checkpoint_meta
-from aat_tpu_torch.utils.port import checkpoint_from_jax, to_jax_params
+from aat_tpu_torch.utils.port import to_jax_params
+from tests._torch_trajectories import (assert_trajectories, jax_checkpoint, resumed_losses,
+                                       whole_batch)
+from tests._torch_threads import two_threads  # noqa: F401
 from tests.test_torch_checkpoint import batches, make_trainer
-from tests.test_torch_training import TRAIN, assert_trajectories, jax_params, models
 
 CASES = {
     "adafactor": dict(optimizer="adafactor", learning_rate=None),
@@ -104,21 +103,8 @@ def state_leaves(tree, path=()):
 
 @pytest.mark.parametrize("case", ["adafactor", "adamw-unfused"])
 def test_jax_checkpoint_of_each_optimizer_converts_and_resumes(tmp_path, case):
-    import orbax.checkpoint as ocp
-
-    kw = dict(TRAIN, gradient_accumulation_steps=1, **CASES[case])
-    jm, _ = models()
-    jt = JTrainer(jm, jax_params(jm), JConfig(**dict(kw, output_dir=str(tmp_path / "jax"))))
-    data = batches(500, 6)
-    for b in data[:3]:
-        jt.training_step([b], fetch_metrics=False)
-    jpath = jt.save_checkpoint()
-    template = {"params": jt.state.params, "opt_state": jt.state.opt_state,
-                "step": jt.state.step}
-    state = jax.device_get(ocp.StandardCheckpointer().restore(
-        os.path.join(jpath, "state"), target=template))
-    ppath = checkpoint_from_jax(state, str(tmp_path / "port" / "checkpoint-3"),
-                                meta=read_checkpoint_meta(jpath))
+    ref, ppath = jax_checkpoint(whole_batch, tmp_path, seed=500, **CASES[case])
+    state = ref.saved
 
     t = make_trainer(tmp_path, "port", seed=4, **CASES[case])
     t.restore_checkpoint(ppath)
@@ -141,10 +127,8 @@ def test_jax_checkpoint_of_each_optimizer_converts_and_resumes(tmp_path, case):
             compared += 1
     assert compared > 20
 
-    losses = []
-    for b in data[3:]:
-        losses.append((jt.training_step([b])["train/loss"], t.training_step([b])["train/loss"]))
-    assert t.state.step == jt.state.step == 6
+    losses = resumed_losses(ref, t, whole_batch, 500)
+    assert t.state.step == ref.step == 6
     # a step moves a parameter by about 1e-4 (AdamW) to 2e-4 (the relative
     # step); read: the losses within 1e-6 and the parameters within one
     # float32 ulp at 1.0, where a conv kernel's statistics transposed
@@ -154,7 +138,7 @@ def test_jax_checkpoint_of_each_optimizer_converts_and_resumes(tmp_path, case):
     # which Adafactor's RMS-normalized update turns into full-size noise
     for step, (lj, lt) in enumerate(losses):
         assert abs(lj - lt) <= 1e-6, (step, lj, lt)
-    jparams, tparams = jax.device_get(jt.state.params), to_jax_params(t.state.params)
+    jparams, tparams = ref.params[-1], to_jax_params(t.state.params)
     if case == "adafactor":
         for tree in (jparams, tparams):
             for layer in tree["audio_encoder"]["layers"]:

@@ -18,48 +18,24 @@ import pytest
 import torch
 from optax._src.factorized import _factored_dims
 
-from aat_tpu.models import aslm as jaslm
 from aat_tpu.models import efficientnet as jeff
-from aat_tpu.models import hubert as jhub
-from aat_tpu.models import llama as jllm
-from aat_tpu.training.config import TrainingConfig as JConfig
-from aat_tpu.training.trainer import AATTrainerSegmentation as JTrainer
-from aat_tpu_torch.models import aslm as taslm
-from aat_tpu_torch.models import efficientnet as teff
-from aat_tpu_torch.models import hubert as thub
-from aat_tpu_torch.models import llama as tllm
 from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.training.trainer import AATTrainerSegmentation as TTrainer
-from aat_tpu_torch.training.trainer import read_checkpoint_meta
 from aat_tpu_torch.utils.port import checkpoint_from_jax, from_jax_params, to_jax_params
+from tests._torch_trajectories import (TRAIN, assert_trajectories, efficientnet_models,
+                                       jax_checkpoint, jax_params, melspec_batch, pooling_models,
+                                       port_params, resumed_losses, segmented_batch)
+from tests._torch_threads import two_threads  # noqa: F401
+from tests.test_torch_checkpoint import assert_adamw_state_equals
 from tests.test_torch_checkpoint_optimizers import state_leaves
-from tests.test_torch_training import segmented_batch
-from tests.test_torch_training_projections import TRAIN, melspec_batch, two_threads  # noqa: F401
 
 
-def convert(jt, tmp_path):
-    """The JAX trainer's orbax checkpoint, restored to numpy and converted."""
-    import orbax.checkpoint as ocp
-
-    jpath = jt.save_checkpoint()
-    template = {"params": jt.state.params, "opt_state": jt.state.opt_state,
-                "step": jt.state.step}
-    state = jax.device_get(ocp.StandardCheckpointer().restore(
-        os.path.join(jpath, "state"), target=template))
-    ppath = checkpoint_from_jax(state, str(tmp_path / "port" / f"checkpoint-{jt.state.step}"),
-                                meta=read_checkpoint_meta(jpath))
-    return state, ppath
-
-
-def resume_both(jt, tt, make_batch, rng, steps=3):
-    losses = []
-    for _ in range(steps):
-        batch = make_batch(rng)
-        losses.append((jt.training_step([batch])["train/loss"],
-                       tt.training_step([batch])["train/loss"]))
-    for step, (lj, lt) in enumerate(losses):
+def resume_both(ref, tt, make_batch, seed):
+    """The port's 3 steps on from the checkpoint beside the reference's:
+    losses within 1e-6 relative."""
+    for step, (lj, lt) in enumerate(resumed_losses(ref, tt, make_batch, seed)):
         assert abs(lj - lt) <= 1e-6 * abs(lj), (step, lj, lt)
-    return jax.device_get(jt.state.params), to_jax_params(tt.state.params)
+    return ref.params[-1], to_jax_params(tt.state.params)
 
 
 def named_stat(jax_stat, reduced_name):
@@ -72,21 +48,12 @@ def named_stat(jax_stat, reduced_name):
 
 @pytest.mark.slow  # about 65 s alone: JAX compiles EfficientNet-b0's backward
 def test_efficientnet_adafactor_checkpoint_converts_and_resumes(tmp_path):
-    aslm = dict(projection_type="mean", audio_encoder_hidden=1280, lm_hidden=32)
-    jm = jaslm.AslmModel(jaslm.AslmConfig(**aslm), jeff.EfficientNetConfig(),
-                         jllm.tiny_test_config(), audio_encoder_type="efficient_net")
-    tm = taslm.AslmModel(taslm.AslmConfig(**aslm), teff.EfficientNetConfig(),
-                         tllm.tiny_test_config(), audio_encoder_type="efficient_net")
-    jp = {"audio_encoder": jeff.init_efficientnet_params(2),
-          "adapter": jaslm.init_aslm_params(1, jm.config),
-          "lm_decoder": jllm.init_llama_params(3, jm.lm_config)}
-    cfg = dict(TRAIN, audio_encoder_type="efficient_net", optimizer="adafactor",
-               learning_rate=None, gradient_accumulation_steps=1)
-    jt = JTrainer(jm, jp, JConfig(**cfg, output_dir=str(tmp_path / "jax")))
-    rng = np.random.default_rng(11)
-    for _ in range(3):
-        jt.training_step([melspec_batch(rng)], fetch_metrics=False)
-    state, ppath = convert(jt, tmp_path)
+    jm, tm, jp = efficientnet_models(2, projection_type="mean")
+    kw = dict(audio_encoder_type="efficient_net", optimizer="adafactor", learning_rate=None)
+    cfg = dict(TRAIN, gradient_accumulation_steps=1, **kw)
+    ref, ppath = jax_checkpoint(melspec_batch, tmp_path, jm, jp, seed=11,
+                                trainer="AATTrainerSegmentation", **kw)
+    state = ref.saved
 
     tt = TTrainer(tm, tm.init_params(7), TConfig(**cfg, output_dir=str(tmp_path / "port")))
     tt.restore_checkpoint(ppath)
@@ -120,15 +87,12 @@ def test_efficientnet_adafactor_checkpoint_converts_and_resumes(tmp_path):
 
     # the running statistics, folded into the resumed params, move on
     mean = tt.state.params["audio_encoder"]["stem"]["bn"]["mean"].clone()
-    jparams, tparams = resume_both(jt, tt, melspec_batch, rng)
+    jparams, tparams = resume_both(ref, tt, melspec_batch, 11)
     assert not torch.equal(tt.state.params["audio_encoder"]["stem"]["bn"]["mean"], mean)
     # a relative step moves a BN scale by about 1e-2, and its RMS-normalized
     # 1-D update turns the rounding-level gradients a train-mode BN leaves
     # into noise of that size; read: 2e-4 at most, 4e-5 on the conv kernels
-    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(jparams)[0],
-                            jax.tree.leaves(tparams)):
-        np.testing.assert_allclose(b, np.asarray(a), atol=2.5e-4, rtol=0,
-                                   err_msg=jax.tree_util.keystr(path))
+    assert_trajectories([], jparams, tparams, 2.5e-4)
 
 
 def test_adafactor_statistics_of_efficientnet_kernels_convert():
@@ -182,40 +146,19 @@ def _get(tree, path):
 
 
 def test_pooling_checkpoint_converts_and_resumes(tmp_path):
-    pool = dict(hidden_dim=32, num_heads=4, num_layers=2, ffn_dim=64, max_positions=64)
-    aslm = dict(projection_type="transformer_encoder", audio_encoder_hidden=32, lm_hidden=32,
-                dropout=0.0)
-    jm = jaslm.AslmModel(jaslm.AslmConfig(pooling=jaslm.PoolingConfig(**pool), **aslm),
-                         jhub.tiny_test_config(), jllm.tiny_test_config())
-    tm = taslm.AslmModel(taslm.AslmConfig(pooling=taslm.PoolingConfig(**pool), **aslm),
-                         thub.tiny_test_config(), tllm.tiny_test_config())
-    jp = {"audio_encoder": jhub.init_hubert_params(0, jm.audio_encoder_config),
-          "adapter": jaslm.init_aslm_params(1, jm.config),
-          "lm_decoder": jllm.init_llama_params(2, jm.lm_config)}
+    jm, tm = pooling_models(hidden_dim=32, num_heads=4, num_layers=2, ffn_dim=64,
+                            max_positions=64)
+    jp = jax_params(jm)
     cfg = dict(TRAIN, gradient_accumulation_steps=1)
-    jt = JTrainer(jm, jp, JConfig(**cfg, output_dir=str(tmp_path / "jax")))
-    rng = np.random.default_rng(12)
-    for _ in range(3):
-        jt.training_step([segmented_batch(rng)], fetch_metrics=False)
-    state, ppath = convert(jt, tmp_path)
-    tt = TTrainer(tm, from_jax_params(jax.tree.map(np.array, jp)),
-                  TConfig(**cfg, output_dir=str(tmp_path / "port")))
+    ref, ppath = jax_checkpoint(segmented_batch, tmp_path, jm, jp, seed=12,
+                                trainer="AATTrainerSegmentation")
+    state = ref.saved
+    tt = TTrainer(tm, port_params(jp), TConfig(**cfg, output_dir=str(tmp_path / "port")))
     tt.restore_checkpoint(ppath)
-    opt, jopt = tt.state.opt_state, state["opt_state"]
+    opt = tt.state.opt_state
     assert tt.state.step == 3 and int(opt.count) == 3
-    for name, got, want in (("params", tt.state.params, state["params"]),
-                            ("mu", opt.mu, jopt.mu), ("nu", opt.nu, jopt.nu)):
-        flat_got = jax.tree_util.tree_flatten_with_path(to_jax_params(got))[0]
-        flat_want = jax.tree_util.tree_flatten_with_path(want)[0]
-        assert ([jax.tree_util.keystr(p) for p, _ in flat_got]
-                == [jax.tree_util.keystr(p) for p, _ in flat_want]), name
-        for (path, a), (_, b) in zip(flat_got, flat_want):
-            np.testing.assert_array_equal(a, np.asarray(b),
-                                          err_msg=f"{name}{jax.tree_util.keystr(path)}")
+    assert_adamw_state_equals(tt, state)
     assert "cls_token" in state["params"]["adapter"] and opt.mu["adapter"]["cls_token"] is not None
-    jparams, tparams = resume_both(jt, tt, segmented_batch, rng)
+    jparams, tparams = resume_both(ref, tt, segmented_batch, 12)
     # a step moves a parameter by about 1e-4; the bound sits far below it
-    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(jparams)[0],
-                            jax.tree.leaves(tparams)):
-        np.testing.assert_allclose(b, np.asarray(a), atol=1e-6, rtol=0,
-                                   err_msg=jax.tree_util.keystr(path))
+    assert_trajectories([], jparams, tparams, 1e-6)

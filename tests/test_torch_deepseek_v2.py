@@ -20,16 +20,9 @@ import reference_deepseek_v2 as ref
 from aat_tpu_torch.models import decoders
 from aat_tpu_torch.models import deepseek_v2 as dsv2
 from test_torch_flash_fwd_mma import meta_library  # noqa: F401  (fixture)
+from tests._torch_threads import two_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def params_and_config(held=8, offset=0, seed=3, **kw):

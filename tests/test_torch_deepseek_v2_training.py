@@ -24,19 +24,12 @@ from aat_tpu_torch.training.config import TrainingConfig
 from aat_tpu_torch.training.optim import tree_map
 from aat_tpu_torch.training.trainer import AATTrainer, caption_cross_entropy
 from aat_tpu_torch.utils import port as tport
+from tests._torch_threads import two_threads  # noqa: F401
 
 TRAIN = dict(learning_rate=1e-3, warmup_steps=2, max_steps=10, compute_dtype="float32",
              logging_steps=1000, eval_steps=0, save_steps=0, gradient_accumulation_steps=1)
 NO_DROPOUT = dict(hidden_dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
                   layerdrop=0.0, feature_projection_dropout=0.0)
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def model_and_params(held=4, offset=2, seed=0):

@@ -19,7 +19,7 @@ from aat_tpu.models import efficientnet as jeff
 from aat_tpu_torch.models import efficientnet as teff
 from aat_tpu_torch.utils.port import encoder_from_jax, from_jax_params, to_jax_params
 from tests.test_port_efficientnet import build_fake_b0, torch_b0_features
-from tests.test_torch_training_projections import two_threads  # noqa: F401
+from tests._torch_threads import two_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

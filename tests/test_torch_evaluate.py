@@ -1,19 +1,15 @@
 """The port's evaluation (``AATTrainer.evaluate``, ``generate_for_batch``,
 ``EarlyStopping`` and the eval step inside ``train``) against the JAX
 trainer's on the same seeded tiny model and batches: whole-utterance,
-segmented and raw-waveform batches (as ``tests/test_end_to_end.py``), both
-attention gates forced down so the eval loss and the generation prefix
-take the flash route (JAX Pallas in interpret mode, the port's plain
-versions on the CPU). ``eval/loss`` within 1e-6 relative, the generated
-ids equal, every metric equal."""
+segmented and raw-waveform batches (as ``tests/test_end_to_end.py``), the
+port's attention gate forced down so its eval loss and generation prefix
+take the flash route (on the CPU the kernels' plain versions), JAX on its
+XLA attention (``tests/_torch_trajectories.py``). ``eval/loss`` within
+1e-6 relative, the generated ids equal, every metric equal."""
 
 import numpy as np
 import pytest
 
-import jax
-
-import aat_tpu.ops.attention as jatt
-import aat_tpu_torch.ops.attention as tatt
 from aat_tpu.training.config import TrainingConfig as JConfig
 from aat_tpu.training.metrics import ComputeMetrics as JMetrics
 from aat_tpu.training.trainer import AATTrainer as JTrainer
@@ -22,9 +18,9 @@ from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.training.metrics import ComputeMetrics as TMetrics
 from aat_tpu_torch.training.trainer import AATTrainer as TTrainer
 from aat_tpu_torch.training.trainer import EarlyStopping, read_checkpoint_meta
-from aat_tpu_torch.utils.port import from_jax_params
-from tests.test_torch_training import TRAIN, captions, jax_params, models, segmented_batch
-from tests.test_torch_training import whole_batch
+from tests._torch_trajectories import (TRAIN, flash_route, jax_params, models, port_model,
+                                       port_params, raw_batch, segmented_batch, whole_batch)
+from tests._torch_threads import two_threads  # noqa: F401
 
 
 class IdWords:
@@ -45,26 +41,18 @@ def with_prefix(batch):
             "prefix_attention_mask": np.ones((ids.shape[0], 2), np.int32)}
 
 
-def raw_batch(rng, b=2):
-    raw = rng.normal(0, 0.3, (b, 1600)).astype(np.float32)
-    lengths = np.array([1600, 1100])[:b]
-    raw[1, 1100:] = 0.0
-    return {"raw_waveforms": raw, "raw_lengths": lengths, **captions(rng, b)}
-
-
 RAW = dict(segmentation="uniform", max_segment_frames=400, max_on_device_segments=5)
 
 
 def trainers(monkeypatch, **train_kw):
-    monkeypatch.setattr(jatt, "MIN_PALLAS_SEQ_LEN", 1)
-    monkeypatch.setattr(tatt, "MIN_PALLAS_SEQ_LEN", 1)
+    flash_route(monkeypatch)
     jm, tm = models()
     jp = jax_params(jm)
     cfg = dict(TRAIN, gradient_accumulation_steps=1, **train_kw)
     tok = IdWords()
     jt = JTrainer(jm, jp, JConfig(**cfg), compute_metrics=JMetrics(tok), tokenizer=tok)
-    tt = TTrainer(tm, from_jax_params(jax.device_get(jp)), TConfig(**cfg),
-                  compute_metrics=TMetrics(tok), tokenizer=tok)
+    tt = TTrainer(tm, port_params(jp), TConfig(**cfg), compute_metrics=TMetrics(tok),
+                  tokenizer=tok)
     return jt, tt
 
 
@@ -105,12 +93,12 @@ def test_train_evaluates_saves_and_stops_early(tmp_path):
     writes each checkpoint with the metric of an eval at that same step
     (and none for a save without one), tracks the best, and stops at the
     eval that early stopping rejects."""
-    jm, tm = models()
+    tm, params = port_model()
     logged = []
     cfg = TConfig(**dict(TRAIN, gradient_accumulation_steps=1, eval_steps=2, save_steps=1,
                          max_steps=10, output_dir=str(tmp_path), save_total_limit=0,
                          early_stopping_patience=1, early_stopping_threshold=1e9))
-    t = TTrainer(tm, from_jax_params(jax.device_get(jax_params(jm))), cfg,
+    t = TTrainer(tm, params, cfg,
                  compute_metrics=TMetrics(IdWords()), log_fn=logged.append, tokenizer=IdWords())
     rng = np.random.default_rng(5)
     data = [with_prefix(whole_batch(rng)) for _ in range(6)]

@@ -24,7 +24,7 @@ from aat_tpu_torch.training.trainer import AATTrainer
 from aat_tpu_torch.utils import port as tport
 from tests.test_torch_checkpoint import make_trainer
 from tests.test_torch_hf_readers import hubert_model, llama_model, save
-from tests.test_torch_training import TRAIN, whole_batch
+from tests._torch_trajectories import TRAIN, whole_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

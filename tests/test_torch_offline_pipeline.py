@@ -17,6 +17,7 @@ import sys
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from aat_tpu.audio import AudioWaveform as JWave
@@ -29,6 +30,7 @@ from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.scripts import mean_segment_embeddings as tmean
 from aat_tpu_torch.scripts import quantize_embeddings as tquant
 from aat_tpu_torch.scripts import segment_embeddings as tsegemb
+from tests._torch_threads import two_threads  # noqa: F401
 from tests.conftest import make_speechlike_waveform
 from tests.test_torch_vq import assert_ids_agree
 
@@ -57,6 +59,12 @@ def jax_segment_embeddings(items, out_dir, encoder=None):
     else:
         params, cfg = jbuild.build_audio_encoder(JConfig(audio_encoder_checkpoint=encoder),
                                                  pretrained=True)
+    params = jax.device_put(params)
+
+    @jax.jit
+    def encode(waveforms, mask):
+        return jhub.hubert_encode(params, cfg, waveforms, mask)
+
     tok = JTok()
     os.makedirs(out_dir)
     for item in items:
@@ -67,7 +75,7 @@ def jax_segment_embeddings(items, out_dir, encoder=None):
         for i, seg in enumerate(segments):
             batch[i, : seg.waveform.shape[-1]] = seg.waveform
             mask[i, : seg.waveform.shape[-1]] = 1
-        frames, frame_mask = jhub.hubert_encode(params, cfg, jnp.asarray(batch), jnp.asarray(mask))
+        frames, frame_mask = encode(jnp.asarray(batch), jnp.asarray(mask))
         frames, frame_mask = np.asarray(frames), np.asarray(frame_mask)
         np.savez(os.path.join(out_dir, item["id"] + ".npz"),
                  **{f"segment_{i}": frames[i, frame_mask[i].astype(bool)]

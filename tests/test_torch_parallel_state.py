@@ -26,14 +26,7 @@ from aat_tpu_torch.parallel.distributed import launch
 from aat_tpu_torch.training import checkpoint as ckpt_lib
 
 import _torch_parallel_workers as workers
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(2, threads))
-    yield
-    torch.set_num_threads(threads)
+from tests._torch_threads import two_threads  # noqa: F401
 
 
 def test_evaluate_under_dp_equals_one_process():

@@ -26,16 +26,9 @@ from aat_tpu_torch.parallel.distributed import launch
 from aat_tpu_torch.training import checkpoint as ckpt_lib
 
 import _torch_parallel_workers as workers
+from tests._torch_threads import two_threads  # noqa: F401
 
 DP2_PP2 = {"dp": 2, "pp": 2}
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(2, threads))
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])

@@ -22,7 +22,7 @@ from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.models import llama as tllm
 from aat_tpu_torch.ops.dropout import fold_seed
 from aat_tpu_torch.utils.port import from_jax_params, port_pooling_encoder, to_tensors
-from tests.test_torch_training_projections import two_threads  # noqa: F401
+from tests._torch_threads import two_threads  # noqa: F401
 
 E, LM = 16, 24
 POOL = dict(hidden_dim=32, num_heads=4, num_layers=2, ffn_dim=64, max_positions=16)

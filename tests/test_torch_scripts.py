@@ -47,6 +47,7 @@ from tests.conftest import make_speechlike_waveform
 from tests.test_collate import WordTokenizer
 from tests.test_torch_checkpoint import tiny_build
 from tests.test_torch_hf_readers import hubert_model, llama_model, save
+from tests._torch_threads import two_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = [f"w{i}" for i in range(24)]
@@ -87,16 +88,6 @@ class FixedWords(WordTokenizer):
 
 def datasets(train, valid):
     return lambda name, split=None: {"train": train, "valid": valid}[split]
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    """Two intra-op threads a test: the test workers share the host's
-    cores, and many-threaded small ops on shared cores run far slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(2, threads))
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -18,7 +18,8 @@ from aat_tpu_torch.scripts import train as ttrain
 from aat_tpu_torch.scripts import validate as tvalidate
 from aat_tpu_torch.training.checkpoint import flatten
 from tests.test_torch_checkpoint import tiny_build
-from tests.test_torch_scripts import losses, seams, speech_items, two_threads  # noqa: F401
+from tests._torch_threads import two_threads  # noqa: F401
+from tests.test_torch_scripts import losses, seams, speech_items
 
 
 def test_train_and_validate_cli_with_efficient_net(tmp_path, seams, monkeypatch):  # noqa: F811

@@ -1,15 +1,14 @@
 """Port ``AATTrainer`` vs the JAX package's at tiny widths: 3 optimizer
 steps on whole-utterance batches, at gradient accumulation 1 and 2, f32
-compute, with both attention gates forced down so both packages
-take the flash route (JAX Pallas in interpret mode, the port's kernel
-plain versions on the CPU). The LM is frozen, as in the default training
-config, so its causal flash backward carries the encoder's gradient.
-Dropout and LayerDrop are off in the parity runs (the two packages cannot
-draw the same masks); a port-only test holds train-mode dropout to
-determinism. The segmented and bf16 runs are in their own files, so the
-test workers take them in parallel."""
+compute, the port on its flash route (its gate forced down; on the CPU the
+kernels' plain versions) and JAX on its XLA attention
+(``tests/_torch_trajectories.py``). The LM is frozen, as in the default
+training config, so its causal flash backward carries the encoder's
+gradient. Dropout and LayerDrop are off in the parity runs (the two
+packages cannot draw the same masks); a port-only test holds train-mode
+dropout to determinism. The segmented and bf16 runs are in their own
+files, so the test workers take them in parallel."""
 
-import dataclasses
 import os
 
 import numpy as np
@@ -18,107 +17,24 @@ import torch
 
 import jax
 
-import aat_tpu.ops.attention as jatt
-import aat_tpu_torch.ops.attention as tatt
-from aat_tpu.models import aslm as jaslm
-from aat_tpu.models import hubert as jhub
-from aat_tpu.models import llama as jllm
-from aat_tpu.training.config import TrainingConfig as JConfig
-from aat_tpu.training.trainer import AATTrainer as JTrainer
 from aat_tpu_torch.data.ondevice import segment_raw_batch
-from aat_tpu_torch.models import aslm as taslm
-from aat_tpu_torch.models import hubert as thub
-from aat_tpu_torch.models import llama as tllm
 from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.training.trainer import AATTrainer as TTrainer
 from aat_tpu_torch.training.trainer import AATTrainerSegmentation, read_checkpoint_meta
-from aat_tpu_torch.utils.port import from_jax_params, to_jax_params
-
-ASLM = dict(projection_type="linear", audio_encoder_hidden=32, lm_hidden=32,
-            projection_hidden=48)
-TRAIN = dict(learning_rate=1e-4, warmup_steps=2, max_steps=10, compute_dtype="float32",
-             logging_steps=1000, eval_steps=0, save_steps=0)
-
-
-def models(**hubert_kw):
-    """(JAX model, port model): tiny HuBERT and Llama on the flash route."""
-    jm = jaslm.AslmModel(
-        jaslm.AslmConfig(**ASLM),
-        dataclasses.replace(jhub.tiny_test_config(), attention_impl="pallas", **hubert_kw),
-        dataclasses.replace(jllm.tiny_test_config(), attention_impl="pallas"))
-    tm = taslm.AslmModel(
-        taslm.AslmConfig(**ASLM),
-        dataclasses.replace(thub.tiny_test_config(), attention_impl="pallas", **hubert_kw),
-        dataclasses.replace(tllm.tiny_test_config(), attention_impl="pallas"))
-    return jm, tm
-
-
-def jax_params(jm, seed=0):
-    return {"audio_encoder": jhub.init_hubert_params(seed, jm.audio_encoder_config),
-            "adapter": jaslm.init_aslm_params(seed + 1, jm.config),
-            "lm_decoder": jllm.init_llama_params(seed + 2, jm.lm_config)}
-
-
-def captions(rng, b, c=6, vocab=100):
-    ids = rng.integers(1, vocab, (b, c))
-    mask = np.ones((b, c), np.int32)
-    mask[-1, c - 2:] = 0
-    return {"input_ids": ids, "attention_mask": mask, "input_ids_attention_mask": mask}
-
-
-def whole_batch(rng, b=2, length=480):
-    """Whole utterances of 480 samples (23 frames at the tiny conv stack),
-    the last one padded."""
-    mask = np.ones((b, length), np.int32)
-    mask[-1, 400:] = 0
-    return {"waveforms": rng.normal(0, 0.3, (b, length)).astype(np.float32),
-            "waveforms_attention_mask": mask, **captions(rng, b)}
-
-
-def segmented_batch(rng, b=2, n_seg=3, frames=240):
-    wmask = np.ones((b, n_seg, frames), np.int32)
-    wmask[1, 1, 200:] = 0
-    smask = np.ones((b, n_seg), np.int32)
-    smask[1, 2] = 0  # a padded segment
-    return {"batched_segments": rng.normal(0, 0.3, (b, n_seg, frames)).astype(np.float32),
-            "segments_waveforms_mask": wmask, "segments_boarders_attention_mask": smask,
-            **captions(rng, b)}
-
-
-def run_both(monkeypatch, make_batch, accum, steps=3, trainer_cls=TTrainer, **train_kw):
-    """Per-step losses and final parameters of both trainers on the same
-    seeded batches and weights."""
-    monkeypatch.setattr(jatt, "MIN_PALLAS_SEQ_LEN", 1)
-    monkeypatch.setattr(tatt, "MIN_PALLAS_SEQ_LEN", 1)
-    jm, tm = models()
-    jp = jax_params(jm)
-    kw = dict(TRAIN, gradient_accumulation_steps=accum, **train_kw)
-    jt = JTrainer(jm, jp, JConfig(**kw))
-    tt = trainer_cls(tm, from_jax_params(jax.device_get(jp)), TConfig(**kw))
-    rng = np.random.default_rng(accum)
-    losses = []
-    for _ in range(steps):
-        micro = [make_batch(rng) for _ in range(accum)]
-        mj, mt = jt.training_step(micro), tt.training_step(micro)
-        losses.append((mj["train/loss"], mt["train/loss"]))
-        assert set(mt) == set(mj)
-    return losses, jax.device_get(jt.state.params), to_jax_params(tt.state.params), mj, mt
-
-
-def assert_trajectories(losses, jparams, tparams, tol):
-    for step, (lj, lt) in enumerate(losses):
-        assert abs(lj - lt) <= tol, (step, lj, lt)
-    flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
-    flat_t = jax.tree.leaves(tparams)
-    for (path, a), b in zip(flat_j, flat_t):
-        np.testing.assert_allclose(b, np.asarray(a), atol=tol, rtol=0,
-                                   err_msg=jax.tree_util.keystr(path))
+from aat_tpu_torch.utils.port import to_jax_params
+from tests._torch_trajectories import (TRAIN, assert_trajectories, flash_route, jax_params,
+                                       jax_reference, models, port_model, raw_batch, run_both,
+                                       whole_batch)
+from tests import _torch_trajectories as trajectories
+from tests._torch_threads import two_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("accum", [1, 2])
 def test_whole_utterance_trajectory_matches_jax(monkeypatch, accum):
-    losses, jparams, tparams, mj, mt = run_both(monkeypatch, whole_batch, accum)
-    assert_trajectories(losses, jparams, tparams, 2e-4)
+    flash_route(monkeypatch)
+    r = run_both(whole_batch, accum=accum, seed=accum)
+    (jparams, tparams), mj, mt = r.params[-1], r.mj, r.mt
+    assert_trajectories(r.losses, jparams, tparams, 2e-4)
     for k in ("train/audio_encdoer_grad_norm", "train/audio_tokens_emb_grad",
               "debug/audio_embeddings_norm_mean", "debug/text_embeddings_mean"):
         assert abs(mt[k] - mj[k]) <= 1e-4 * max(1.0, abs(mj[k])), k
@@ -128,10 +44,22 @@ def test_whole_utterance_trajectory_matches_jax(monkeypatch, accum):
         np.testing.assert_array_equal(b, np.asarray(a))
 
 
+def test_placed_optimizer_state_leaves_the_jax_reference_bit_for_bit(monkeypatch):
+    """The harness replicates the JAX trainer's unplaced optimizer-state
+    leaves (``_place_opt_state``) to compile its step once: the first
+    step's metrics and parameters equal those of the trainer left as it
+    places them. Every later step runs the same program in both, since the
+    step's outputs carry the mesh's sharding."""
+    placed = jax_reference(whole_batch, steps=1)
+    monkeypatch.setattr(trajectories, "_place_opt_state", lambda jt: None)
+    unplaced = jax_reference(whole_batch, steps=1)
+    assert placed.metrics == unplaced.metrics and placed.step == unplaced.step
+    for a, b in zip(jax.tree.leaves(placed.params), jax.tree.leaves(unplaced.params)):
+        np.testing.assert_array_equal(a, b)
+
+
 def dropout_run(seed, rates):
-    _, tm = models(**rates)
-    jm, _ = models()
-    params = from_jax_params(jax.device_get(jax_params(jm)))
+    tm, params = port_model(**rates)
     t = AATTrainerSegmentation(tm, params, TConfig(**TRAIN, gradient_accumulation_steps=1,
                                                    seed=seed))
     rng = np.random.default_rng(0)
@@ -164,9 +92,7 @@ def test_unported_options_raise():
 
     from aat_tpu_torch.parallel.distributed import free_port
 
-    _, tm = models()
-    jm, _ = models()
-    params = from_jax_params(jax.device_get(jax_params(jm)))
+    tm, params = port_model()
     TConfig(**dict(TRAIN, mesh_dp=2, mesh_fsdp=2, mesh_tp=2, mesh_sp=2))  # no longer refused
     with pytest.raises(ValueError, match="mutually exclusive"):
         TTrainer(tm, params, TConfig(**dict(TRAIN, mesh_sp=2, mesh_pp=2)))
@@ -191,17 +117,12 @@ def test_raw_waveform_batch_equals_presegmented():
     """``raw_waveforms`` batches segment on the device inside the step
     (uniform segmentation here); the loss equals that of the same batch
     segmented beforehand by ``segment_raw_batch``."""
-    jm, tm = models()
-    rng = np.random.default_rng(4)
-    raw = rng.normal(0, 0.3, (2, 1600)).astype(np.float32)
-    lengths = np.array([1600, 1100])
-    raw[1, 1100:] = 0.0
-    batch = {"raw_waveforms": raw, "raw_lengths": lengths, **captions(rng, 2)}
+    batch = raw_batch(np.random.default_rng(4))
     cfg = TConfig(**TRAIN, gradient_accumulation_steps=1, segmentation="uniform",
                   max_segment_frames=400, max_on_device_segments=5)
     losses = []
     for presegment in (False, True):
-        params = from_jax_params(jax.device_get(jax_params(jm)))
+        tm, params = port_model()
         t = AATTrainerSegmentation(tm, params, cfg)
         b = {k: torch.as_tensor(v) for k, v in batch.items()}
         if presegment:
@@ -217,8 +138,7 @@ def test_train_epoch_logs_and_stops_at_max_steps():
     """``train``: a step per ``gradient_accumulation_steps`` microbatches,
     logs every ``logging_steps`` with the lr and step time, stops at
     ``max_steps``."""
-    jm, tm = models()
-    params = from_jax_params(jax.device_get(jax_params(jm)))
+    tm, params = port_model()
     logged = []
     cfg = TConfig(**dict(TRAIN, logging_steps=1, max_steps=2), gradient_accumulation_steps=2)
     t = TTrainer(tm, params, cfg, log_fn=logged.append)
@@ -235,8 +155,7 @@ def test_train_writes_checkpoints_at_save_steps(tmp_path, save_steps, max_steps)
     beside it, exactly at the multiples of ``save_steps`` reached before
     ``max_steps`` or the end of the batches (3 here); ``save_steps=0``
     writes none."""
-    jm, tm = models()
-    params = from_jax_params(jax.device_get(jax_params(jm)))
+    tm, params = port_model()
     t = TTrainer(tm, params, TConfig(**dict(TRAIN, save_steps=save_steps, max_steps=max_steps,
                                             output_dir=str(tmp_path)),
                                      gradient_accumulation_steps=1))

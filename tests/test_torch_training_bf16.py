@@ -1,13 +1,14 @@
 """Port ``AATTrainer`` vs the JAX package's with bf16 compute over f32
 masters (the default training config's precision), 3 whole-utterance
-steps at tiny widths, flash route forced on both (helpers in
-test_torch_training.py)."""
+steps at tiny widths, the port on its flash route and JAX on its XLA
+attention (``tests/_torch_trajectories.py``)."""
 
 import numpy as np
 
 import jax
 
-from test_torch_training import jax_params, models, run_both, whole_batch
+from tests._torch_trajectories import flash_route, jax_params, models, run_both, whole_batch
+from tests._torch_threads import two_threads  # noqa: F401
 
 
 def test_bf16_compute_trajectory_close_to_jax(monkeypatch):
@@ -18,8 +19,9 @@ def test_bf16_compute_trajectory_close_to_jax(monkeypatch):
     each weight by about lr whatever its gradient's size, so weights whose
     gradients are near zero may step either way in either package; an
     elementwise bound would be about 2 lr per step and say little."""
-    losses, jparams, tparams, _, _ = run_both(monkeypatch, whole_batch, 1,
-                                              compute_dtype="bfloat16")
+    flash_route(monkeypatch)
+    r = run_both(whole_batch, seed=1, compute_dtype="bfloat16")
+    losses, (jparams, tparams) = r.losses, r.params[-1]
     for lj, lt in losses:
         assert abs(lj - lt) <= 1e-2 * abs(lj), (lj, lt)
     init = jax.device_get(jax_params(models()[0]))

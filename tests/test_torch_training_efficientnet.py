@@ -2,33 +2,28 @@
 EfficientNet-b0 melspec batches ``[2, 2, 64, 26]`` at gradient accumulation
 2 (JAX ``test_trainer_step_updates_bn_running_stats``), f32, with the
 encoder frozen and trained: each microbatch's BN statistics fold into the
-running estimates after the update, as JAX's do (helpers in
-``tests/test_torch_training_projections.py``)."""
+running estimates after the update, as JAX's do (the runner in
+``tests/_torch_trajectories.py``)."""
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from aat_tpu.models import aslm as jaslm
-from aat_tpu.models import efficientnet as jeff
-from aat_tpu.models import llama as jllm
-from aat_tpu_torch.models import aslm as taslm
-from aat_tpu_torch.models import efficientnet as teff
-from aat_tpu_torch.models import llama as tllm
 from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.training.lr_schedule import warmup_linear_schedule
 from aat_tpu_torch.training.trainer import AATTrainerSegmentation as TTrainer
-from aat_tpu_torch.utils.port import from_jax_params, to_jax_params
-from tests.test_torch_training_projections import (  # noqa: F401
-    TOL, TRAIN, melspec_batch, run, two_threads,
-)
+from aat_tpu_torch.utils.port import to_jax_params
+from tests._torch_trajectories import (TRAIN, efficientnet_models, melspec_batch, port_params,
+                                       run_both)
+from tests._torch_threads import two_threads  # noqa: F401
+from tests.test_torch_training_projections import TOL
 
 
 def first_step_grads(tm, jp, cfg, batches):
     """The port's gradient of a step's first microbatches, averaged, in the
     JAX layout (numpy; None on frozen leaves)."""
-    tt = TTrainer(tm, from_jax_params(jax.tree.map(np.array, jp)), TConfig(**cfg))
+    tt = TTrainer(tm, port_params(jp), TConfig(**cfg))
     grads = [tt._grad_step(tt.state.params, tt._to_device(b), 0)[0] for b in batches]
     mean = jax.tree.map(lambda *g: sum(g) / len(g), *grads)
     return to_jax_params(mean)
@@ -53,21 +48,15 @@ def test_efficientnet_melspec_trajectory_and_bn_fold_match_jax(train_encoder):
     inherits the forward's tolerance (``tests/test_torch_efficientnet.py``);
     after the third step of a trained encoder, whose weights then differ
     by up to two steps, to 1e-4."""
-    aslm = dict(projection_type="mean", audio_encoder_hidden=1280, lm_hidden=32)
-    jm = jaslm.AslmModel(jaslm.AslmConfig(**aslm), jeff.EfficientNetConfig(),
-                         jllm.tiny_test_config(), audio_encoder_type="efficient_net")
-    tm = taslm.AslmModel(taslm.AslmConfig(**aslm), teff.EfficientNetConfig(),
-                         tllm.tiny_test_config(), audio_encoder_type="efficient_net")
-    jp = {"audio_encoder": jeff.init_efficientnet_params(2),
-          "adapter": jaslm.init_aslm_params(1, jm.config),
-          "lm_decoder": jllm.init_llama_params(3, jm.lm_config)}
-    cfg = dict(TRAIN, audio_encoder_type="efficient_net", train_audio_encoder=train_encoder,
-               train_lm_decoder=True)
-    rng = np.random.default_rng(5)  # run()'s first step draws these two microbatches
-    grads = first_step_grads(tm, jp, dict(cfg, gradient_accumulation_steps=2),
+    jm, tm, jp = efficientnet_models(2, projection_type="mean")
+    kw = dict(audio_encoder_type="efficient_net", train_audio_encoder=train_encoder,
+              train_lm_decoder=True)
+    rng = np.random.default_rng(5)  # run_both's first step draws these two microbatches
+    grads = first_step_grads(tm, jp, dict(TRAIN, gradient_accumulation_steps=2, **kw),
                              [melspec_batch(rng) for _ in range(2)])
-    losses, jparams, tparams, first = run(jm, tm, jp, cfg, melspec_batch, accum=2, seed=5,
-                                          record_first=True)
+    r = run_both(melspec_batch, (jm, tm), jp, accum=2, seed=5, trainer="AATTrainerSegmentation",
+                 **kw)
+    losses, first, (jparams, tparams) = r.losses, r.params[0], r.params[-1]
     for i, (lj, lt) in enumerate(losses):
         assert np.isfinite(lt) and abs(lj - lt) <= TOL * abs(lj), (i, lj, lt)
     schedule = warmup_linear_schedule(TRAIN["learning_rate"], TRAIN["warmup_steps"],

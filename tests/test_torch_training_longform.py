@@ -5,33 +5,31 @@ head), f32 compute. Both packages' gates are forced down: the flash route
 from T = 1 (``MIN_PALLAS_SEQ_LEN``) and the split backward above a key
 length of 16 (``_FUSED_BWD_MAX_S``), so the encoder (23 frames) and the
 frozen LM (31 positions) both run JAX's ``_bwd_dq_kernel`` /
-``_bwd_dkv_kernel`` (Pallas in interpret mode). On the CPU the port's
-backward is its plain version, which the split kernels' plain versions
-equal bit for bit (test_torch_split_backward.py). Helpers and the
-tolerance are test_torch_training.py's."""
+``_bwd_dkv_kernel`` (Pallas in interpret mode): this test is about that
+route, so its JAX reference keeps it. On the CPU the port's backward is
+its plain version, which the split kernels' plain versions equal bit for
+bit (test_torch_split_backward.py). Helpers and the tolerance are
+``tests/_torch_trajectories.py``'s."""
 
 import dataclasses
+import itertools
 
 import numpy as np
 
 import jax
 
 import aat_tpu.ops.attention as jatt
-import aat_tpu_torch.ops.attention as tatt
 from aat_tpu.models import aslm as jaslm
 from aat_tpu.models import hubert as jhub
 from aat_tpu.models import llama as jllm
-from aat_tpu.training.config import TrainingConfig as JConfig
-from aat_tpu.training.trainer import AATTrainer as JTrainer
 from aat_tpu_torch.models import aslm as taslm
 from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.models import llama as tllm
-from aat_tpu_torch.training.config import TrainingConfig as TConfig
-from aat_tpu_torch.training.trainer import AATTrainer as TTrainer
-from aat_tpu_torch.utils.port import from_jax_params, to_jax_params
 from test_torch_port import tiny_qwen
 from test_torch_split_backward import counting
-from test_torch_training import ASLM, TRAIN, assert_trajectories, whole_batch
+from tests._torch_trajectories import (ASLM, assert_trajectories, flash_route, run_both,
+                                       whole_batch)
+from tests._torch_threads import two_threads  # noqa: F401
 
 SPLIT_ABOVE = 16
 
@@ -42,8 +40,8 @@ def qwen_shaped(llama_module):
 
 def test_longform_trajectory_matches_jax_through_split_backward(monkeypatch):
     calls = []
-    for mod, name in ((jatt, "MIN_PALLAS_SEQ_LEN"), (tatt, "MIN_PALLAS_SEQ_LEN")):
-        monkeypatch.setattr(mod, name, 1)
+    flash_route(monkeypatch)
+    monkeypatch.setattr(jatt, "MIN_PALLAS_SEQ_LEN", 1)
     monkeypatch.setattr(jatt, "_FUSED_BWD_MAX_S", SPLIT_ABOVE)
     for fn in ("_bwd_dq_kernel", "_bwd_dkv_kernel", "_bwd_fused_kernel",
                "_bwd_fused_tri_kernel"):
@@ -65,21 +63,15 @@ def test_longform_trajectory_matches_jax_through_split_backward(monkeypatch):
           "adapter": jaslm.init_aslm_params(jax.random.PRNGKey(3), jm.config),
           "lm_decoder": lm}
     init_lm = jax.device_get(lm)
-    kw = dict(TRAIN, gradient_accumulation_steps=1)
-    jt = JTrainer(jm, jp, JConfig(**kw))
-    tt = TTrainer(tm, from_jax_params(jax.device_get(jp)), TConfig(**kw))
-
-    losses = []
-    for _ in range(3):
-        micro = [whole_batch(rng)]
-        losses.append((jt.training_step(micro)["train/loss"],
-                       tt.training_step(micro)["train/loss"]))
+    # the batches continue the generator that drew the biases: the JAX
+    # trainer's three, then the same three to the port's
+    batches = itertools.cycle([whole_batch(rng) for _ in range(3)])
+    r = run_both(lambda _: next(batches), (jm, tm), jp)
+    losses, (jparams, tparams) = r.losses, r.params[-1]
     assert np.all(np.isfinite(losses))
-    assert_trajectories(losses, jax.device_get(jt.state.params),
-                        to_jax_params(tt.state.params), 2e-4)
+    assert_trajectories(losses, jparams, tparams, 2e-4)
     # the JAX trainer ran its split backward and never the fused one
     assert sorted(set(calls)) == ["_bwd_dkv_kernel", "_bwd_dq_kernel"]
     # the frozen Qwen-shaped LM is bitwise its initial weights
-    for a, b in zip(jax.tree.leaves(init_lm),
-                    jax.tree.leaves(to_jax_params(tt.state.params)["lm_decoder"])):
+    for a, b in zip(jax.tree.leaves(init_lm), jax.tree.leaves(tparams["lm_decoder"])):
         np.testing.assert_array_equal(b, np.asarray(a))

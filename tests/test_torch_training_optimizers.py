@@ -1,5 +1,6 @@
 """The port's ``AATTrainer`` against the JAX package's over 3 steps at tiny
-widths (the flash route forced in both, f32, dropout off), with the
+widths (the port on its flash route, JAX on its XLA attention, f32,
+dropout off; ``tests/_torch_trajectories.py``), with the
 trainer pieces ported after the fused AdamW: ``optimizer="adafactor"``
 with ``learning_rate=None`` (the relative step, under the non-finite
 guard), the unfused chain (``skip_nonfinite_updates=False``), and the LM
@@ -12,44 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-import aat_tpu.ops.attention as jatt
-import aat_tpu_torch.ops.attention as tatt
-from aat_tpu.training.config import TrainingConfig as JConfig
-from aat_tpu.training.trainer import AATTrainer as JTrainer
 from aat_tpu_torch.training import checkpoint as ckpt
 from aat_tpu_torch.training import optim as toptim
 from aat_tpu_torch.training.config import TrainingConfig as TConfig
 from aat_tpu_torch.training.trainer import AATTrainer as TTrainer
-from aat_tpu_torch.utils.port import from_jax_params, to_jax_params
-from tests.test_torch_training import (TRAIN, assert_trajectories, jax_params, models,
-                                       segmented_batch, whole_batch)
+from tests._torch_trajectories import (TRAIN, assert_trajectories, flash_route, jax_params, models,
+                                       port_model, run_both, segmented_batch, whole_batch)
+from tests._torch_threads import two_threads  # noqa: F401
 
 TOL = 2e-4
-
-
-def trajectories(monkeypatch, make_batch=whole_batch, hubert_kw=None, unfreeze_after=None,
-                 steps=3, **train_kw):
-    """Both trainers on the same seeded weights and batches: per-step
-    losses, final parameters (JAX layout) and the trainers; with
-    ``unfreeze_after`` both unfreeze the LM after that many steps."""
-    monkeypatch.setattr(jatt, "MIN_PALLAS_SEQ_LEN", 1)
-    monkeypatch.setattr(tatt, "MIN_PALLAS_SEQ_LEN", 1)
-    jm, tm = models(**(hubert_kw or {}))
-    jp = jax_params(jm)
-    kw = dict(TRAIN, gradient_accumulation_steps=1, **train_kw)
-    jt = JTrainer(jm, jp, JConfig(**kw))
-    tt = TTrainer(tm, from_jax_params(jax.device_get(jp)), TConfig(**kw))
-    rng = np.random.default_rng(7)
-    losses = []
-    for step in range(steps):
-        if step == unfreeze_after:
-            jt.unfreeze_lm_decoder()
-            tt.unfreeze_lm_decoder()
-        batch = make_batch(rng)
-        mj, mt = jt.training_step([batch]), tt.training_step([batch])
-        assert set(mt) == set(mj)
-        losses.append((mj["train/loss"], mt["train/loss"]))
-    return losses, jax.device_get(jt.state.params), to_jax_params(tt.state.params), jt, tt
 
 
 def lm_moved(tparams, jm_seed_params):
@@ -59,18 +31,20 @@ def lm_moved(tparams, jm_seed_params):
 
 
 def test_adafactor_relative_step_trajectory_matches_jax(monkeypatch):
-    losses, jparams, tparams, jt, tt = trajectories(
-        monkeypatch, make_batch=segmented_batch, optimizer="adafactor", learning_rate=None)
-    assert_trajectories(losses, jparams, tparams, TOL)
+    flash_route(monkeypatch)
+    r = run_both(segmented_batch, seed=7, optimizer="adafactor", learning_rate=None)
+    (jparams, tparams), tt = r.params[-1], r.tt
+    assert_trajectories(r.losses, jparams, tparams, TOL)
     assert tt.schedule is None and isinstance(tt.state.opt_state, toptim.GuardNonfiniteState)
     assert int(tt.state.opt_state.inner_state.count) == 3
     assert not lm_moved(tparams, jax.device_get(jax_params(models()[0])))
 
 
 def test_unfused_adamw_trajectory_matches_jax(monkeypatch):
-    losses, jparams, tparams, jt, tt = trajectories(
-        monkeypatch, skip_nonfinite_updates=False, grad_clip_norm=0.05)
-    assert_trajectories(losses, jparams, tparams, TOL)
+    flash_route(monkeypatch)
+    r = run_both(whole_batch, seed=7, skip_nonfinite_updates=False, grad_clip_norm=0.05)
+    tt = r.tt
+    assert_trajectories(r.losses, *r.params[-1], TOL)
     assert isinstance(tt.state.opt_state, toptim.ScaleByAdamState)
     assert int(tt.state.opt_state.count) == 3
 
@@ -80,8 +54,10 @@ def test_unfreeze_mid_run_trajectory_matches_jax(monkeypatch, optimizer):
     """The LM frozen for step 1 (bit for bit), unfrozen for steps 2-3: its
     moments start fresh, the others' carry over, and both packages agree."""
     kw = dict(optimizer="adafactor", learning_rate=None) if optimizer == "adafactor" else {}
-    losses, jparams, tparams, jt, tt = trajectories(monkeypatch, unfreeze_after=1, **kw)
-    assert_trajectories(losses, jparams, tparams, TOL)
+    flash_route(monkeypatch)
+    r = run_both(whole_batch, seed=7, unfreeze_after=1, **kw)
+    (jparams, tparams), tt = r.params[-1], r.tt
+    assert_trajectories(r.losses, jparams, tparams, TOL)
     assert tt.config.train_lm_decoder and lm_moved(tparams, jax.device_get(
         jax_params(models()[0])))
     state = ckpt.flatten(tt.state.opt_state)
@@ -92,10 +68,8 @@ def test_unfreeze_keeps_the_moments_of_what_trained(monkeypatch):
     """``unfreeze_lm_decoder`` after 3 steps: every optimizer-state leaf is
     carried bit for bit (the count too), the LM's moments are new zeros,
     and the forward stops detaching the LM (``tests/test_training.py:367``)."""
-    monkeypatch.setattr(tatt, "MIN_PALLAS_SEQ_LEN", 1)
-    jm, tm = models()
-    tt = TTrainer(tm, from_jax_params(jax.device_get(jax_params(jm))),
-                  TConfig(**dict(TRAIN, gradient_accumulation_steps=1)))
+    flash_route(monkeypatch)
+    tt = TTrainer(*port_model(), TConfig(**dict(TRAIN, gradient_accumulation_steps=1)))
     rng = np.random.default_rng(11)
     for _ in range(3):
         tt.training_step([whole_batch(rng)], fetch_metrics=False)

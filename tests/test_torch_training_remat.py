@@ -21,8 +21,10 @@ from aat_tpu_torch.models import build as tbuild
 from aat_tpu_torch.models import hubert as thub
 from aat_tpu_torch.training import optim as toptim
 from aat_tpu_torch.training.config import TrainingConfig as TConfig
-from tests.test_torch_training_optimizers import TOL, trajectories
-from tests.test_torch_training import assert_trajectories
+from tests._torch_trajectories import (assert_trajectories, flash_route, models, run_both,
+                                       whole_batch)
+from tests._torch_threads import two_threads  # noqa: F401
+from tests.test_torch_training_optimizers import TOL
 
 DROPOUT = dict(hidden_dropout=0.1, attention_dropout=0.1, activation_dropout=0.1,
                layerdrop=0.3)
@@ -135,7 +137,7 @@ def test_build_applies_remat(monkeypatch):
 
 @pytest.mark.parametrize("policy", ["full", "dots"])
 def test_remat_trajectory_matches_jax(monkeypatch, policy):
-    losses, jparams, tparams, jt, tt = trajectories(
-        monkeypatch, hubert_kw=dict(remat=True, remat_policy=policy))
-    assert tt.model.audio_encoder_config.remat and jt.model.audio_encoder_config.remat
-    assert_trajectories(losses, jparams, tparams, TOL)
+    flash_route(monkeypatch)
+    r = run_both(whole_batch, models(remat=True, remat_policy=policy), seed=7)
+    assert r.tt.model.audio_encoder_config.remat and r.reference.model.audio_encoder_config.remat
+    assert_trajectories(r.losses, *r.params[-1], TOL)
