@@ -87,6 +87,7 @@ from aat_tpu_torch.ops.dropout import (
     shift_head_seed,
     uniform_from_seed,
 )
+from aat_tpu_torch.ops.layer_norm import layer_norm
 from aat_tpu_torch.parallel import comm, sequence
 from aat_tpu_torch.parallel.pipeline import gpipe_apply, layer_seq
 from aat_tpu_torch.utils.port import encoder_from_jax
@@ -237,11 +238,7 @@ def init_hubert_params(seed, config: HubertConfig, device=None) -> dict:
 
 
 def _layer_norm(x, p, eps):
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
-    out = (x32 - mean) * torch.rsqrt(var + eps) * p["scale"].float()
-    return (out + p["bias"].float()).to(x.dtype)
+    return layer_norm(x, p["scale"], p["bias"], eps)
 
 
 def _dense(x, p):
@@ -255,7 +252,7 @@ def _conv_stack(params, config: HubertConfig, x: torch.Tensor) -> torch.Tensor:
     for i, layer in enumerate(params["feature_extractor"]):
         h = F.conv1d(h, layer["conv"]["kernel"].to(h.dtype), layer["conv"].get("bias"),
                      stride=config.conv_stride[i])
-        if "layer_norm" in layer:
+        if "layer_norm" in layer:  # over C: the transposes are views (ops/layer_norm)
             h = _layer_norm(h.transpose(1, 2), layer["layer_norm"],
                             config.layer_norm_eps).transpose(1, 2)
         if "group_norm" in layer:

@@ -70,6 +70,14 @@ _SIGNATURES = {
     # scalars), b1, b2, 1 - b1, 1 - b2, eps, weight_decay, has_clip, clip,
     # stream: the guarded update of p, m and v in place
     "aat_adamw_update": [_P] * 6 + [_I, _F, _P, _I] + [_P] * 4 + [_F] * 6 + [_I, _F, _P],
+    # x, y, scale, bias, mean, rstd (or both null), dtype, wdtype, layout
+    # (0 rows [outer, C], 1 channel-first [outer, C, T]), outer, C, T, ldy
+    # (y's channel-row stride), eps, stream: the layer norm's forward
+    # (layer_norm.cu)
+    "aat_layer_norm_fwd": [_P] * 6 + [_I, _I, _I, _I64, _I, _I64, _I64, _F, _P],
+    # x, dy, scale, mean, rstd, dx, dscale, dbias (or both null), partials,
+    # n_partials, dtype, wdtype, layout, outer, C, T, stream: its backward
+    "aat_layer_norm_bwd": [_P] * 9 + [_I, _I, _I, _I, _I64, _I, _I64, _P],
 }
 
 

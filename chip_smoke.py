@@ -245,7 +245,8 @@ Phases, one line each:
      model (hubert-large, the linear projection, SmolLM-135M; seed 0) at
      f32 compute (the 3xTF32 kernels: reduction order sets the
      tolerances), 2 steps of ``projection_training_config()`` on one global
-     batch of 4 utterances of 8-20 s. First an NCCL process group at world
+     batch of 4 utterances of 8-20 s, every process of phases 17 and 18 on
+     cuDNN's deterministic algorithms. First an NCCL process group at world
      size 1 on cuda:0: a step through the mesh code (its collectives on
      NCCL over one rank) equal bit for bit to the plain step (cuDNN
      deterministic). Then the one-process reference in this process, for
@@ -335,6 +336,23 @@ Phases, one line each:
      pair must reach 70% of the bound. Every profiled training step also
      checks that its ``aat_adamw_update`` launches equal its
      ``train.optimizer`` spans.
+ 22. HuBERT's layer norm (``csrc/layer_norm.cu``: ``aat_layer_norm_fwd``,
+     ``aat_layer_norm_bwd``) against its plain version (the f32 composite,
+     ``ops/layer_norm.layer_norm_reference``) right after phase 19
+     (``phase_layer_norm``), at the cells' shapes: conv layer 0 of the
+     whole cell ([40, 512, 40607] channel-first), the encoder's rows
+     ([25360, 1024]) and long-form conv layer 0 ([1, 512, 575999]), bf16
+     and f32: y, dx, dscale and dbias by norm ratio (1e-2 bf16, 1e-4 f32),
+     two backward runs bit for bit, one launch each. The bytes one
+     conv-stack layer saves for the backward (``saved_tensors_hooks``): 6 a
+     value, where the composite keeps 16. Each entry timed against its
+     bytes bound (x read and y written; x and dy read and dx written; the
+     f32 statistics), and the composite; the bf16 entries at the first two shapes must
+     reach ``LAYER_NORM_FLOOR`` (45%) of it. Then a train-mode
+     hubert-large forward and backward under the profiler: no f32
+     ``elementwise_kernel<128, 2>`` left, and the ``ops.layer_norm`` spans
+     equal to the launches. Every profiled training step checks the spans
+     against the launches too.
 Launch counters are reset just before each main path (the two serving
 runs, the 3 training steps, phase 12's runs A and B, the pipeline, the 2
 long-form steps, phase 13's run A and its serve command, phase 14, each
@@ -425,6 +443,21 @@ F32_SOURCE = {"fwd": "aat_tpu_torch/csrc/flash_fwd_tf32x3.cu",
 SDPA_BACKEND = {"bfloat16": "FlashAttention", "float32": "memory-efficient"}  # sdpa_ms
 ENCODER_REL_TOL = 1e-3
 TRAIN_REL_TOL = 1e-3
+# ||out - ref||_F / ||ref||_F of the layer norm's y, dx, dscale and dbias
+# against the f32 composite: bf16 rounds each once (about 2e-3); f32 sums
+# in another order
+LAYER_NORM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# a floor against regressions, under the bf16 entries' shares of their bytes
+# bound (NVIDIA H100 80GB HBM3, 700 W: channel-first 60% forward, 51%
+# backward; rows 66% and 59%): short of the 70% aimed at
+LAYER_NORM_FLOOR = 45.0
+# the layer norm's C entries, forward and backward, and its kernels' names
+LAYER_NORM_ENTRIES = ("aat_layer_norm_fwd", "aat_layer_norm_bwd")
+LAYER_NORM_KERNELS = ("layer_norm_rows_", "layer_norm_cf_", "layer_norm_finish")
+# phase 22: (label, shape, channel-first: shape is [B, C, T], normalised over C)
+LAYER_NORM_CASES = (("whole conv layer 0", (40, 512, 40607), True),
+                    ("encoder rows", (25360, 1024), False),
+                    ("long-form conv layer 0", (1, 512, 575999), True))
 
 # the bounds of the kernels line: NVIDIA H100 SXM peaks (data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -975,6 +1008,199 @@ def phase_dropout(torch, device):
     return result
 
 
+def layer_norm_case(torch, gen, device, shape, channel_first, dtype):
+    """x (the [B, T, C] view of a contiguous [B, C, T] where ``channel_first``),
+    scale, bias and dy of one phase-22 case: x off zero mean and unit
+    variance, scale and bias near HuBERT's."""
+    c = shape[1] if channel_first else shape[-1]
+    x = torch.randn(shape, generator=gen, device=device).mul_(3.0).add_(0.7).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+    scale = (1.0 + 0.2 * torch.randn(c, generator=gen, device=device)).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=gen, device=device)).to(dtype)
+    if channel_first:
+        x, dy = x.transpose(1, 2), dy.transpose(1, 2)
+    return x, scale, bias, dy
+
+
+def layer_norm_grads(torch, norm, x, scale, bias, dy, eps=1e-5):
+    """``(y, dx, dscale, dbias)`` of ``norm`` (the kernel route or the
+    composite) at x's layout."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+    y = norm(*leaves, eps)
+    return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+
+
+def conv_layer_saved_bytes(torch, norm, conv1, conv2, h):
+    """Bytes a value of one conv-stack layer's output that its norm, GELU
+    and the next conv save for the backward (the tensors of the layer's
+    size), read with ``saved_tensors_hooks``."""
+    F = torch.nn.functional
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        y = F.conv1d(h, conv1["conv"]["kernel"], conv1["conv"].get("bias"), stride=2)
+        n = y.numel()
+        y = norm(y.transpose(1, 2), conv1["layer_norm"]["scale"], conv1["layer_norm"]["bias"],
+                 1e-5).transpose(1, 2)
+        F.conv1d(F.gelu(y), conv2["conv"]["kernel"], conv2["conv"].get("bias"), stride=2)
+    return sum(t.numel() * t.element_size() for t in saved if t.numel() == n) / n
+
+
+def hubert_elementwise_profile(torch, device, params, cfg, seconds=12.69, rows=4):
+    """A train-mode hubert-large forward and backward (bf16, dropout) under
+    the profiler: ``(f32 elementwise_kernel<128, 2> kernels by name, their
+    device ms, ops.layer_norm spans, layer norm launches)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aat_tpu_torch.models import hubert as thub
+    from aat_tpu_torch.runtime.kernels import library
+    from aat_tpu_torch.utils import timing
+
+    calls = library().calls
+    gen = torch.Generator(device=device).manual_seed(22)
+    wave = torch.randn((rows, int(seconds * 16000)), generator=gen, device=device)
+    leaves = [t for layer in params["feature_extractor"] for t in layer["layer_norm"].values()]
+
+    def step():
+        hidden, _ = thub.hubert_encode(params, cfg, wave.to(torch.bfloat16), dropout_seed=7)
+        torch.autograd.grad(hidden, leaves, torch.ones_like(hidden))
+
+    step()
+    torch.cuda.synchronize()
+    before = (calls["aat_layer_norm_fwd"] + calls["aat_layer_norm_bwd"],
+              timing.counters().get("span.ops.layer_norm.calls", 0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    after = (calls["aat_layer_norm_fwd"] + calls["aat_layer_norm_bwd"],
+             timing.counters().get("span.ops.layer_norm.calls", 0))
+    found = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA and "elementwise_kernel<128, 2" in e.name
+                and "<float" in e.name):
+            ms, n = found.get(e.name, (0.0, 0))
+            found[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    return found, after[1] - before[1], after[0] - before[0]
+
+
+def layer_norm_entry_ms(torch, device, call, x, scale, bias, dy, iters=20):
+    """Each C entry of the layer norm timed alone (CUDA events over ``iters``
+    launches through ``call(name, *args)``, its arguments made once), with
+    its bytes bound: x read and y and the f32 statistics written; x, dy and
+    the statistics read and dx, dscale and dbias written."""
+    from aat_tpu_torch.ops import layer_norm as ln
+    from aat_tpu_torch.runtime import kernels
+
+    y, layout, base, dims, scale, mean, rstd = ln._forward(x, scale, bias, 1e-5, True)
+    ldy = ln._output(base, layout, dims)[1]
+    dy = (dy.transpose(1, 2) if layout == ln.CHANNELS_FIRST else dy).contiguous()
+    dx = torch.empty_like(base, memory_format=torch.contiguous_format)
+    grads = torch.empty((2, dims[1]), dtype=scale.dtype, device=device)
+    partials = torch.empty((ln.PARTIALS, 2, dims[1]), dtype=torch.float32, device=device)
+    codes = (ln._DTYPES[x.dtype], ln._DTYPES[scale.dtype], layout)
+    stream = kernels.stream_handle(device)
+
+    fwd = (base.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+           rstd.data_ptr(), *codes, *dims, ldy, 1e-5, stream)
+    bwd = (base.data_ptr(), dy.data_ptr(), scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+           dx.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(), partials.data_ptr(),
+           ln.PARTIALS, *codes, *dims, stream)
+    out = {}
+    for kind, args, tensors in (("fwd", fwd, [x, y, mean, rstd]),
+                                ("bwd", bwd, [x, dy, dx, mean, rstd, grads])):
+        entry = "aat_layer_norm_" + kind
+        ms = cuda_ms(torch, lambda: call(entry, *args), iters=iters)
+        bound, _ = bound_ms(tensors, [0.0])
+        out.update({f"{kind}_ms": ms, f"{kind}_bound_ms": bound,
+                    f"{kind}_roofline": 100.0 * bound / ms})
+    return out
+
+
+def phase_layer_norm(torch, device):
+    """22. HuBERT's layer norm kernel pair against the composite (see the
+    module docstring); returns the timings by layout and dtype."""
+    from aat_tpu_torch.models import hubert as thub
+    from aat_tpu_torch.ops import layer_norm as ln
+    from aat_tpu_torch.runtime import kernels
+    from aat_tpu_torch.training.optim import tree_map
+
+    calls = kernels.library().calls
+    gen = torch.Generator(device=device).manual_seed(22)
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    for label, shape, channel_first in LAYER_NORM_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            x, scale, bias, dy = layer_norm_case(torch, gen, device, shape, channel_first, dtype)
+            before = (calls["aat_layer_norm_fwd"], calls["aat_layer_norm_bwd"])
+            got = layer_norm_grads(torch, ln.layer_norm, x, scale, bias, dy)
+            launched = (calls["aat_layer_norm_fwd"] - before[0],
+                        calls["aat_layer_norm_bwd"] - before[1])
+            again = layer_norm_grads(torch, ln.layer_norm, x, scale, bias, dy)
+            same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got[1:], again[1:]))
+            del again
+            want = layer_norm_grads(torch, ln.layer_norm_reference, x, scale, bias, dy)
+            errors = {k: out_errors(g, w)[1]
+                      for k, g, w in zip(("y", "dx", "dscale", "dbias"), got, want)}
+            del got, want
+            print(f"layer norm kernel: {label} {list(shape)} {name}: ||out - ref|| / ||ref|| "
+                  f"{json.dumps(errors)}, backward twice bit for bit {same}, launches "
+                  f"{launched}", flush=True)
+            check(max(errors.values()) <= LAYER_NORM_TOL[name],
+                  f"layer norm {label} {name}: {errors} past {LAYER_NORM_TOL[name]}")
+            check(same, f"layer norm {label} {name}: two backward runs differ")
+            check(launched == (1, 1), f"layer norm {label} {name}: launches {launched}")
+            del x, dy
+            torch.cuda.empty_cache()
+
+    cfg = thub.hubert_large_config()
+    params = tree_map(  # trainable bf16 copies, the trainer's compute cast
+        lambda t: t.detach().to(torch.bfloat16).requires_grad_(True)
+        if t.dtype == torch.float32 else t, thub.init_hubert_params(0, cfg, device))
+    conv1, conv2 = params["feature_extractor"][1:3]
+    h = torch.randn((4, 512, 16241), generator=gen, device=device).to(torch.bfloat16)
+    saved = {route: conv_layer_saved_bytes(torch, norm, conv1, conv2, h)
+             for route, norm in (("kernel", ln.layer_norm), ("plain", ln.layer_norm_reference))}
+    print(f"layer norm: bytes a value one conv-stack layer saves for the backward "
+          f"(norm, GELU, next conv; bf16 [4,512,8120]): {json.dumps(saved)}", flush=True)
+    check(saved == {"kernel": 6.0, "plain": 16.0},
+          f"a conv-stack layer saves {saved} bytes a value")
+    del h
+    found, spans, launches = hubert_elementwise_profile(torch, device, params, cfg)
+    print(f"layer norm: a train-mode hubert-large step [4 x 12.69 s]: ops.layer_norm spans "
+          f"{spans}, launches {launches}; f32 elementwise_kernel<128, 2>: "
+          + ("; ".join(f"{short_name(k)[:120]} {ms:.3f} ms x{n}" for k, (ms, n) in found.items())
+             or "none"), flush=True)
+    check(spans == launches > 0, f"{spans} ops.layer_norm spans against {launches} launches")
+    check(not found, "f32 elementwise_kernel<128, 2> kernels left in HuBERT's step")
+    del params
+    torch.cuda.empty_cache()
+
+    result = {}
+    lib = kernels.library()
+    for label, shape, channel_first in LAYER_NORM_CASES[:2]:
+        key = "channel_first" if channel_first else "rows"
+        for dtype in (torch.bfloat16, torch.float32):
+            x, scale, bias, dy = layer_norm_case(torch, gen, device, shape, channel_first, dtype)
+            times = layer_norm_entry_ms(torch, device, lib.call, x, scale, bias, dy)
+            times["plain_fwd_ms"] = cuda_ms(
+                torch, lambda: ln.layer_norm_reference(x, scale, bias, 1e-5), iters=3, warmup=1)
+            times["plain_fwd_bwd_ms"] = cuda_ms(torch, lambda: layer_norm_grads(
+                torch, ln.layer_norm_reference, x, scale, bias, dy), iters=3, warmup=1)
+            result[f"{key}_{str(dtype)[6:]}"] = {"shape": list(shape), **times}
+            del x, dy
+            torch.cuda.empty_cache()
+    print(f"layer norm kernel timing (ms, % of the bytes bound): {json.dumps(result)}",
+          flush=True)
+    for key in ("channel_first_bfloat16", "rows_bfloat16"):
+        check(min(result[key]["fwd_roofline"], result[key]["bwd_roofline"]) >= LAYER_NORM_FLOOR,
+              f"the bf16 layer norm kernels ({key}) are under {LAYER_NORM_FLOOR}% of their "
+              f"bytes bound")
+    return result
+
+
 # the clip's bounds: the kernel's norm sums in another order than torch's,
 # so the clip's scale may differ by an ulp; the norm within 4 ulp, and each
 # leaf's p, m and v within 4 ulp of its norm (||x - ref|| / ||ref||); single
@@ -1412,10 +1638,11 @@ def ab_flash_entries(torch, device, others, rounds=3, iters=20):
         keys, widths = "head_offset" in text, "int DV" in text
         lib = ctypes.CDLL(path)
         for name, argtypes in kernels._SIGNATURES.items():
-            if name.startswith("aat_flash"):
-                at = AB_HEADS[name] + 6  # DV follows B, T, S, H, KVH, D
-                argtypes = argtypes if widths else argtypes[:at] + argtypes[at + 1:]
-                argtypes = argtypes if keys else argtypes[:-3] + argtypes[-1:]
+            if not name.startswith("aat_flash"):
+                continue  # only the flash entries are timed (an older build may lack others)
+            at = AB_HEADS[name] + 6  # DV follows B, T, S, H, KVH, D
+            argtypes = argtypes if widths else argtypes[:at] + argtypes[at + 1:]
+            argtypes = argtypes if keys else argtypes[:-3] + argtypes[-1:]
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
         libs[label] = (lib, keys, widths)
@@ -1712,11 +1939,12 @@ def flash_entry_calls(calls, path, dtype_name, backward=True):
 def routed(before, dtype_name, label, backward=True):
     """The flash launches since the copy ``before`` of the library's counts
     went through each C entry of ``dtype_name`` (only its forward's unless
-    ``backward``) and no other."""
+    ``backward``) and no other entry moved, but the layer norm's, which
+    every HuBERT forward launches."""
     from aat_tpu_torch.runtime.kernels import library
 
     calls = library().calls
-    moved = {e for e in calls if calls[e] != before.get(e, 0)}
+    moved = {e for e in calls if calls[e] != before.get(e, 0)} - set(LAYER_NORM_ENTRIES)
     want = FLASH_ENTRIES[dtype_name][:3 if backward else 1]
     check(moved == set(want), f"{label}: launches went through {sorted(moved)}, not {want}")
 
@@ -1836,7 +2064,8 @@ def profile_training_step(torch, trainer, micro, name="train"):
     (the union of kernel intervals), the idle share of the step's wall, and
     device time by kernel, to ``<name>_profile.txt`` in the kernels' build
     directory. The dropout kernel's forward launches must equal the step's
-    ``ops.dropout`` spans, and the fused AdamW's update launches its
+    ``ops.dropout`` spans, the layer norm's forward and backward launches
+    its ``ops.layer_norm`` spans, and the fused AdamW's update launches its
     ``train.optimizer`` spans."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1851,7 +2080,10 @@ def profile_training_step(torch, trainer, micro, name="train"):
         found = timing.counters()
         return (calls["aat_dropout_fwd"], calls["aat_dropout_bwd"],
                 found.get("span.ops.dropout.calls", 0), calls["aat_adamw_update"],
-                found.get("span.train.optimizer.calls", 0))
+                found.get("span.train.optimizer.calls", 0),
+                calls["aat_layer_norm_fwd"] + calls["aat_layer_norm_bwd"],
+                found.get("span.ops.layer_norm.calls", 0),
+                found.get("span.ops.layer_norm.device_s", 0.0))
 
     torch.cuda.synchronize()
     before = launch_counts()
@@ -1860,12 +2092,15 @@ def profile_training_step(torch, trainer, micro, name="train"):
         trainer.training_step(micro)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    fwd, bwd, spans, updates, optimizer_spans = (
+    fwd, bwd, spans, updates, optimizer_spans, norms, norm_spans, norm_span_s = (
         a - b for a, b in zip(launch_counts(), before))
     print(f"profile: {name} dropout kernel launches {fwd} forward, {bwd} backward; "
           f"{spans} ops.dropout spans; adamw update launches {updates}, "
-          f"{optimizer_spans} train.optimizer spans", flush=True)
+          f"{optimizer_spans} train.optimizer spans; layer norm launches {norms}, "
+          f"{norm_spans} ops.layer_norm spans", flush=True)
     check(fwd == spans, f"{name}: {fwd} dropout forward launches against {spans} spans")
+    check(norms == norm_spans > 0,
+          f"{name}: {norms} layer norm launches against {norm_spans} spans")
     check(updates == optimizer_spans == 1,
           f"{name}: {updates} adamw update launches against {optimizer_spans} spans")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1896,6 +2131,11 @@ def profile_training_step(torch, trainer, micro, name="train"):
               f"device time: " + "; ".join(f"{kernel} {t / 1e3:.3f} ms, {c} launches"
                                            for kernel, (t, c) in sorted(found.items())),
               flush=True)
+    found = [v for kernel, v in by_name.items() if any(k in kernel for k in LAYER_NORM_KERNELS)]
+    print(f"profile: {name} layer norm kernels {sum(t for t, _ in found) / 1e3:.3f} ms device "
+          f"time, {sum(c for _, c in found)} launches; its ops.layer_norm spans "
+          f"{1e3 * norm_span_s:.3f} ms (CUDA events around each launch's allocations and "
+          f"launch)", flush=True)
 
 
 class WordIds:
@@ -4498,6 +4738,7 @@ def mesh_rank(rank, world_size, port, run, paths):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as the reference (phase_multidevice)
     torch.set_num_threads(2)
     from aat_tpu_torch.models import hubert
     from aat_tpu_torch.ops.dropout import ElementShard
@@ -4562,9 +4803,8 @@ def nccl_world_one(torch, device, paths, batch):
 
     initialize(0, 1, f"tcp://localhost:{free_port()}", device=device)
     backend = dist.get_backend()
-    # bit for bit needs cuDNN's deterministic algorithms (its conv backward
-    # sums in a run-dependent order otherwise), as in phase 12
-    torch.backends.cudnn.deterministic = True
+    # bit for bit needs cuDNN's deterministic algorithms, which the caller set
+    check(torch.backends.cudnn.deterministic, "cuDNN's algorithms are not deterministic")
     try:
         results = []
         for mesh in (None, mesh_lib.make_mesh()):
@@ -4578,7 +4818,6 @@ def nccl_world_one(torch, device, paths, batch):
         (loss_p, plain, _), (loss_m, meshed, collectives) = results
         differ = [k for k in plain if not torch.equal(plain[k], meshed[k])]
     finally:
-        torch.backends.cudnn.deterministic = False
         dist.destroy_process_group()
     print(f"nccl world 1: backend {backend}, loss plain {loss_p!r} mesh {loss_m!r}, "
           f"{len(differ)} of {len(plain)} params differ {differ[:4]}, collectives "
@@ -4602,6 +4841,16 @@ def phase_multidevice(torch, device, rng, smi_line):
     phase_start = time.perf_counter()
     held = torch.cuda.memory_allocated()
     tmp = tempfile.mkdtemp(dir=os.path.join(REPO, "aat_tpu_torch", "build"))
+    # the one-process reference and every rank on cuDNN's deterministic
+    # algorithms: otherwise the conv stack's backward sums in a run-dependent
+    # order, the reference's first-step conv-stack gradients differ from run
+    # to run at rounding level, and AdamW's sign-like first step carries that
+    # into the second step's gradient norms (the reference's
+    # feature-projection norm read 1.26183, 1.26195 and 1.26196 in three runs
+    # in one process on an H100, and 1.2618324 in each of three runs on
+    # deterministic algorithms)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     try:
         model = mesh_model(0.0)
         init = model.init_params(0, device="cpu")  # phase 8's seeded weights
@@ -4692,6 +4941,7 @@ def phase_multidevice(torch, device, rng, smi_line):
                 "train_pipeline": phase_pipeline_parallel(torch, device, tmp, paths, refs,
                                                           norm_refs, batch, smi_line)}
     finally:
+        torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -4775,6 +5025,7 @@ def pp_rank(rank, world_size, port, run, paths):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as the reference (phase_multidevice)
     torch.set_num_threads(2)
     from aat_tpu_torch.parallel import comm
     from aat_tpu_torch.parallel.distributed import initialize
@@ -5187,6 +5438,8 @@ def main():
     phase_backward_keep_mask(torch, device, rng)
     # 19. the element dropout's kernel vs its plain version
     phase_dropout(torch, device)
+    # 22. HuBERT's layer norm kernel pair vs its plain version
+    phase_layer_norm(torch, device)
     # 20. the latent-attention kernels vs their plain versions
     phase_mla_kernels(torch, device, np.random.default_rng(20))
     # 21. the fused guarded AdamW vs its plain route
